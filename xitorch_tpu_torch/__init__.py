@@ -1,0 +1,32 @@
+"""xitorch_tpu_torch: the PyTorch/CUDA port of xitorch_tpu.
+
+The same public surface as the JAX package, written in PyTorch, with the
+JAX package's Pallas TPU kernels rewritten by hand in CUDA C++ for Hopper
+(``csrc/``, built with ``nvcc`` at first use).  First and second order
+gradients flow through solver solutions by implicit differentiation, not
+through iterations.
+
+Ported so far (see ROADMAP.md for the rest):
+
+* ``LinearOperator``, ``MatrixLinearOperator``, ``checklinop``
+* ``TridiagLowRankOperator``, ``BandedLowRankOperator``
+* ``linalg.solve`` with cg / minres / exactsolve / structured_cg
+* ``ops``: the structured CG kernel and the Thomas kernel, each with its
+  plain PyTorch version
+"""
+from xitorch_tpu_torch._core.linop import (  # noqa: F401
+    LinearOperator, MatrixLinearOperator, checklinop,
+)
+from xitorch_tpu_torch._core.structured import (  # noqa: F401
+    BandedLowRankOperator, TridiagLowRankOperator,
+)
+from xitorch_tpu_torch.debug.modes import (  # noqa: F401
+    set_debug_mode, is_debug_enabled, enable_debug, disable_debug,
+)
+from xitorch_tpu_torch.utils.exceptions import (  # noqa: F401
+    GetSetParamsError, ConvergenceWarning, MathWarning,
+)
+from xitorch_tpu_torch.utils.convergence import assert_converged  # noqa: F401
+from xitorch_tpu_torch.version import __version__  # noqa: F401
+
+from xitorch_tpu_torch import linalg, ops, debug, utils  # noqa: F401,E402

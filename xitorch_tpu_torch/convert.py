@@ -1,0 +1,61 @@
+"""Carry operator data across from the JAX package.
+
+:func:`operator_from_numpy` builds the port's operator from numpy arrays
+keyed by the JAX operator's ``_getparamnames`` (``np.asarray(A.d)`` and so
+on), so both packages compute on identical inputs.  This module imports
+no JAX: the arrays are plain numpy.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from xitorch_tpu_torch._core.linop import LinearOperator, MatrixLinearOperator
+from xitorch_tpu_torch._core.structured import (
+    BandedLowRankOperator, TridiagLowRankOperator,
+)
+
+__all__ = ["operator_from_numpy"]
+
+_KINDS = ("TridiagLowRankOperator", "BandedLowRankOperator", "MatrixLinearOperator")
+
+
+def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
+                        dtype: Optional[torch.dtype] = None, *,
+                        offsets: Optional[Sequence[int]] = None,
+                        is_hermitian: Optional[bool] = None) -> LinearOperator:
+    """Build the port's operator from the JAX operator's parameter arrays.
+
+    ``kind``: "TridiagLowRankOperator" (params ``d``, ``c``, optional
+    ``V``), "BandedLowRankOperator" (``d``, ``band_vals`` — a sequence of
+    arrays, one per offset in ``offsets`` — optional ``V``) or
+    "MatrixLinearOperator" (``mat``; ``is_hermitian`` as in
+    ``LinearOperator.m``).  ``dtype`` defaults to each array's own.
+    """
+
+    def t(a):
+        if a is None:
+            return None
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)  # a copy
+
+    if kind == "TridiagLowRankOperator":
+        c = params.get("c")
+        if c is not None and np.asarray(c).size == 0:
+            c = None  # the JAX operator's no-coupling sentinel
+        return TridiagLowRankOperator(t(params["d"]), t(c), t(params.get("V")))
+    if kind == "BandedLowRankOperator":
+        vals = list(params.get("band_vals", ()))
+        if offsets is None or len(offsets) != len(vals):
+            raise ValueError("BandedLowRankOperator needs one offset per band "
+                             "value (offsets=%r, %d bands)" % (offsets, len(vals)))
+        bands = {int(o): t(v) for o, v in zip(offsets, vals)}
+        return BandedLowRankOperator(t(params["d"]), bands, t(params.get("V")))
+    if kind == "MatrixLinearOperator":
+        mat = t(params["mat"])
+        if is_hermitian is None:
+            return LinearOperator.m(mat)
+        return MatrixLinearOperator(mat, is_hermitian)
+    raise ValueError("unknown operator kind %r (known: %s)"
+                     % (kind, ", ".join(_KINDS)))
