@@ -1,4 +1,6 @@
-"""The port's first slice end to end: BASELINE config 3 at a small size.
+"""The port's slices end to end at a small size: BASELINE config 3 (below)
+and BASELINE config 2 (batched dense symeig and svd, forward and gradient,
+at the end of the file).
 
 A batch of TridiagLowRankOperator systems (diag + tridiagonal coupling +
 rank-4), float32, solved by ``linalg.solve(method="structured_cg")``; the
@@ -6,6 +8,7 @@ forward solution and the gradients to d, c, V and b are held against
 xitorch_tpu's (its Pallas kernel in interpret mode) on the same numpy
 inputs.  On the CPU no CUDA kernel may launch.
 """
+import ast
 import importlib.util
 import os
 import subprocess
@@ -21,7 +24,7 @@ import xitorch_tpu as xj
 import xitorch_tpu_torch as xt
 from xitorch_tpu.linalg import solve as jsolve
 from xitorch_tpu_torch.linalg import solve as tsolve
-from xitorch_tpu_torch.ops import structured_cg_cuda, thomas_cuda
+from xitorch_tpu_torch.ops import jacobi_sweep_cuda, structured_cg_cuda, thomas_cuda
 
 torch.set_num_threads(1)
 
@@ -105,8 +108,10 @@ def test_cpu_run_launches_no_kernel():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import xitorch_tpu_torch, xitorch_tpu_torch.convert; "
-            "print(any(m == 'jax' or m.startswith('jax.') for m in sys.modules))")
+    code = ("import sys; import xitorch_tpu_torch, xitorch_tpu_torch.convert, "
+            "xitorch_tpu_torch.ops.jacobi_eigh, xitorch_tpu_torch.linalg.symeig; "
+            "print(any(m.split('.')[0] in ('jax', 'jaxlib', 'xitorch_tpu') "
+            "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=300, check=True)
@@ -129,3 +134,126 @@ def test_port_passes_the_lint_gate(path):
     lint = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(lint)
     assert lint.check_file(Path(path)) == []
+
+
+@pytest.mark.parametrize("path", _lint_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_file_names_no_jax_import(path):
+    """No file of the port (nor chip_smoke.py) imports jax or the JAX
+    package, at top level or inside a function."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "xitorch_tpu"}
+
+
+# ------------------------------------------------------------------
+# BASELINE config 2 at a small size: B = 3, n = 32, neig = 4, float32
+# ------------------------------------------------------------------
+
+B2, N2, NEIG = 3, 32, 4
+
+
+def _config2(seed=0):
+    """benchmarks/bench_symeig.py's recipes at a small size, with numpy: an
+    SPD batch for symeig and a general batch for svd."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((B2, N2, N2)) / np.sqrt(N2)
+    mats = a @ a.transpose(0, 2, 1) + 2.0 * np.eye(N2)
+    gmats = rng.standard_normal((B2, N2, N2)) / np.sqrt(N2)
+    return mats.astype(np.float32), gmats.astype(np.float32)
+
+
+@pytest.mark.parametrize("method, opts", [
+    ("exacteig", {}),
+    ("chebfsi", {"min_eps": 1e-4, "max_niter": 40, "nguess": 12, "v_init": "eye"}),
+    ("davidson", {"min_eps": 1e-4, "max_niter": 800, "v_init": "eye"}),
+])
+def test_config2_forward_matches_jax(method, opts):
+    mats, _ = _config2()
+    Aj = xj.LinearOperator.m(jnp.asarray(mats), is_hermitian=True)
+    At = xt.LinearOperator.m(torch.as_tensor(mats), is_hermitian=True)
+    ej, vj, ij = xj.linalg.symeig(Aj, NEIG, "lowest", method=method, return_info=True,
+                                  **opts)
+    et, vt, it = xt.linalg.symeig(At, NEIG, "lowest", method=method, return_info=True,
+                                  **opts)
+    assert et.shape == (B2, NEIG) and vt.shape == (B2, N2, NEIG)
+    assert et.dtype == vt.dtype == torch.float32
+    assert float(it["converged"]) == float(ij["converged"]) == 1.0
+    e0 = np.linalg.eigvalsh(mats.astype(np.float64))
+    scale = e0.max()
+    # float32 values under the gate of the reference's tests (2e-5 of the
+    # spectral scale); eigenvalue error is quadratic in the 1e-4 residual
+    assert np.abs(et.numpy() - np.asarray(ej)).max() <= 2e-5 * scale
+    assert np.abs(et.numpy() - e0[:, :NEIG]).max() <= 2e-5 * scale
+    # the same subspace (gaps of this spectrum are >= 0.03; float32 vectors)
+    pj = np.asarray(vj) @ np.asarray(vj).transpose(0, 2, 1)
+    pt = (vt @ vt.mT).numpy()
+    assert np.abs(pt - pj).max() <= 5e-3
+    resid = At.mm(vt) - vt * et[..., None, :]
+    assert float(resid.abs().max()) <= 2e-4
+
+
+def test_config2_svd_matches_jax():
+    _, gmats = _config2(seed=1)
+    for method in (None, "exacteig"):
+        uj, sj, vhj = xj.linalg.svd(xj.LinearOperator.m(jnp.asarray(gmats)), NEIG,
+                                    method=method)
+        u, s, vh = xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(gmats)), NEIG,
+                                 method=method)
+        assert u.shape == (B2, N2, NEIG) and s.shape == (B2, NEIG)
+        assert vh.shape == (B2, NEIG, N2)
+        s0 = np.linalg.svd(gmats.astype(np.float64), compute_uv=False)[:, :NEIG][:, ::-1]
+        # float32 singular values, relative to the largest (bench_symeig.py
+        # gates at 5e-3; a direct decomposition does far better)
+        assert np.abs(s.numpy() - np.asarray(sj)).max() <= 1e-5 * s0.max()
+        assert np.abs(s.numpy() - s0).max() <= 1e-5 * s0.max()
+        rec = (u * s[..., None, :]) @ vh
+        recj = (np.asarray(uj) * np.asarray(sj)[..., None, :]) @ np.asarray(vhj)
+        assert np.abs(rec.numpy() - recj).max() <= 1e-4
+
+
+@pytest.mark.parametrize("method, opts", [
+    ("exacteig", {}),
+    ("chebfsi", {"min_eps": 1e-5, "max_niter": 60, "nguess": 12, "v_init": "eye"}),
+])
+def test_config2_gradient_matches_jax(method, opts):
+    # gap-controlled spectrum, as benchmarks/bench_backward.py: the lowest
+    # NEIG gaps of 0.2 keep the implicit gradient float32-resolvable
+    rng = np.random.default_rng(2)
+    lam = np.concatenate([np.linspace(0.2, 0.8, NEIG), np.linspace(2.0, 6.0, N2 - NEIG)])
+    q = np.linalg.qr(rng.standard_normal((B2, N2, N2)))[0]
+    a = ((q * lam) @ q.transpose(0, 2, 1)).astype(np.float32)
+    we = rng.standard_normal((B2, NEIG)).astype(np.float32)
+    wp = rng.standard_normal((B2, N2, N2)).astype(np.float32)
+
+    def fj(x):
+        A = xj.LinearOperator.m((x + jnp.swapaxes(x, -2, -1)) / 2, is_hermitian=True)
+        e, X = xj.linalg.symeig(A, NEIG, "lowest", method=method, **opts)
+        return jnp.sum(e * we) + jnp.sum((X @ jnp.swapaxes(X, -2, -1)) * wp)
+
+    gj = np.asarray(jax.grad(fj)(jnp.asarray(a)))
+    x = torch.tensor(a, requires_grad=True)
+    A = xt.LinearOperator.m((x + x.mT) / 2, is_hermitian=True)
+    e, X = xt.linalg.symeig(A, NEIG, "lowest", method=method, **opts)
+    loss = (e * torch.as_tensor(we)).sum() + ((X @ X.mT) * torch.as_tensor(wp)).sum()
+    (gt,) = torch.autograd.grad(loss, x)
+    assert gt.shape == x.shape and bool(torch.isfinite(gt).all())
+    # float32 eigenvectors at gaps of 0.2 (and, for chebfsi, a 1e-5 residual
+    # and an adjoint CG stopped at rtol 1e-6) on both sides
+    assert _rel(gt, gj) <= TOL
+
+
+def test_config2_cpu_run_launches_no_kernel():
+    jacobi_sweep_cuda.launches = 0
+    mats, gmats = _config2(seed=3)
+    x = torch.tensor(mats, requires_grad=True)
+    A = xt.LinearOperator.m((x + x.mT) / 2, is_hermitian=True)
+    e, X = xt.linalg.symeig(A, NEIG, "lowest", method="exacteig")
+    (e.sum() + (X @ X.mT).sum()).backward()
+    xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(gmats)), NEIG)
+    assert jacobi_sweep_cuda.launches == 0

@@ -11,7 +11,10 @@ Ported so far (see ROADMAP.md for the rest):
 * ``LinearOperator``, ``MatrixLinearOperator``, ``checklinop``
 * ``TridiagLowRankOperator``, ``BandedLowRankOperator``
 * ``linalg.solve`` with cg / minres / exactsolve / structured_cg
-* ``ops``: the structured CG kernel and the Thomas kernel, each with its
+* ``linalg.symeig`` / ``lsymeig`` / ``usymeig`` / ``svd`` with exacteig /
+  davidson / chebfsi, forward and (implicit) gradient
+* ``ops``: the structured CG kernel, the Thomas kernel and the one-sided
+  Jacobi sweep kernel (``jacobi_eigh``, ``jacobi_svd``), each with its
   plain PyTorch version
 """
 from xitorch_tpu_torch._core.linop import (  # noqa: F401

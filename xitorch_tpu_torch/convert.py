@@ -2,12 +2,14 @@
 
 :func:`operator_from_numpy` builds the port's operator from numpy arrays
 keyed by the JAX operator's ``_getparamnames`` (``np.asarray(A.d)`` and so
-on), so both packages compute on identical inputs.  This module imports
-no JAX: the arrays are plain numpy.
+on), so both packages compute on identical inputs; :func:`pencil_from_numpy`
+builds the dense hermitian operator A, and the metric M of a generalized
+pencil ``(A, M)``, that ``symeig`` takes.  This module imports no JAX:
+the arrays are plain numpy.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,7 +19,7 @@ from xitorch_tpu_torch._core.structured import (
     BandedLowRankOperator, TridiagLowRankOperator,
 )
 
-__all__ = ["operator_from_numpy"]
+__all__ = ["operator_from_numpy", "pencil_from_numpy"]
 
 _KINDS = ("TridiagLowRankOperator", "BandedLowRankOperator", "MatrixLinearOperator")
 
@@ -59,3 +61,16 @@ def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
         return MatrixLinearOperator(mat, is_hermitian)
     raise ValueError("unknown operator kind %r (known: %s)"
                      % (kind, ", ".join(_KINDS)))
+
+
+def pencil_from_numpy(a, m=None, device=None, dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[LinearOperator, Optional[LinearOperator]]:
+    """Dense hermitian operators of the eigenproblem ``A X = M X E`` from
+    numpy arrays: ``(A, M)`` with ``M = None`` for the standard problem.
+    Both are declared hermitian (``LinearOperator.m(..., is_hermitian=True)``
+    on the JAX side), so nothing is inferred from the values."""
+    A = operator_from_numpy("MatrixLinearOperator", {"mat": a}, device, dtype,
+                            is_hermitian=True)
+    M = None if m is None else operator_from_numpy(
+        "MatrixLinearOperator", {"mat": m}, device, dtype, is_hermitian=True)
+    return A, M

@@ -4,3 +4,9 @@ from xitorch_tpu_torch.ops.structured_cg import (  # noqa: F401
 from xitorch_tpu_torch.ops.tridiag import (  # noqa: F401
     thomas_cuda, thomas_plain, tridiag_matvec, tridiag_solve, tridiag_solve_kernel,
 )
+# (jacobi_eigh is not re-exported under its own name: it would shadow the
+# submodule of the same name and its ENABLED switch)
+from xitorch_tpu_torch.ops.jacobi_eigh import (  # noqa: F401
+    fits_jacobi_sweep, jacobi_svd, jacobi_sweep, jacobi_sweep_cuda,
+    jacobi_sweep_plain, use_jacobi_for, use_jacobi_svd_for,
+)
