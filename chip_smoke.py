@@ -6,7 +6,7 @@
 Builds every CUDA kernel of the main paths from ``xitorch_tpu_torch/csrc``
 with ``nvcc`` (one compiler process per source, all started together),
 holds each kernel against its plain PyTorch version at the shapes the main
-paths give it, and drives two configurations through the public API:
+paths give it, and drives these configurations through the public API:
 
 * BASELINE config 3: a batch of 512 ``TridiagLowRankOperator`` systems,
   n = 1024, rank 4, float32, solved by
@@ -14,8 +14,25 @@ paths give it, and drives two configurations through the public API:
   (the structured-CG and Thomas kernels);
 * BASELINE config 2: 64 dense symmetric matrices of 256 x 256, float32,
   ``linalg.symeig(A, 8, "lowest")`` by exacteig, davidson, chebfsi and
-  the default routing, ``linalg.svd`` of 64 general matrices, and the
-  gradient to the dense A (the one-sided Jacobi sweep kernel).
+  the default routing (which must be exacteig through the sweep kernel,
+  converged and silent), ``linalg.svd`` of 64 general matrices, and the
+  gradient to the dense A (the one-sided Jacobi sweep kernel);
+* the default routing outside the sweep kernel's window: ``method=None``,
+  ``"exacteig"`` and ``"chebfsi"`` timed at 8 x 1536 x 1536, neig 8;
+* config 2 with the warm start: the divide-and-conquer kernel against its
+  plain version at (64, 256, 256), 8 levels, entry by entry one level at a
+  time from the kernel's own state and by the invariants of the two free
+  runs (and the same 592 products as ``torch.bmm``),
+  ``jacobi_eigh(precondition=True)`` and ``symeig`` with the
+  warm start forced against the cold route (quality gates, sweeps per
+  matrix, guard fall-backs, decomps/s, device idle share), and
+  ``precondition=True`` once at n = 512 and n = 700;
+* config 2 with complex input: the complex sweep kernel against its plain
+  version on (64, 256, 512) packed planes and one rectangular panel, 64
+  hermitian complex64 matrices through ``linalg.symeig`` (default
+  routing), ``linalg.svd`` of 64 complex general matrices, and the
+  gradient of a phase-invariant loss against complex128
+  ``torch.linalg.eigh`` autograd.
 
 It reads the kernels' launch counters to show that each main path went
 through its kernels, and times kernels, forward and gradient with CUDA
@@ -32,6 +49,7 @@ exits non-zero and prints no result.  Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -60,6 +78,20 @@ DAVIDSON_OPTS = {"min_eps": 2e-3, "max_niter": 800}
 # bandwidth and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+# a shape outside the sweep kernels' window, where the default routing's
+# gate is measured; and the sizes beyond config 2 where the warm start is
+# held to the quality gates (batch 8)
+ROUTE_SHAPE = (8, 1536)
+WARM_BIG = (512, 700)
+
+# the DC kernel against its plain version, one level at a time (see
+# dc_level_by_level): largest entrywise difference of G0 and T after a level,
+# as a share of their largest entry; a level that amplifies rounding may
+# differ by up to DC_LEVEL_F64 times what the plain version's own float64
+# run of that level differs from it
+DC_LEVEL_TOL = 1e-4
+DC_LEVEL_F64 = 4.0
 
 
 def card_line() -> str:
@@ -133,23 +165,31 @@ def config3_arrays(np, rng):
     return d, V, b
 
 
-def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum):
-    """Hold the sweep kernel's output ``Gk`` against the plain version's
+def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=False):
+    """Hold a sweep kernel's output ``Gk`` against the plain version's
     ``Gp`` on the panel ``P`` (neither promises a row order, so everything
     compared is invariant under one).  ``spectrum``: the float64 row norms
-    expected at convergence, ascending.  Returns the max abs difference of
-    the sorted row norms."""
+    expected at convergence, ascending.  With ``complexpair`` the panels are
+    packed planes ``[Re | Im]`` and the invariant is the hermitian
+    ``G^H G``.  Returns the max abs difference of the sorted row norms."""
     from xitorch_tpu_torch.ops.jacobi_eigh import _max_cos2
+
+    def wide(G):
+        G = G.double()
+        if not complexpair:
+            return G
+        hw = G.shape[-1] // 2
+        return torch.complex(G[..., :hw], G[..., hw:])
 
     check(bool(torch.isfinite(Gk).all()), "%s: kernel returned non-finite values" % name)
     tol2 = tol * tol
-    gauges = [float(_max_cos2(G).max()) for G in (Gk, Gp)]
+    gauges = [float(_max_cos2(G, complexpair).max()) for G in (Gk, Gp)]
     check(max(gauges) <= tol2 and float(gk.max()) <= tol2,
           "%s: gauge above tol^2: kernel %.3e (its own reading %.3e), plain %.3e, "
           "tol^2 %.3e" % (name, gauges[0], float(gk.max()), gauges[1], tol2))
     # the sweep only rotates rows: G^T G keeps the input's
-    ref = P.double().mT @ P.double()
-    invs = [float(torch.linalg.norm(G.double().mT @ G.double() - ref)
+    ref = wide(P).mH @ wide(P)
+    invs = [float(torch.linalg.norm(wide(G).mH @ wide(G) - ref)
                   / torch.linalg.norm(ref)) for G in (Gk, Gp)]
     nk, npl = (torch.sort(torch.linalg.norm(G.double(), dim=-1), dim=-1).values
                for G in (Gk, Gp))
@@ -174,7 +214,8 @@ def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum):
 def config2(torch, np, xt, device, card):
     """BASELINE config 2 on the card: the Jacobi sweep kernel against its
     plain version, symeig/svd forward and gradient through the public API,
-    and timings.  Returns the kernel's record for the JSON line."""
+    and timings.  Returns the kernel's record for the JSON line and what the
+    later phases share (the batch, its shifted panel, the cold numbers)."""
     import warnings
 
     from xitorch_tpu_torch.ops import jacobi_eigh as jmod
@@ -222,7 +263,7 @@ def config2(torch, np, xt, device, card):
                  rsk, rsp, rgk, tol_r,
                  torch.linalg.svdvals(rect.double()).flip(-1))
 
-    counts = {"fwd": 0, "svd": 0, "grad": 0}
+    counts = {"fwd": 0, "default": 0, "svd": 0, "grad": 0}
 
     def driven(key, fn):
         """Run one main path with the counter at 0 just before it and read
@@ -274,17 +315,22 @@ def config2(torch, np, xt, device, card):
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        ev, X = xt.linalg.symeig(A, NEIG, "lowest")
+        ev, X, info = driven("default", lambda: xt.linalg.symeig(
+            A, NEIG, "lowest", return_info=True))
     from xitorch_tpu_torch.linalg.symeig import _auto_symeig_method
     err, colres, orth = quality(ev, X)
-    print("config 2 default routing (%s): evals rel err %.2e, residual/|A| %.2e, "
-          "warnings: %s" % (_auto_symeig_method(A, NEIG, None), err, colres,
-                            [w.category.__name__ for w in caught]))
-    check(_auto_symeig_method(A, NEIG, None) == "chebfsi", "default routing is not chebfsi")
-    check(all(issubclass(w.category, ConvergenceWarning) for w in caught),
-          "default routing raised another warning than non-convergence")
-    # the scale-aware residual target sqrt(eps)*||A|| bounds the value error
-    check(err <= 1e-3, "default routing: evals off by %.3e" % err)
+    route = _auto_symeig_method(A, NEIG, None)
+    print("config 2 default routing (%s): converged %.0f, evals rel err %.2e, "
+          "residual/|A| %.2e, |X^T X - I|_max %.2e, jacobi launches %d, warnings: %s"
+          % (route, float(info["converged"]), err, colres, orth, counts["default"],
+             [w.category.__name__ for w in caught]))
+    # inside the sweep kernel's window the default is the dense route
+    check(route == "exacteig", "default routing is not exacteig")
+    check(float(info["converged"]) == 1.0, "default routing did not converge")
+    check(not caught, "default routing warned: %s" % [str(w.message) for w in caught])
+    check(counts["default"] >= 1, "default routing did not launch the jacobi kernel")
+    check(err <= 1e-5 and colres < 2e-5 and orth < 5e-5,
+          "default routing: outside the gates")
 
     G = xt.LinearOperator.m(gmats, is_hermitian=False)
     s0 = np.linalg.svd(gmats_np, compute_uv=False)[:, :NEIG][:, ::-1]
@@ -300,7 +346,7 @@ def config2(torch, np, xt, device, card):
     check(counts["svd"] >= 1, "svd: the jacobi kernel was not launched")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        _, sv_d, _ = xt.linalg.svd(G, NEIG)   # top-k: Gram + default symeig
+        _, sv_d, _ = xt.linalg.svd(G, NEIG)   # top-k: Gram + chebfsi
     serr_d = float(np.max(np.abs(sv_d.double().cpu().numpy() - s0) / s0[:, -1:]))
     print("config 2 svd (default routing): rel err %.2e, warnings: %s"
           % (serr_d, [w.category.__name__ for w in caught]))
@@ -338,7 +384,8 @@ def config2(torch, np, xt, device, card):
 
     g_exact = driven("grad", lambda: grad_route("exacteig"))
     real_kernel = jmod.jacobi_sweep_cuda
-    jmod.jacobi_sweep_cuda = lambda p, ms, t: jacobi_sweep_plain(p, ms, t)
+    jmod.jacobi_sweep_cuda = lambda p, ms, t, complexpair=False: \
+        jacobi_sweep_plain(p, ms, t, complexpair)
     cheb_grad_opts = dict(CHEBFSI_OPTS, min_eps=1e-4)
     try:
         g_exact_plain = grad_route("exacteig")
@@ -375,7 +422,7 @@ def config2(torch, np, xt, device, card):
     k_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, max_sweeps, tol), inner=3)
     gauge_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 0, tol), inner=3)
     copy_ms = timed_ms(torch, lambda: panel.clone(), inner=3)
-    plain_ms = once(lambda: jacobi_sweep_plain(panel, max_sweeps, tol), reps=2)
+    plain_ms = once(lambda: jacobi_sweep_plain(panel, max_sweeps, tol), reps=1)
     lib_eigh_panel_ms = once(lambda: torch.linalg.eigh(panel))
     je_ms = timed_ms(torch, lambda: jacobi_eigh(mats), inner=3)
     eigh_ms = once(lambda: torch.linalg.eigh(mats))
@@ -455,12 +502,573 @@ def config2(torch, np, xt, device, card):
     print("    of which: " + "; ".join("%s %.3f ms" % (name[:60], ms)
                                          for name, ms in cheb_top))
 
-    return {"name": "jacobi_sweep", "route": "cuda",
-            "source": "xitorch_tpu_torch/csrc/jacobi_sweep.cu",
-            "replaces": "xitorch_tpu/ops/jacobi_eigh.py:308",
+    record = {"name": "jacobi_sweep", "route": "cuda",
+              "source": "xitorch_tpu_torch/csrc/jacobi_sweep.cu",
+              "replaces": "xitorch_tpu/ops/jacobi_eigh.py:308",
+              "launches": sum(counts.values()), "max_abs_err": sq_err,
+              "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
+              "library_ms": lib_eigh_panel_ms}
+    shared = {"mats": mats, "mats_np": mats_np, "panel": panel, "tol": tol,
+              "cold_kernel_ms": k_ms, "rng": rng}
+    return record, shared
+
+
+def routing_outside_window(torch, np, xt, device, card):
+    """The measurement behind ``_auto_symeig_method``'s gate outside the
+    sweep kernels' window: ``method=None``, ``"exacteig"`` (there
+    ``torch.linalg.eigh``) and ``"chebfsi"`` once each at 8 x 1536 x 1536
+    float32 SPD (config 2's recipe), neig = 8."""
+    import warnings
+
+    from xitorch_tpu_torch.linalg.symeig import _auto_symeig_method
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
+
+    Bo, No = ROUTE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    a = torch.randn((Bo, No, No), generator=gen, device=device) / math.sqrt(No)
+    mats = a @ a.mT + 2.0 * torch.eye(No, device=device)
+    A = xt.LinearOperator.m(mats, is_hermitian=True)
+    e0 = torch.linalg.eigvalsh(mats.double())
+    route = _auto_symeig_method(A, NEIG, None)
+    times, errs, notes = {}, {}, {}
+    for method in (None, "exacteig", "chebfsi"):
+        opts = {"min_eps": None} if method == "chebfsi" else {}
+
+        def run():
+            return xt.linalg.symeig(A, NEIG, "lowest", method=method,
+                                    return_info=True, **opts)
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ev, _, info = run()
+            times[method] = timed_ms(torch, run, reps=1, inner=1)
+        errs[method] = float(((ev.double() - e0[:, :NEIG]).abs()
+                              / e0[:, -1:]).max())
+        notes[method] = "converged %.0f after %.0f" % (float(info["converged"]),
+                                                       float(info["iterations"]))
+        check(all(issubclass(w.category, ConvergenceWarning) for w in caught),
+              "routing outside the window: another warning than non-convergence")
+        # the scale-aware residual target bounds the value error
+        check(errs[method] <= 1e-3, "routing outside the window: %s evals off by %.3e"
+              % (method, errs[method]))
+    faster = "chebfsi" if times["chebfsi"] < times["exacteig"] else "exacteig"
+    print("default routing outside the window (%d x %d x %d float32 SPD, neig %d): "
+          "method=None (-> %s) %.3f ms, exacteig (torch.linalg.eigh) %.3f ms [%s; evals "
+          "rel err %.2e], chebfsi %.3f ms [%s; %.2e]; faster here: %s; the gate %s [%s]"
+          % (Bo, No, No, NEIG, route, times[None], times["exacteig"], notes["exacteig"],
+             errs["exacteig"], times["chebfsi"], notes["chebfsi"], errs["chebfsi"],
+             faster, "agrees" if faster == route else "DISAGREES", card))
+
+
+def dc_level_by_level(torch, a, levels, min_seg, refine=0):
+    """Hold the DC kernel against its plain version one level at a time, from
+    the kernel's own state, on the (B, n, n) float32 CUDA batch ``a``.
+
+    The sort is chaotic over its levels: a level whose projector is soft, or
+    whose probe block has a tiny singular value, amplifies rounding (on
+    config 2's batch the plain version's float32 and float64 runs of one
+    level from one state differ by up to 7e-2 of the largest entry), so two
+    free runs of 8 levels differ by O(1) on some matrices and cannot be
+    compared entry by entry.  One level from the same state can.  For
+    ``level = 1 .. levels`` the kernel runs ``level`` levels from the input
+    (its output after ``level - 1`` levels is the state), and the plain
+    version runs that one level from the kernel's state, in float32 and in
+    float64.  Checked for every matrix and level, frozen segments and deep
+    bookkeeping included:
+
+    * the segment ids after the level are equal;
+    * ``G0`` and ``T`` agree entrywise to ``DC_LEVEL_TOL`` of their largest
+      entry, or, where the level amplifies rounding, to ``DC_LEVEL_F64``
+      times the distance of the float32 plain version from its own float64
+      run (the measure of that amplification);
+    * the kernel's level loses the G-invariant ``G0^T G0 = A^2`` (a rank
+      failure of the slot split, which the guard of the warm start catches)
+      only where the plain version's level from the same state loses it.
+
+    Returns the kernel's full-depth ``(g, t, seg)``, the largest absolute
+    ``|G0_kernel - G0_plain|`` over the levels, and the printed summary's
+    rows."""
+    from xitorch_tpu_torch.ops.dc_kernel import dc_precondition_cuda, dc_precondition_plain
+    from xitorch_tpu_torch.ops.spectral_dc import default_probe
+
+    n = a.shape[-1]
+    om64 = default_probe(n, torch.float32, a.device).double()
+    a64 = a.double()
+    a2 = a64 @ a64
+    a2norm = torch.linalg.norm(a2, dim=(-2, -1))
+    kw = dict(min_seg=min_seg, refine=refine, return_t=True, return_seg=True)
+
+    def rel(x, y, ref):
+        return ((x.double() - y.double()).abs().amax(dim=(-2, -1))
+                / ref.abs().amax(dim=(-2, -1)).double())
+
+    def inv(g):
+        g = g.double()
+        return torch.linalg.norm(g.mT @ g - a2, dim=(-2, -1)) / a2norm
+
+    g_prev, state, rows, max_abs = a, None, [], 0.0
+    for level in range(1, levels + 1):
+        gk, tk, sk = dc_precondition_cuda(a, levels=level, **kw)
+        gp, tp, sp = dc_precondition_plain(g_prev, levels=1, state=state, **kw)
+        state64 = None if state is None else (state[0].double(), state[1])
+        g6, t6, _ = dc_precondition_plain(g_prev.double(), levels=1, state=state64,
+                                          om=om64, **kw)
+        check(bool(torch.isfinite(gk).all()) and bool(torch.isfinite(tk).all()),
+              "dc kernel returned non-finite values at level %d" % level)
+        dg, dg64 = rel(gk, gp, gk), rel(gp, g6, gk)
+        dt, dt64 = rel(tk, tp, tk), rel(tp, t6, tk)
+        inv_k, inv_p = inv(gk), inv(gp)
+        seg_differ = int((sk != sp).sum())
+        amplified = (dg > DC_LEVEL_TOL) | (dt > DC_LEVEL_TOL)
+        sizes = (sk == sk.mT).sum(-1)
+        rows.append("  level %d (segments of %d..%d): |G0_k - G0_p| / max|G0| median %.1e, "
+                    "max %.1e; T %.1e, %.1e; plain float32 against its float64 run: G0 max "
+                    "%.1e, T max %.1e; above %.0e: %d of %d matrices; segment ids differ at "
+                    "%d positions; G-invariant worst kernel %.1e, plain %.1e"
+                    % (level, int(sizes.min()), int(sizes.max()), float(dg.median()),
+                       float(dg.max()), float(dt.median()), float(dt.max()),
+                       float(dg64.max()), float(dt64.max()), DC_LEVEL_TOL,
+                       int(amplified.sum()), a.shape[0], seg_differ, float(inv_k.max()),
+                       float(inv_p.max())))
+        check(seg_differ == 0, "dc: segment ids differ from the plain version's at %d "
+              "positions after level %d" % (seg_differ, level))
+        for what, d, d64 in (("G0", dg, dg64), ("T", dt, dt64)):
+            ok = d <= torch.clamp(DC_LEVEL_F64 * d64, min=DC_LEVEL_TOL)
+            check(bool(ok.all()), "dc: %s of the kernel and of the plain version differ "
+                  "after level %d: %s (plain against its float64 run: %s)"
+                  % (what, level, d[~ok].tolist(), d64[~ok].tolist()))
+        ok = inv_k <= 1.5 * inv_p + 1e-6
+        check(bool(ok.all()), "dc: the kernel's level %d loses the G-invariant where the "
+              "plain version's does not: %s against %s"
+              % (level, inv_k[~ok].tolist(), inv_p[~ok].tolist()))
+        max_abs = max(max_abs, float((gk - gp).abs().max()))
+        g_prev, state = gk, (tk, sk)
+    return (gk, tk, sk), max_abs, rows
+
+
+def config2_warm(torch, np, xt, device, card, shared):
+    """Config 2 with the spectral divide-and-conquer warm start: the DC
+    kernel against its plain version on the panel ``jacobi_eigh`` hands it,
+    then the warm route against the cold one through ``jacobi_eigh`` and
+    ``linalg.symeig``.  Returns the kernel's record for the JSON line."""
+    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+    from xitorch_tpu_torch.ops.dc_kernel import (
+        dc_precondition_cuda, dc_precondition_plain,
+    )
+    from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, jacobi_sweep_cuda
+
+    mats, mats_np, panel = shared["mats"], shared["mats_np"], shared["panel"]
+    levels = max(3, math.ceil(math.log2(N2)))
+    kw = dict(levels=levels, min_seg=2, return_t=True, return_seg=True)
+
+    # ---- kernel vs plain ----
+    # entry by entry, one level at a time from the kernel's own state
+    (gk, tk, segk), dc_abs, rows = dc_level_by_level(torch, panel, levels, 2)
+    # and the two free runs of all the levels: once in some tens of matrices
+    # of this recipe the rounded rank of a soft projector is wrong and the
+    # block loses rank (in float64 too; that is what the guard of the warm
+    # start is for), and which matrices those are depends on the last bit of
+    # the levels before.  Held here: the kernel loses at most one panel more
+    # than the plain version, and its healthy panels concentrate and export
+    # T as the plain version's do.  A lost panel has a rank-deficient Q and
+    # none of these invariants; the level-by-level check above holds the
+    # kernel's step on it to the plain version's.
+    gp, tp, segp = dc_precondition_plain(panel, **kw)
+    torch.cuda.synchronize()
+    gmax = float(gp.abs().max())
+    dc_free = float((gk - gp).abs().max())
+    a64 = panel.double()
+    a2 = a64 @ a64
+    a2norm = torch.linalg.norm(a2, dim=(-2, -1))
+    lam_a = torch.linalg.eigvalsh(a64)
+    scale = lam_a.abs().amax(-1)
+    stats = []
+    for g, t in ((gk, tk), (gp, tp)):
+        g, t = g.double(), t.double()
+        inv = torch.linalg.norm(g.mT @ g - a2, dim=(-2, -1)) / a2norm
+        healthy = inv <= 1e-4
+        gg = g @ g.mT
+        off = gg - torch.diag_embed(torch.diagonal(gg, dim1=-2, dim2=-1))
+        off2 = a2 - torch.diag_embed(torch.diagonal(a2, dim1=-2, dim2=-1))
+        conc = torch.linalg.norm(off, dim=(-2, -1)) / torch.linalg.norm(off2, dim=(-2, -1))
+        tsym = (t - t.mT).abs().amax(dim=(-2, -1))
+        tspec = (torch.linalg.eigvalsh((t + t.mT) / 2) - lam_a).abs().amax(-1) / scale
+        tt = (gg - t @ t).abs().amax(dim=(-2, -1)) / scale ** 2
+        stats.append({
+            "median": float(inv.median()), "healthy": int(healthy.sum()),
+            "lost": torch.nonzero(~healthy).flatten().tolist(),
+            "worst_healthy": float(inv[healthy].max()), "worst": float(inv.max()),
+            "conc": float(conc[healthy].max()), "conc_all": float(conc.max()),
+            "tsym": float(tsym.max()), "tspec": float(tspec[healthy].max()),
+            "tt": float(tt[healthy].max())})
+    n_seg_diff = int((segk != segp).sum())
+    k_st, p_st = stats
+    print("dc kernel vs plain (%d, %d, %d), min_seg 2, level by level from the kernel's "
+          "own state:" % (B2, N2, N2))
+    print("\n".join(rows))
+    print("dc kernel vs plain, free runs of %d levels: max |G0_k - G0_p| %.2e (max |G0| "
+          "%.2f; chaotic, not held), segment ids differ at %d of %d positions"
+          % (levels, dc_free, gmax, n_seg_diff, segk.numel()))
+    for name, st in (("kernel", k_st), ("plain", p_st)):
+        print("  %s: |G0^T G0 - A^2|/|A^2| per matrix median %.2e, healthy (<= 1e-4) %d "
+              "of %d with worst %.2e (lost: matrices %s, worst %.2e); off-diagonal mass of "
+              "G0 G0^T over A^2's <= %.3f over the healthy (%.3f over all), T asymmetry "
+              "%.1e over all; over the healthy: T spectrum rel %.1e, |G0 G0^T - T^2| rel %.1e"
+              % (name, st["median"], st["healthy"], B2, st["worst_healthy"], st["lost"],
+                 st["worst"], st["conc"], st["conc_all"], st["tsym"], st["tspec"],
+                 st["tt"]))
+    for name, st in (("kernel", k_st), ("plain", p_st)):
+        # the reference's gates (tests/test_spectral_dc.py: 1e-4 and 0.25); a
+        # healthy panel sits at ~1e-6, the T invariants at ~5e-6
+        check(st["median"] <= 1e-5, "dc %s: the median panel is unhealthy" % name)
+        check(st["conc"] < 0.25, "dc %s: a panel does not concentrate" % name)
+        check(st["tsym"] < 1e-5 and st["tspec"] < 2e-5 and st["tt"] < 2e-5,
+              "dc %s: T export invariants broken" % name)
+    check(k_st["conc"] <= 1.5 * p_st["conc"],
+          "dc: the kernel's panels concentrate less than the plain version's: %.3f "
+          "against %.3f" % (k_st["conc"], p_st["conc"]))
+    check(k_st["healthy"] >= p_st["healthy"] - 1,
+          "dc: the kernel loses more panels than the plain version: %d of %d (plain %d)"
+          % (B2 - k_st["healthy"], B2, B2 - p_st["healthy"]))
+
+    # ---- the main path: warm against cold ----
+    e_all = np.linalg.eigvalsh(mats_np)
+    scale_np = np.abs(e_all).max(-1, keepdims=True)
+    anorm = np.linalg.norm(mats_np, axis=(1, 2))[:, None]
+
+    def quality(lam, V, k=None):
+        lam = lam.double().cpu().numpy()
+        V = V.double().cpu().numpy()
+        ref = e_all if k is None else e_all[:, :k]
+        err = float(np.max(np.abs(lam - ref) / scale_np))
+        colres = float((np.linalg.norm(mats_np @ V - V * lam[:, None, :], axis=1)
+                        / anorm).max())
+        orth = float(np.abs(V.transpose(0, 2, 1) @ V - np.eye(V.shape[-1])).max())
+        return err, colres, orth
+
+    launches = {"dc": 0, "sweep": 0}
+
+    def driven(fn):
+        dc_precondition_cuda.launches = jacobi_sweep_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        check(dc_precondition_cuda.launches >= 1, "warm path: the dc kernel was not launched")
+        check(jacobi_sweep_cuda.launches >= 1, "warm path: the sweep kernel was not launched")
+        launches["dc"] += dc_precondition_cuda.launches
+        launches["sweep"] += jacobi_sweep_cuda.launches
+        return out
+
+    lw, Vw, iw = driven(lambda: jacobi_eigh(mats, precondition=True, return_info=True))
+    lc, Vc, ic = jacobi_eigh(mats, precondition=False, return_info=True)
+    qw, qc = quality(lw, Vw), quality(lc, Vc)
+    sw, sc = iw["sweeps"].float(), ic["sweeps"].float()
+    n_bad = int(iw["guard_bad"].sum())
+    print("config 2 jacobi_eigh warm / cold: evals rel err %.2e / %.2e, residual/|A| "
+          "%.2e / %.2e, |X^T X - I|_max %.2e / %.2e; sweeps per matrix warm %d..%d (mean "
+          "%.2f), cold %d..%d (mean %.2f); guard fall-backs %d of %d; max |lam_w - lam_c| "
+          "%.2e" % (qw[0], qc[0], qw[1], qc[1], qw[2], qc[2], int(sw.min()), int(sw.max()),
+                    float(sw.mean()), int(sc.min()), int(sc.max()), float(sc.mean()),
+                    n_bad, B2, float((lw - lc).abs().max())))
+    for q, name in ((qw, "warm"), (qc, "cold")):
+        check(q[0] <= 1e-5 and q[1] < 2e-5 and q[2] < 5e-5,
+              "%s jacobi_eigh: outside the gates: %s" % (name, q))
+    check(float(sw.mean()) < float(sc.mean()), "the warm start did not save sweeps")
+    # what the kernel's panel is for: after the same correction and guard it
+    # leaves the sweep as little to do as the plain version's panel
+    left = []
+    for g0 in (gk, gp):
+        g_in, bad = jmod._guard_warm_start(panel, jmod._rot_correct(g0))
+        _, s_left = jacobi_sweep_cuda(g_in.contiguous(), 18, shared["tol"])
+        left.append((float(s_left.float().mean()), int(bad.sum())))
+    print("sweeps left after the warm panel: kernel's %.2f a matrix (guard fall-backs "
+          "%d), plain version's %.2f (%d)" % (left[0][0], left[0][1], left[1][0], left[1][1]))
+    check(abs(left[0][0] - left[1][0]) <= 0.5,
+          "dc: the kernel's panel leaves the sweep more to do than the plain version's")
+
+    A = xt.LinearOperator.m(mats, is_hermitian=True)
+
+    def symeig_forced(warm):
+        # exacteig has no options; its dense decomposition is jacobi_eigh
+        # with the defaults, so the warm start is forced by standing in for it
+        jmod.jacobi_eigh = functools.partial(jacobi_eigh, precondition=warm)
+        try:
+            return xt.linalg.symeig(A, NEIG, "lowest", method="exacteig")
+        finally:
+            jmod.jacobi_eigh = jacobi_eigh
+
+    ev, X = driven(lambda: symeig_forced(True))
+    qs = quality(ev, X, NEIG)
+    print("config 2 symeig exacteig, warm start forced: evals rel err %.2e, residual/|A| "
+          "%.2e, |X^T X - I|_max %.2e; dc launches %d, sweep launches %d on the warm paths"
+          % (qs[0], qs[1], qs[2], launches["dc"], launches["sweep"]))
+    check(qs[0] <= 1e-5 and qs[1] < 2e-5 and qs[2] < 5e-5,
+          "warm symeig: outside the gates: %s" % (qs,))
+
+    # the window the reference covers with its per-level kernel: quality only
+    for n_big in WARM_BIG:
+        gen = torch.Generator(device=device).manual_seed(n_big)
+        a = torch.randn((8, n_big, n_big), generator=gen, device=device) / math.sqrt(n_big)
+        big = a @ a.mT + 2.0 * torch.eye(n_big, device=device)
+        t0 = time.perf_counter()
+        lb, Vb, ib = jacobi_eigh(big, precondition=True, return_info=True)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, icb = jacobi_eigh(big, precondition=False, return_info=True)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        l0 = torch.linalg.eigvalsh(big.double())
+        err = float(((lb.double() - l0).abs() / l0[:, -1:]).max())
+        res = float((torch.linalg.norm((big @ Vb - Vb * lb[:, None, :]).double(), dim=1)
+                     / torch.linalg.norm(big.double(), dim=(1, 2))[:, None]).max())
+        orth = float((Vb.mT @ Vb - torch.eye(n_big, device=device)).abs().max())
+        print("precondition=True at (8, %d, %d): evals rel err %.2e, residual/|A| %.2e, "
+              "|X^T X - I|_max %.2e; sweeps warm mean %.2f, cold mean %.2f; guard "
+              "fall-backs %d; one call warm %.1f ms, cold %.1f ms (host clock) [%s]"
+              % (n_big, n_big, err, res, orth, float(ib["sweeps"].float().mean()),
+                 float(icb["sweeps"].float().mean()), int(ib["guard_bad"].sum()),
+                 warm_s * 1e3, cold_s * 1e3, card))
+        check(err <= 1e-5 and res < 2e-5 and orth < 5e-5,
+              "precondition=True at n=%d: outside the gates" % n_big)
+
+    # ---- timing ----
+    dc_kw = dict(levels=levels, min_seg=2)
+    k_ms = timed_ms(torch, lambda: dc_precondition_cuda(panel, **dc_kw), reps=3, inner=1)
+    plain_ms = timed_ms(torch, lambda: dc_precondition_plain(panel, **dc_kw), reps=3, inner=1)
+    n_products = 74 * levels
+    out = torch.empty_like(panel)
+
+    def products_as_bmm():
+        for _ in range(n_products):
+            torch.bmm(panel, panel, out=out)
+
+    bmm_ms = timed_ms(torch, products_as_bmm, reps=3, inner=1)
+    warm_ms = timed_ms(torch, lambda: jacobi_eigh(mats, precondition=True), reps=3, inner=1)
+    cold_ms = timed_ms(torch, lambda: jacobi_eigh(mats, precondition=False), reps=3, inner=3)
+    g_in = jmod._guard_warm_start(panel, jmod._rot_correct(gk))[0].contiguous()
+    tol = shared["tol"]
+    tail_ms = timed_ms(torch, lambda: jmod._guard_warm_start(panel, jmod._rot_correct(gk)),
+                       reps=3, inner=3)
+    warm_sweep_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(g_in, 18, tol), reps=3, inner=3)
+    sym_warm_ms = timed_ms(torch, lambda: symeig_forced(True), reps=3, inner=1)
+    sym_cold_ms = timed_ms(torch, lambda: symeig_forced(False), reps=3, inner=3)
+    warm_busy, warm_top = device_busy_ms(torch, lambda: symeig_forced(True),
+                                         calls=3, top=5)
+    cold_busy = device_busy_ms(torch, lambda: symeig_forced(False), calls=3)
+    flops = float(B2) * n_products * 2.0 * N2 ** 3
+    k_bound, k_by = bound((2 * B2 * N2 * N2 + N2 * N2) * 4, flops)
+    print("timing, config 2 warm start [%s], CUDA events after warm-up (median):" % card)
+    print("  dc kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s: %d products of 2 n^3 a "
+          "matrix, %.3f TFLOP), the same %d products as torch.bmm %.3f ms (B=%d, n=%d, "
+          "%d levels) [%s]" % (k_ms, plain_ms, k_bound, k_by, n_products, flops / 1e12,
+                               n_products, bmm_ms, B2, N2, levels, card))
+    print("  jacobi_eigh warm %.3f ms (dc %.3f + correction and guard %.3f + sweeps left "
+          "%.3f, mean %.2f a matrix) vs cold %.3f ms (sweep kernel %.3f, mean %.2f) [%s]"
+          % (warm_ms, k_ms, tail_ms, warm_sweep_ms, float(sw.mean()), cold_ms,
+             shared["cold_kernel_ms"], float(sc.mean()), card))
+    print("  symeig exacteig decomps/s: warm %.1f (%.3f ms, device busy %.3f ms, idle "
+          "share %.0f%%), cold %.1f (%.3f ms, device busy %.3f ms, idle share %.0f%%) [%s]"
+          % (B2 / sym_warm_ms * 1e3, sym_warm_ms, warm_busy,
+             100 * max(0.0, 1 - warm_busy / sym_warm_ms), B2 / sym_cold_ms * 1e3,
+             sym_cold_ms, cold_busy, 100 * max(0.0, 1 - cold_busy / sym_cold_ms), card))
+    print("    warm, of which: " + "; ".join("%s %.3f ms" % (name[:60], ms)
+                                               for name, ms in warm_top))
+    print("  precondition=None is the cold sweep; faster in this run: %s"
+          % ("warm" if warm_ms < cold_ms else "cold"))
+    return {"name": "dc_precondition", "route": "cuda",
+            "source": "xitorch_tpu_torch/csrc/dc_kernel.cu",
+            "replaces": "xitorch_tpu/ops/dc_kernel.py:72",
+            "launches": launches["dc"], "max_abs_err": dc_abs,
+            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
+            "library_ms": None}
+
+
+def config2_complex(torch, np, xt, device, card, shared):
+    """Config 2 with complex64 input: the complex sweep kernel against its
+    plain version, then hermitian ``symeig`` (default routing), complex
+    ``svd`` and the gradient through the public API.  Returns the kernel's
+    record for the JSON line."""
+    import warnings
+
+    from xitorch_tpu_torch.linalg.symeig import _auto_symeig_method
+    from xitorch_tpu_torch.ops.jacobi_eigh import (
+        jacobi_eigh, jacobi_sweep_cuda, jacobi_sweep_plain,
+    )
+
+    rng = shared["rng"]
+    c64, f32 = torch.complex64, torch.float32
+
+    def cdev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=c64, device=device)
+
+    # config 2's recipes with complex normals of unit variance
+    z = (rng.standard_normal((B2, N2, N2)) + 1j * rng.standard_normal((B2, N2, N2))) \
+        / math.sqrt(2 * N2)
+    herm = cdev(z @ z.conj().transpose(0, 2, 1) + 2.0 * np.eye(N2))
+    herm = (herm + herm.mH) / 2
+    gen_c = cdev((rng.standard_normal((B2, N2, N2)) + 1j * rng.standard_normal((B2, N2, N2)))
+                 / math.sqrt(2 * N2))
+    herm_np = herm.to(torch.complex128).cpu().numpy()
+    gen_np = gen_c.to(torch.complex128).cpu().numpy()
+    tol = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2)
+    max_sweeps = 18
+
+    # ---- kernel vs plain: the hermitian panel and one rectangular panel ----
+    absa = herm.abs()
+    diag = torch.diagonal(herm, dim1=-2, dim2=-1).real
+    lower = (diag - (absa.sum(-1) - diag.abs())).amin(-1)
+    sigma = torch.clamp(-lower, min=0.0) + 0.01 * torch.linalg.norm(herm, dim=(-2, -1))
+    shifted = herm + sigma[:, None, None] * torch.eye(N2, device=device)
+    panel = torch.cat([shifted.real, -shifted.imag], dim=-1).contiguous()   # (B, n, 2n)
+    Gk, sk, gk, rk = jacobi_sweep_cuda(panel, max_sweeps, tol, return_stats=True,
+                                       complexpair=True)
+    Gp, sp = jacobi_sweep_plain(panel, max_sweeps, tol, complexpair=True)
+    torch.cuda.synchronize()
+    spectrum = torch.linalg.eigvalsh(shifted.to(torch.complex128))
+    sq_err = sweep_checks(torch, "jacobi_sweep_complex (%d, %d, %d)" % (B2, N2, 2 * N2),
+                          panel, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=True)
+    # rows = the first 128 columns of the general batch: Hestenes' complex SVD
+    cols = gen_c[:, :, :N2 // 2].mT
+    rect = torch.cat([cols.real, cols.imag], dim=-1).contiguous()           # (B, 128, 512)
+    tol_r = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2 // 2)
+    Rk, rsk, rgk, _ = jacobi_sweep_cuda(rect, max_sweeps, tol_r, return_stats=True,
+                                        complexpair=True)
+    Rp, rsp = jacobi_sweep_plain(rect, max_sweeps, tol_r, complexpair=True)
+    torch.cuda.synchronize()
+    sweep_checks(torch, "jacobi_sweep_complex (%d, %d, %d)" % (B2, N2 // 2, 2 * N2), rect,
+                 Rk, Rp, rsk, rsp, rgk, tol_r,
+                 torch.linalg.svdvals(cols.to(torch.complex128)).flip(-1), complexpair=True)
+
+    counts = {"fwd": 0, "svd": 0, "grad": 0}
+
+    def driven(key, fn):
+        jacobi_sweep_cuda.launches_complex = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[key] += jacobi_sweep_cuda.launches_complex
+        return out
+
+    # ---- the complex configuration through the public API ----
+    A = xt.LinearOperator.m(herm, is_hermitian=True)
+    e_all = np.linalg.eigvalsh(herm_np)
+    scale = np.abs(e_all).max(-1, keepdims=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ev, X, info = driven("fwd", lambda: xt.linalg.symeig(A, NEIG, "lowest",
+                                                             return_info=True))
+    route = _auto_symeig_method(A, NEIG, None)
+    lam = ev.double().cpu().numpy()
+    V = X.to(torch.complex128).cpu().numpy()
+    err = float(np.max(np.abs(lam - e_all[:, :NEIG]) / scale))
+    colres = float((np.linalg.norm(herm_np @ V - V * lam[:, None, :], axis=1)
+                    / np.linalg.norm(herm_np, axis=(1, 2))[:, None]).max())
+    orth = float(np.abs(V.conj().transpose(0, 2, 1) @ V - np.eye(NEIG)).max())
+    print("complex config symeig (default routing: %s): converged %.0f, evals rel err "
+          "%.2e, residual/|A| %.2e, |X^H X - I|_max %.2e, complex sweep launches %d, "
+          "warnings: %s" % (route, float(info["converged"]), err, colres, orth,
+                            counts["fwd"], [w.category.__name__ for w in caught]))
+    check(route == "exacteig" and not caught and float(info["converged"]) == 1.0,
+          "complex symeig: the default routing is not the silent dense route")
+    check(ev.dtype == f32 and X.dtype == c64 and tuple(X.shape) == (B2, N2, NEIG),
+          "complex symeig: bad types or shapes")
+    # the reference's complex64 gate (tests/test_jacobi_eigh.py): 3e-5
+    check(err <= 3e-5 and colres < 3e-5 and orth < 5e-5,
+          "complex symeig: outside the gates")
+    check(counts["fwd"] >= 1, "complex symeig: the complex kernel was not launched")
+
+    G = xt.LinearOperator.m(gen_c, is_hermitian=False)
+    s0 = np.linalg.svd(gen_np, compute_uv=False)[:, :NEIG][:, ::-1]
+    u, sv, vh = driven("svd", lambda: xt.linalg.svd(G, NEIG))
+    serr = float(np.max(np.abs(sv.double().cpu().numpy() - s0) / s0[:, -1:]))
+    rec = float((gen_c @ vh.mH - u * sv[..., None, :]).abs().max())
+    print("complex config svd: top-%d singular values rel err %.2e, |A V - U S|_max %.2e, "
+          "complex sweep launches %d" % (NEIG, serr, rec, counts["svd"]))
+    check(tuple(u.shape) == (B2, N2, NEIG) and tuple(vh.shape) == (B2, NEIG, N2),
+          "complex svd: bad shapes")
+    check(serr <= 3e-5 and rec <= 1e-4, "complex svd: outside the gates")
+    check(counts["svd"] >= 1, "complex svd: the complex kernel was not launched")
+
+    # ---- gradient of a phase-invariant loss, gap-controlled spectrum ----
+    lamg = np.concatenate([np.linspace(0.2, 1.6, NEIG), np.linspace(2.0, 6.0, N2 - NEIG)])
+    q = np.linalg.qr(rng.standard_normal((B2, N2, N2))
+                     + 1j * rng.standard_normal((B2, N2, N2)))[0]
+    gap = cdev((q * lamg) @ q.conj().transpose(0, 2, 1))
+    w_e = torch.as_tensor(rng.standard_normal((B2, NEIG)), dtype=f32, device=device)
+    w_p = torch.as_tensor(rng.standard_normal((B2, N2, N2)), dtype=f32, device=device)
+
+    def loss_of(evals, Xv):
+        # eigenvalues and the projector X X^H: invariant under the phases of
+        # the eigenvectors and under rotations inside a degenerate cluster
+        return (evals * w_e.to(evals.dtype)).sum() \
+            + ((Xv @ Xv.mH).real * w_p.to(evals.dtype)).sum()
+
+    def grad_route():
+        re = gap.real.detach().clone().requires_grad_()
+        im = gap.imag.detach().clone().requires_grad_()
+        x = torch.complex(re, im)
+        Ag = xt.LinearOperator.m((x + x.mH) / 2, is_hermitian=True)
+        e, Xv = xt.linalg.symeig(Ag, NEIG, "lowest")
+        return torch.autograd.grad(loss_of(e, Xv), (re, im))
+
+    g_re, g_im = driven("grad", grad_route)
+    re64 = gap.real.double().requires_grad_()
+    im64 = gap.imag.double().requires_grad_()
+    x64 = torch.complex(re64, im64)
+    e64, X64 = torch.linalg.eigh((x64 + x64.mH) / 2)
+    r_re, r_im = torch.autograd.grad(loss_of(e64[:, :NEIG], X64[:, :, :NEIG]), (re64, im64))
+    rels = [float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+            for a, b in ((g_re, r_re), (g_im, r_im))]
+    print("complex config gradient to Re A and Im A: rel L2 vs complex128 "
+          "torch.linalg.eigh autograd %.2e / %.2e, complex sweep launches %d"
+          % (rels[0], rels[1], counts["grad"]))
+    check(bool(torch.isfinite(g_re).all()) and bool(torch.isfinite(g_im).all()),
+          "complex gradient: non-finite values")
+    # float32 eigenvectors at gaps of 0.2, as for the real gradient
+    check(max(rels) <= 5e-3, "complex gradient disagrees with complex128 eigh")
+    check(counts["grad"] >= 1, "complex gradient: the complex kernel was not launched")
+
+    # ---- timing ----
+    k_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, max_sweeps, tol,
+                                                     complexpair=True), reps=3, inner=3)
+    plain_ms = timed_ms(torch, lambda: jacobi_sweep_plain(panel, max_sweeps, tol,
+                                                          complexpair=True), reps=1, inner=1)
+    lib_ms = timed_ms(torch, lambda: torch.linalg.eigh(shifted), reps=2, inner=1)
+    je_ms = timed_ms(torch, lambda: jacobi_eigh(herm), reps=3, inner=3)
+    sym_ms = timed_ms(torch, lambda: xt.linalg.symeig(A, NEIG, "lowest"), reps=3, inner=3)
+    svd_ms = timed_ms(torch, lambda: xt.linalg.svd(G, NEIG), reps=3, inner=3)
+    svd_lib_ms = timed_ms(torch, lambda: torch.linalg.svd(gen_c, full_matrices=False),
+                          reps=2, inner=1)
+    grad_ms = timed_ms(torch, grad_route, reps=3, inner=3)
+    sym_busy = device_busy_ms(torch, lambda: xt.linalg.symeig(A, NEIG, "lowest"), calls=3)
+    # the bound on this run's data: the packed panel read once and written
+    # once; per pair visit the two reductions (4 W operations, W = 2 n the
+    # packed width), per applied rotation the phase and the rotation on both
+    # planes (11 W), and one hermitian gauge (upper triangle, 4 W a pair) and
+    # norm refresh (2 W a row) before the first sweep and after each
+    W = 2 * N2
+    rounds = -(-(N2 - 1) // 6) * 6
+    sweeps_total, rot_total = float(sk.sum()), float(rk.sum())
+    flops = (sweeps_total * rounds * (N2 // 2) * 4 * W + rot_total * 11 * W
+             + (sweeps_total + B2) * ((N2 * (N2 - 1) // 2) * 4 * W + N2 * 2 * W))
+    k_bound, k_by = bound(2 * B2 * N2 * W * 4, flops)
+    print("timing, complex config [%s], CUDA events after warm-up (median):" % card)
+    print("  jacobi_sweep_complex kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s), "
+          "torch.linalg.eigh of the same complex64 batch %.3f ms; mean sweeps per matrix "
+          "%.2f, rotations applied %.0f of %.0f pair visits (B=%d, n=%d, packed width %d) "
+          "[%s]" % (k_ms, plain_ms, k_bound, k_by, lib_ms, sweeps_total / B2, rot_total,
+                    sweeps_total * rounds * (N2 // 2), B2, N2, W, card))
+    print("  jacobi_eigh (complex64) %.3f ms; symeig default %.1f decomps/s (%.3f ms, "
+          "device busy %.3f ms, idle share %.0f%%); svd %.1f decomps/s (%.3f ms) vs "
+          "torch.linalg.svd %.3f ms; gradient %.1f grads/s (%.3f ms) [%s]"
+          % (je_ms, B2 / sym_ms * 1e3, sym_ms, sym_busy,
+             100 * max(0.0, 1 - sym_busy / sym_ms), B2 / svd_ms * 1e3, svd_ms, svd_lib_ms,
+             B2 / grad_ms * 1e3, grad_ms, card))
+    return {"name": "jacobi_sweep_complex", "route": "cuda",
+            "source": "xitorch_tpu_torch/csrc/jacobi_sweep_complex.cu",
+            "replaces": "xitorch_tpu/ops/jacobi_eigh.py:420",
             "launches": sum(counts.values()), "max_abs_err": sq_err,
             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
-            "library_ms": lib_eigh_panel_ms}
+            "library_ms": lib_ms}
 
 
 def main() -> int:
@@ -491,8 +1099,9 @@ def main() -> int:
              torch.get_float32_matmul_precision()))
 
     # ---- 1. build ----
-    t0 = time.perf_counter()
-    libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep"])
+    t_start = t0 = time.perf_counter()
+    libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
+                         "jacobi_sweep_complex"])
     print("build: %.1f s; %s" % (time.perf_counter() - t0,
                                  ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
 
@@ -705,7 +1314,16 @@ def main() -> int:
           % (cg_bound, cg_by, th_bound, th_by, card))
 
     # ---- 7. BASELINE config 2: the Jacobi sweep kernel, symeig and svd ----
-    jacobi_record = config2(torch, np, xt, device, card)
+    jacobi_record, shared = config2(torch, np, xt, device, card)
+
+    # ---- 8. the default routing outside the sweep kernel's window ----
+    routing_outside_window(torch, np, xt, device, card)
+
+    # ---- 9. config 2 with the warm start: the DC kernel ----
+    dc_record = config2_warm(torch, np, xt, device, card, shared)
+
+    # ---- 10. config 2 with complex input: the complex sweep kernel ----
+    complex_record = config2_complex(torch, np, xt, device, card, shared)
 
     print(json.dumps({"kernels": [
         {"name": "structured_cg", "route": "cuda",
@@ -720,8 +1338,9 @@ def main() -> int:
          "launches": launches["thomas"], "max_abs_err": th_abs,
          "ms": th_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
          "bound_by": th_by, "library_ms": None},
-        jacobi_record,
+        jacobi_record, dc_record, complex_record,
     ]}))
+    print("total: %.1f s" % (time.perf_counter() - t_start))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

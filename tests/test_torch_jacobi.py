@@ -1,7 +1,9 @@
 """The port's one-sided Jacobi sweep, jacobi_eigh and jacobi_svd against the
-JAX package (its Pallas kernel in interpret mode, cold sweep) and numpy, on
-the same numpy inputs.  On the CPU the sweep is the plain PyTorch version;
-the CUDA kernel is held against it in tests/test_torch_kernels_cuda.py."""
+JAX package (its Pallas kernels in interpret mode) and numpy, on the same
+numpy inputs: the cold sweep, the warm start with its correction and guard,
+and complex input on packed planes.  On the CPU the sweep is the plain
+PyTorch version; the CUDA kernels are held against it in
+tests/test_torch_kernels_cuda.py."""
 import math
 
 import jax.numpy as jnp
@@ -9,13 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from xitorch_tpu.ops.jacobi_eigh import _guard_warm_start as jguard_warm_start
 from xitorch_tpu.ops.jacobi_eigh import _pallas_g_panel
+from xitorch_tpu.ops.jacobi_eigh import _rot_correct as jrot_correct
 from xitorch_tpu.ops.jacobi_eigh import jacobi_eigh as jjacobi_eigh
 from xitorch_tpu.ops.jacobi_eigh import jacobi_svd as jjacobi_svd
 from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+from xitorch_tpu_torch.ops.dc_kernel import dc_precondition_plain
 from xitorch_tpu_torch.ops.jacobi_eigh import (
-    _max_cos2, fits_jacobi_sweep, jacobi_eigh, jacobi_svd, jacobi_sweep,
-    jacobi_sweep_cuda, jacobi_sweep_plain, use_jacobi_for, use_jacobi_svd_for,
+    _guard_warm_start, _max_cos2, _rot_correct, fits_jacobi_sweep, in_jacobi_window,
+    jacobi_eigh, jacobi_svd, jacobi_sweep, jacobi_sweep_cuda, jacobi_sweep_plain,
+    use_jacobi_for, use_jacobi_svd_for,
 )
 
 torch.set_num_threads(1)
@@ -151,26 +157,31 @@ def test_rejection_paths():
         jacobi_eigh(torch.zeros(2, 3, 4))
     with pytest.raises(ValueError):
         jacobi_svd(torch.zeros(3))
-    for kw in ({"precondition": True}, {"deflate": True}):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            jacobi_eigh(a, **kw)
-    with pytest.raises(NotImplementedError, match="complex"):
-        jacobi_eigh(a.to(torch.complex64))
-    with pytest.raises(NotImplementedError, match="complex"):
-        jacobi_svd(a.to(torch.complex64))
-    # precondition=None and False are the cold sweep
+    with pytest.raises(NotImplementedError, match="last slice"):
+        jacobi_eigh(a, deflate=True)
+    # the warm start is real-only, as in the reference
+    with pytest.raises(ValueError, match="complex"):
+        jacobi_eigh(a.to(torch.complex64), precondition=True)
+    # precondition=None and False are the cold sweep; True gives the same
+    # eigenvalues (the warm start changes the sweep count, never the answer)
     l0, _ = jacobi_eigh(a, precondition=None)
     l1, _ = jacobi_eigh(a, precondition=False, deflate=False)
-    assert torch.equal(l0, l1)
+    l2, _ = jacobi_eigh(a, precondition=True)
+    assert torch.equal(l0, l1) and float((l2 - l0).abs().max()) <= 1e-6
     with pytest.raises(RuntimeError):
         jacobi_sweep_plain(torch.zeros(1, 3, 4), 18, 1e-5)   # odd number of rows
     with pytest.raises(RuntimeError):
+        jacobi_sweep_plain(torch.zeros(1, 4, 5), 18, 1e-5, complexpair=True)  # odd width
+    with pytest.raises(RuntimeError):
         jacobi_sweep_cuda(torch.zeros(1, 16, 16), 18, 1e-5)  # not a CUDA tensor
+    with pytest.raises(RuntimeError):
+        jacobi_sweep_cuda(torch.zeros(1, 16, 32), 18, 1e-5, complexpair=True)
 
 
 def test_gates_and_window():
     assert use_jacobi_for(torch.zeros(2, 256, 256)) is False       # CPU tensor
     assert use_jacobi_svd_for(torch.zeros(2, 256, 128)) is False
+    assert use_jacobi_for(torch.zeros(2, 256, 256, dtype=torch.complex64)) is False
     assert fits_jacobi_sweep(256, 256, torch.float32)              # config 2
     assert fits_jacobi_sweep(128, 256, torch.float32)
     assert fits_jacobi_sweep(1024, 4096, torch.float32)
@@ -178,4 +189,193 @@ def test_gates_and_window():
     assert not fits_jacobi_sweep(64, 4100, torch.float32)
     assert not fits_jacobi_sweep(63, 64, torch.float32)
     assert not fits_jacobi_sweep(64, 64, torch.float64)
+    # packed complex planes: even width, half-width at most 2048
+    assert fits_jacobi_sweep(256, 512, torch.float32, True)
+    assert fits_jacobi_sweep(1024, 4096, torch.float32, True)
+    assert not fits_jacobi_sweep(64, 131, torch.float32, True)
+    # the window symeig's default routing asks about, by shape and type
+    assert in_jacobi_window(256, torch.float32) and in_jacobi_window(256, torch.complex64)
+    assert in_jacobi_window(64, torch.float32) and in_jacobi_window(1024, torch.complex64)
+    assert not in_jacobi_window(63, torch.float32)
+    assert not in_jacobi_window(1025, torch.float32)
+    assert not in_jacobi_window(256, torch.float64)
+    assert not in_jacobi_window(256, torch.complex128)
     assert jmod.ENABLED is True and jacobi_sweep_cuda.launches == 0
+    assert jacobi_sweep_cuda.launches_complex == 0
+
+
+# ------------------------------------------------------------------
+# the warm start: correction, guard, and the whole route
+# ------------------------------------------------------------------
+
+def _spd(seed, B, n):
+    a = np.random.default_rng(seed).standard_normal((B, n, n)) / math.sqrt(n)
+    return (a @ a.transpose(0, 2, 1) + 2.0 * np.eye(n)).astype(np.float32)
+
+
+def test_guard_and_rot_correct_match_jax():
+    a = _spd(0, 3, 64)
+    g0 = dc_precondition_plain(torch.as_tensor(a), levels=6, min_seg=2)
+    # same float32 products on both sides: agreement to rounding of a few
+    # dozen (64, 64) products on entries of size ~4
+    gj = np.asarray(jrot_correct(jnp.asarray(g0.numpy())))
+    gt = _rot_correct(g0)
+    assert np.abs(gt.numpy() - gj).max() <= 1e-4
+    # the correction lowers the coupling it is there to kill
+    assert float(_max_cos2(gt).max()) < float(_max_cos2(g0).max())
+    # break one panel: guard flags it on both sides and hands back a_shift
+    bad_panel = gt.clone()
+    bad_panel[1, 0] = 0.0
+    pj, bj = jguard_warm_start(jnp.asarray(a), jnp.asarray(bad_panel.numpy()))
+    pt, bt = _guard_warm_start(torch.as_tensor(a), bad_panel)
+    assert bt.tolist() == np.asarray(bj).tolist() == [False, True, False]
+    assert np.array_equal(pt.numpy(), np.asarray(pj))
+    assert torch.equal(pt[1], torch.as_tensor(a)[1]) and torch.equal(pt[0], gt[0])
+
+
+def test_rot_correct_excludes_exactly_degenerate_pairs():
+    # identical uncoupled rows: denom == 0 and T_ij == 0 must not become 0/0
+    g0 = torch.diag_embed(torch.tensor([[2.0, 2.0, 2.0, 3.0]]))
+    out = _rot_correct(g0)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - g0).abs().max()) <= 1e-6
+
+
+# n = 129 pads to 144; float32 gates of the reference's tests (5e-5 of the
+# eigenvalues, 5e-4 residual, 5e-6 orthogonality)
+@pytest.mark.parametrize("n", [96, 129])
+def test_warm_start_matches_jax_and_cold(n):
+    a = _spd(4, 2, n)
+    A = torch.as_tensor(a)
+    lj, _ = jjacobi_eigh(jnp.asarray(a), interpret=True, precondition=True)
+    lw, Vw, iw = jacobi_eigh(A, precondition=True, return_info=True)
+    lc, Vc, ic = jacobi_eigh(A, precondition=False, return_info=True)
+    l0 = np.linalg.eigvalsh(a.astype(np.float64))
+    assert np.abs(lw.numpy() - np.asarray(lj)).max() < 5e-5
+    assert np.abs(lw.numpy() - l0).max() < 5e-5
+    assert float((lw - lc).abs().max()) < 5e-5
+    rw = float((A @ Vw - Vw * lw[:, None, :]).abs().max())
+    rc = float((A @ Vc - Vc * lc[:, None, :]).abs().max())
+    assert rw < 5e-4 and rw < max(2.0 * rc, 1e-5)
+    assert float((Vw.mT @ Vw - torch.eye(n)).abs().max()) < 5e-6
+    # the point of the warm start: fewer sweeps wherever the guard let it in
+    warm = ~iw["guard_bad"]
+    assert iw["sweeps"].shape == (2,) and ic["sweeps"].shape == (2,)
+    assert bool((iw["sweeps"][warm] < ic["sweeps"][warm]).all())
+    assert "guard_bad" not in ic
+
+
+def test_warm_start_clustered_spectrum():
+    n = 96
+    w = np.concatenate([np.full(30, 1.0), np.full(30, 1.0 + 2e-4), np.linspace(1.5, 2.0, 36)])
+    q, _ = np.linalg.qr(np.random.default_rng(9).standard_normal((n, n)))
+    a = ((q * w) @ q.T)[None]
+    a = (0.5 * (a + a.transpose(0, 2, 1))).astype(np.float32)
+    lam, V = jacobi_eigh(torch.as_tensor(a), precondition=True)
+    assert np.abs(lam.numpy() - np.linalg.eigvalsh(a.astype(np.float64))).max() < 5e-5
+    assert float((torch.as_tensor(a) @ V - V * lam[:, None, :]).abs().max()) < 5e-4
+
+
+# ------------------------------------------------------------------
+# complex input
+# ------------------------------------------------------------------
+
+def _herm(seed, B, n, cdtype):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))
+    return ((a + a.conj().transpose(0, 2, 1)) / 2).astype(cdtype)
+
+
+def _hgauge(g, hw):
+    """Hermitian Gram gauge of packed planes, in float64 numpy."""
+    z = g[..., :hw].astype(np.float64) + 1j * g[..., hw:].astype(np.float64)
+    gram = z @ z.conj().transpose(0, 2, 1)
+    nrm = np.real(np.einsum("bii->bi", gram))
+    ratio = np.abs(gram) ** 2 / np.maximum(nrm[:, :, None] * nrm[:, None, :], 1e-300)
+    ratio[:, np.arange(g.shape[1]), np.arange(g.shape[1])] = 0.0
+    return ratio.max()
+
+
+@pytest.mark.parametrize("B, n, hw", [(2, 32, 32), (2, 16, 24)])
+def test_complex_sweep_plain_matches_pallas_interpret(B, n, hw):
+    rng = np.random.default_rng(n + hw)
+    z = rng.standard_normal((B, n, hw)) + 1j * rng.standard_normal((B, n, hw))
+    if n == hw:   # hermitian positive definite, as jacobi_eigh hands the kernel
+        z = z @ z.conj().transpose(0, 2, 1) / math.sqrt(n) + 2.0 * np.eye(n)
+        planes = np.concatenate([z.real, -z.imag], -1).astype(np.float32)
+    else:
+        planes = np.concatenate([z.real, z.imag], -1).astype(np.float32)
+    tol = float(np.finfo(np.float32).eps) * 4.0 * math.sqrt(n)
+    gj = np.asarray(_pallas_g_panel(jnp.asarray(planes), 18, tol, True, True))
+    gt, st = jacobi_sweep_plain(torch.as_tensor(planes), 18, tol, complexpair=True)
+    g = gt.numpy()
+    assert gt.shape == planes.shape and st.shape == (B,)
+    assert 1 <= int(st.min()) and int(st.max()) <= 18
+    assert float(_max_cos2(gt, True).max()) <= tol * tol
+    assert _hgauge(g, hw) <= 1.5 * tol * tol and _hgauge(gj, hw) <= 1.5 * tol * tol
+    # rows are only rotated and re-phased: G^H G keeps the input's
+    z0 = planes[..., :hw].astype(np.float64) + 1j * planes[..., hw:].astype(np.float64)
+    ref = z0.conj().transpose(0, 2, 1) @ z0
+    for G in (g, gj):
+        zz = G[..., :hw].astype(np.float64) + 1j * G[..., hw:].astype(np.float64)
+        inv = np.linalg.norm(zz.conj().transpose(0, 2, 1) @ zz - ref) / np.linalg.norm(ref)
+        assert inv <= 5e-6
+    nt = np.sort(np.linalg.norm(g, axis=-1), axis=-1)
+    nj = np.sort(np.linalg.norm(gj, axis=-1), axis=-1)
+    assert np.abs(nt - nj).max() <= 1e-5 * nj.max()
+
+
+# complex64 under the reference's 3e-5 gate (tests/test_jacobi_eigh.py);
+# complex128 to rounding
+@pytest.mark.parametrize("cdtype, rtol", [(np.complex64, 3e-5), (np.complex128, 1e-12)])
+@pytest.mark.parametrize("shape", [(2, 20), (2, 48)])
+def test_complex_jacobi_eigh_matches_jax_and_numpy(shape, cdtype, rtol):
+    B, n = shape
+    a = _herm(n, B, n, cdtype)
+    lj, _ = jjacobi_eigh(jnp.asarray(a), interpret=True)
+    lt, vt = jacobi_eigh(torch.as_tensor(a))
+    assert lt.shape == (B, n) and vt.shape == (B, n, n)
+    assert not lt.is_complex() and vt.is_complex()
+    l0 = np.linalg.eigvalsh(a.astype(np.complex128))
+    scale = np.abs(l0).max()
+    assert np.abs(lt.numpy() - np.asarray(lj)).max() <= rtol * scale
+    assert np.abs(lt.numpy() - l0).max() <= rtol * scale
+    v = vt.numpy().astype(np.complex128)
+    assert np.abs(a.astype(np.complex128) @ v - v * lt.numpy()[:, None, :]).max() \
+        <= 5 * rtol * scale
+    assert np.abs(v.conj().transpose(0, 2, 1) @ v - np.eye(n)).max() <= 5 * rtol
+
+
+@pytest.mark.parametrize("cdtype, atol", [(np.complex64, 3e-5), (np.complex128, 1e-12)])
+@pytest.mark.parametrize("shape", [(2, 40, 24), (2, 24, 40), (2, 16, 16)])
+def test_complex_jacobi_svd_matches_jax_and_numpy(shape, cdtype, atol):
+    rng = np.random.default_rng(sum(shape))
+    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(cdtype)
+    _, sj, _ = jjacobi_svd(jnp.asarray(a), interpret=True)
+    u, s, v = jacobi_svd(torch.as_tensor(a))
+    m, n = shape[-2:]
+    r = min(m, n)
+    assert u.shape == (2, m, r) and s.shape == (2, r) and v.shape == (2, n, r)
+    assert u.is_complex() and not s.is_complex()
+    s0 = np.linalg.svd(a.astype(np.complex128), compute_uv=False)[..., ::-1]
+    smax = s0.max()
+    assert np.abs(s.numpy() - np.asarray(sj)).max() <= atol * smax
+    assert np.abs(s.numpy() - s0).max() <= atol * smax
+    rec = (u * s[..., None, :]) @ v.mH
+    assert float((rec - torch.as_tensor(a)).abs().max()) <= 10 * atol * smax
+    eye = torch.eye(r, dtype=u.dtype)
+    assert float((u.mH @ u - eye).abs().max()) <= 10 * atol
+    assert float((v.mH @ v - eye).abs().max()) <= 10 * atol
+
+
+def test_complex_svd_rank_deficient_gets_orthonormal_completion():
+    rng = np.random.default_rng(7)
+    a = (rng.standard_normal((2, 24, 2)) + 1j * rng.standard_normal((2, 24, 2))) @ \
+        (rng.standard_normal((2, 2, 12)) + 1j * rng.standard_normal((2, 2, 12)))
+    u, s, v = jacobi_svd(torch.as_tensor(a))
+    s0 = np.linalg.svd(a, compute_uv=False)[..., ::-1]
+    assert np.abs(s.numpy() - s0).max() <= 1e-9
+    eye = torch.eye(12, dtype=u.dtype)
+    assert float((u.mH @ u - eye).abs().max()) <= 1e-9
+    assert float((v.mH @ v - eye).abs().max()) <= 1e-9
+    assert float(((u * s[..., None, :]) @ v.mH - torch.as_tensor(a)).abs().max()) <= 1e-9

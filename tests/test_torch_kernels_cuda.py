@@ -10,8 +10,12 @@ need not have; this file imports no JAX.)
 
 (``python3 chip_smoke.py`` covers the BASELINE config-3 and config-2
 shapes; these cases cover odd sizes, several bands, other ranks, float64
-Thomas, and the Jacobi sweep kernel on both of its memory paths.)
+Thomas, the real and the complex Jacobi sweep kernel on both of their
+memory paths, and the divide-and-conquer kernel with its exports.)
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +24,12 @@ import xitorch_tpu_torch as xt
 from xitorch_tpu_torch.ops import (
     structured_cg_cuda, structured_cg_plain, thomas_cuda, thomas_plain,
 )
+from xitorch_tpu_torch.ops.dc_kernel import (
+    dc_precondition, dc_precondition_cuda, dc_precondition_plain,
+)
 from xitorch_tpu_torch.ops.jacobi_eigh import (
-    _max_cos2, jacobi_sweep, jacobi_sweep_cuda, jacobi_sweep_plain,
+    _guard_warm_start, _max_cos2, jacobi_eigh, jacobi_sweep, jacobi_sweep_cuda,
+    jacobi_sweep_plain,
 )
 
 torch.set_num_threads(1)
@@ -226,3 +234,211 @@ def test_symeig_and_svd_on_card_go_through_the_sweep_kernel(cuda):
     xt.linalg.symeig(small, 4, method="exacteig")
     assert jacobi_sweep_cuda.launches == 2
 
+
+
+# ------------------------------------------------------------------
+# the divide-and-conquer kernel
+# ------------------------------------------------------------------
+
+def _spd(seed, B, n, device):
+    a = np.random.default_rng(seed).standard_normal((B, n, n)) / np.sqrt(n)
+    return torch.tensor(a @ a.transpose(0, 2, 1) + 2.0 * np.eye(n), dtype=torch.float32,
+                        device=device)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _offmass(T):
+    off = T - torch.diag_embed(torch.diagonal(T, dim1=-2, dim2=-1))
+    return float(torch.linalg.norm(off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n, levels, min_seg, refine", [
+    (4, 256, 2, 2, 0),     # shallow
+    (3, 64, 6, 2, 0),      # half a product tile
+    (2, 96, 5, 3, 0),      # not a multiple of the tile, odd min_seg
+    (2, 256, 8, 2, 0),     # the config-2 shape: 2 x 2 tiles, split down to pairs
+    (2, 130, 4, 16, 1),    # ragged second tile, refinement pass, early freeze
+])
+def test_dc_kernel_matches_plain(cuda, B, n, levels, min_seg, refine):
+    A = _spd(n, B, n, cuda)
+    kw = dict(levels=levels, min_seg=min_seg, refine=refine, return_t=True,
+              return_seg=True)
+    dc_precondition_cuda.launches = 0
+    gk, tk, sk = dc_precondition_cuda(A, **kw)
+    gp, tp, sp = dc_precondition_plain(A, **kw)
+    torch.cuda.synchronize()
+    assert dc_precondition_cuda.launches == 1
+    assert bool(torch.isfinite(gk).all()) and bool(torch.isfinite(tk).all())
+    assert sk.shape == (B, n, 1) and sk.dtype == torch.int32
+    assert bool((sk[:, 1:] >= sk[:, :-1]).all())   # non-decreasing along the index
+    a2 = A.double() @ A.double()
+    for name, g, t in (("kernel", gk, tk), ("plain", gp, tp)):
+        g, t = g.double(), t.double()
+        # the implicit Q is orthonormal: G0^T G0 == A^2 (the reference's 1e-4)
+        rel = float((g.mT @ g - a2).abs().max() / a2.abs().max())
+        assert rel < 1e-4, (name, rel)
+        # T = Q^T A Q: symmetric, and G0 G0^T == T^2
+        assert float((t - t.mT).abs().max()) < 1e-4, name
+        assert float((g @ g.mT - t @ t).abs().max() / a2.abs().max()) < 1e-4, name
+        if levels >= 5:
+            assert _offmass(g @ g.mT) < 0.25 * _offmass(a2), name
+    # entry by entry, one level at a time from the kernel's own state (two
+    # free runs amplify the last bit to O(1) over the levels): chip_smoke.py's
+    # check, which raises where the kernel's level and the plain version's
+    # differ in segment ids, G0, T or the loss of the G-invariant
+    launches = dc_precondition_cuda.launches
+    (gl, tl, sl), _, rows = _chip_smoke().dc_level_by_level(torch, A, levels, min_seg, refine)
+    assert len(rows) == levels
+    assert torch.equal(gl, gk) and torch.equal(tl, tk) and torch.equal(sl, sk)
+    dc_precondition_cuda.launches = launches
+    # the exports change nothing, and the dispatcher takes the kernel
+    g_only = dc_precondition(A, levels=levels, min_seg=min_seg, refine=refine)
+    assert torch.equal(g_only, gk) and dc_precondition_cuda.launches == 2
+
+
+@pytest.mark.cuda
+def test_dc_kernel_nan_input_is_flagged_by_the_guard(cuda):
+    A = _spd(0, 2, 64, cuda)
+    A[1, 3, 3] = float("nan")
+    g0 = dc_precondition_cuda(A, levels=6, min_seg=2)
+    torch.cuda.synchronize()
+    _, bad = _guard_warm_start(A, g0)
+    assert bad.tolist() == [False, True]
+
+
+@pytest.mark.cuda
+def test_dc_kernel_rejects_what_it_cannot_take(cuda):
+    A = _spd(1, 1, 32, cuda)
+    for bad in (A.cpu(), A.double(), A[:, ::2, ::2],
+                torch.zeros(1, 32, 31, device=cuda),
+                torch.zeros(1, 1040, 1040, device=cuda),
+                torch.zeros(1, 32, 32, dtype=torch.complex64, device=cuda)):
+        with pytest.raises(RuntimeError):
+            dc_precondition_cuda(bad)
+    with pytest.raises(RuntimeError):
+        dc_precondition_cuda(A, levels=40)
+    with pytest.raises(ValueError):
+        dc_precondition_cuda(A, om=torch.zeros(8, 8))
+    with pytest.raises(NotImplementedError):
+        dc_precondition(A, per_level=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [96, 256])
+def test_warm_jacobi_eigh_on_card(cuda, n):
+    A = _spd(n + 1, 4, n, cuda)
+    jacobi_sweep_cuda.launches = dc_precondition_cuda.launches = 0
+    lw, Vw, iw = jacobi_eigh(A, precondition=True, return_info=True)
+    lc, Vc, ic = jacobi_eigh(A, precondition=False, return_info=True)
+    assert dc_precondition_cuda.launches == 1 and jacobi_sweep_cuda.launches == 2
+    l0 = torch.linalg.eigvalsh(A.double())
+    # the float32 gates of the reference's tests
+    assert float((lw.double() - l0).abs().max()) < 5e-5
+    assert float((lw - lc).abs().max()) < 5e-5
+    assert float((A @ Vw - Vw * lw[:, None, :]).abs().max()) < 5e-4
+    assert float((Vw.mT @ Vw - torch.eye(n, device=cuda)).abs().max()) < 5e-6
+    warm = ~iw["guard_bad"]
+    assert bool((iw["sweeps"][warm] < ic["sweeps"][warm]).all())
+
+
+# ------------------------------------------------------------------
+# the complex sweep kernel
+# ------------------------------------------------------------------
+
+def _hgauge(G, hw):
+    z = torch.complex(G[..., :hw].double(), G[..., hw:].double())
+    gram = z @ z.mH
+    nrm = torch.diagonal(gram, dim1=-2, dim2=-1).real
+    ratio = gram.abs() ** 2 / (nrm[:, :, None] * nrm[:, None, :]).clamp(min=1e-300)
+    eye = torch.eye(G.shape[-2], dtype=torch.bool, device=G.device)
+    return float(ratio.masked_fill(eye, 0.0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n, hw", [
+    (3, 32, 32),      # hermitian, shared-memory path, one float4 a half a lane
+    (2, 64, 150),     # rectangular, half-width not a multiple of 4
+    (2, 256, 256),    # the complex config: 512 KB a panel, device-memory path
+    (1, 16, 500),     # four float4 a half a lane in registers
+    (1, 32, 1030),    # wider than the register cache: rows read again
+])
+def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw):
+    rng = np.random.default_rng(6)
+    z = rng.standard_normal((B, n, hw)) + 1j * rng.standard_normal((B, n, hw))
+    if n == hw:
+        z = z @ z.conj().transpose(0, 2, 1) / np.sqrt(n) + 2.0 * np.eye(n)
+    z[-1, 1] = 0.0  # a zero row must stay dead
+    P = torch.tensor(np.concatenate([z.real, z.imag], -1), dtype=torch.float32, device=cuda)
+    tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(n)
+    jacobi_sweep_cuda.launches = jacobi_sweep_cuda.launches_complex = 0
+    Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True, complexpair=True)
+    Gp, sp = jacobi_sweep_plain(P, 18, tol, complexpair=True)
+    torch.cuda.synchronize()
+    assert jacobi_sweep_cuda.launches_complex == 1 and jacobi_sweep_cuda.launches == 0
+    assert Gk.shape == P.shape and bool(torch.isfinite(Gk).all())
+    assert float(Gk[-1, 1].abs().max()) == 0.0  # rows keep their order
+    tol2 = tol * tol
+    assert float(_max_cos2(Gk, True).max()) <= tol2 and float(gk.max()) <= tol2
+    assert float(_max_cos2(Gp, True).max()) <= tol2
+    assert _hgauge(Gk, hw) <= 1.5 * tol2
+    # rows are only rotated and re-phased: G^H G is invariant
+    z0 = torch.complex(P[..., :hw].double(), P[..., hw:].double())
+    ref = z0.mH @ z0
+    for name, G in (("kernel", Gk), ("plain", Gp)):
+        zz = torch.complex(G[..., :hw].double(), G[..., hw:].double())
+        inv = torch.linalg.norm(zz.mH @ zz - ref) / torch.linalg.norm(ref)
+        assert float(inv) <= 1e-5, name
+    nk, np_ = _sorted_row_norms(Gk), _sorted_row_norms(Gp)
+    assert float((nk - np_).abs().max() / np_.max()) <= 1e-5
+    assert int((sk - sp).abs().max()) <= 1
+    rounds = -(-(n - 1) // 6) * 6
+    assert bool((rk > 0).all()) and bool((rk <= sk * rounds * (n // 2)).all())
+    # the dispatcher takes the complex kernel
+    jacobi_sweep(P, 18, tol, complexpair=True)
+    assert jacobi_sweep_cuda.launches_complex == 2
+
+
+@pytest.mark.cuda
+def test_complex_sweep_rejects_what_it_cannot_take(cuda):
+    P = torch.zeros(1, 32, 64, device=cuda)
+    for bad in (P.cpu(), P.double(), P[:, :31], P[:, :, :33].contiguous(),
+                torch.zeros(1, 1040, 64, device=cuda),
+                torch.zeros(1, 16, 4104, device=cuda),
+                torch.zeros(1, 32, 32, dtype=torch.complex64, device=cuda)):
+        with pytest.raises(RuntimeError):
+            jacobi_sweep_cuda(bad, 18, 1e-5, complexpair=True)
+
+
+@pytest.mark.cuda
+def test_complex_symeig_and_svd_on_card_go_through_the_complex_kernel(cuda):
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal((4, 96, 96)) + 1j * rng.standard_normal((4, 96, 96))
+    herm = z @ z.conj().transpose(0, 2, 1) / 96 + 2.0 * np.eye(96)
+    ar = torch.tensor(herm.real, dtype=torch.float32, device=cuda, requires_grad=True)
+    ai = torch.tensor(herm.imag, dtype=torch.float32, device=cuda, requires_grad=True)
+    x = torch.complex(ar, ai)
+    jacobi_sweep_cuda.launches = jacobi_sweep_cuda.launches_complex = 0
+    A = xt.LinearOperator.m((x + x.mH) / 2, is_hermitian=True)
+    e, X = xt.linalg.symeig(A, 4, "lowest")          # default routing
+    assert jacobi_sweep_cuda.launches_complex == 1 and jacobi_sweep_cuda.launches == 0
+    e0 = np.linalg.eigvalsh(herm)[:, :4]
+    # the reference's complex64 gate
+    scale = np.abs(np.linalg.eigvalsh(herm)).max()
+    assert np.abs(e.detach().cpu().numpy() - e0).max() <= 3e-5 * scale
+    gr, gi = torch.autograd.grad(e.sum() + (X @ X.mH).real.sum(), (ar, ai))
+    assert bool(torch.isfinite(gr).all()) and bool(torch.isfinite(gi).all())
+    gm = torch.tensor(z[:, :, :80] / 10, dtype=torch.complex64, device=cuda)
+    u, s, vh = xt.linalg.svd(xt.LinearOperator.m(gm), 4)
+    assert jacobi_sweep_cuda.launches_complex == 2
+    s0 = np.linalg.svd(gm.to(torch.complex128).cpu().numpy(), compute_uv=False)[:, :4][:, ::-1]
+    assert np.abs(s.cpu().numpy() - s0).max() <= 3e-5 * s0.max()
+    assert float((gm @ vh.mH - u * s[..., None, :]).abs().max()) <= 2e-4

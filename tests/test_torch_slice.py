@@ -1,6 +1,7 @@
-"""The port's slices end to end at a small size: BASELINE config 3 (below)
-and BASELINE config 2 (batched dense symeig and svd, forward and gradient,
-at the end of the file).
+"""The port's slices end to end at a small size: BASELINE config 3 (below),
+BASELINE config 2 (batched dense symeig and svd, forward and gradient) and,
+at the end of the file, config 2 through the warm start and with complex
+input.
 
 A batch of TridiagLowRankOperator systems (diag + tridiagonal coupling +
 rank-4), float32, solved by ``linalg.solve(method="structured_cg")``; the
@@ -24,7 +25,9 @@ import xitorch_tpu as xj
 import xitorch_tpu_torch as xt
 from xitorch_tpu.linalg import solve as jsolve
 from xitorch_tpu_torch.linalg import solve as tsolve
+from xitorch_tpu_torch.ops import jacobi_eigh as jmod
 from xitorch_tpu_torch.ops import jacobi_sweep_cuda, structured_cg_cuda, thomas_cuda
+from xitorch_tpu_torch.ops.dc_kernel import dc_precondition_cuda
 
 torch.set_num_threads(1)
 
@@ -109,7 +112,8 @@ def test_cpu_run_launches_no_kernel():
 
 def test_port_imports_no_jax():
     code = ("import sys; import xitorch_tpu_torch, xitorch_tpu_torch.convert, "
-            "xitorch_tpu_torch.ops.jacobi_eigh, xitorch_tpu_torch.linalg.symeig; "
+            "xitorch_tpu_torch.ops.jacobi_eigh, xitorch_tpu_torch.linalg.symeig, "
+            "xitorch_tpu_torch.ops.dc_kernel, xitorch_tpu_torch.ops.spectral_dc; "
             "print(any(m.split('.')[0] in ('jax', 'jaxlib', 'xitorch_tpu') "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -257,3 +261,129 @@ def test_config2_cpu_run_launches_no_kernel():
     (e.sum() + (X @ X.mT).sum()).backward()
     xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(gmats)), NEIG)
     assert jacobi_sweep_cuda.launches == 0
+
+
+# ------------------------------------------------------------------
+# config 2 through the warm start and with complex input.  On the CPU the
+# dense route is torch.linalg.eigh; these tests send it through the port's
+# own jacobi_eigh (plain sweep, plain DC) as the card does, by approving CPU
+# tensors at the dispatch gate.
+# ------------------------------------------------------------------
+
+@pytest.fixture
+def through_jacobi(monkeypatch):
+    # "kw": keyword arguments the dense route's jacobi_eigh call is given on
+    # top of its own (exacteig has no options, so the warm start is forced here)
+    calls = {"n": 0, "kw": {}}
+    real = jmod.jacobi_eigh
+
+    def counted(A, **kw):
+        calls["n"] += 1
+        return real(A, **{**calls["kw"], **kw})
+
+    monkeypatch.setattr(jmod, "use_jacobi_for", lambda A: True)
+    monkeypatch.setattr(jmod, "use_jacobi_svd_for", lambda A: True)
+    monkeypatch.setattr(jmod, "jacobi_eigh", counted)
+    return calls
+
+
+def test_slice_warm_exacteig_matches_jax(through_jacobi):
+    through_jacobi["kw"] = {"precondition": True}
+    jacobi_sweep_cuda.launches = dc_precondition_cuda.launches = 0
+    mats, _ = _config2(seed=4)
+    ej, vj = xj.linalg.symeig(xj.LinearOperator.m(jnp.asarray(mats), is_hermitian=True),
+                              NEIG, "lowest", method="exacteig")
+    At = xt.LinearOperator.m(torch.as_tensor(mats), is_hermitian=True)
+    et, vt, info = xt.linalg.symeig(At, NEIG, "lowest", method="exacteig",
+                                    return_info=True)
+    assert through_jacobi["n"] == 1 and float(info["converged"]) == 1.0
+    e0 = np.linalg.eigvalsh(mats.astype(np.float64))
+    # float32 values under 2e-5 of the spectral scale, as for the cold route
+    assert np.abs(et.numpy() - np.asarray(ej)).max() <= 2e-5 * e0.max()
+    assert np.abs(et.numpy() - e0[:, :NEIG]).max() <= 2e-5 * e0.max()
+    pj = np.asarray(vj) @ np.asarray(vj).transpose(0, 2, 1)
+    assert np.abs((vt @ vt.mT).numpy() - pj).max() <= 5e-3
+    assert float((At.mm(vt) - vt * et[..., None, :]).abs().max()) <= 2e-4
+    # and the cold route gives the same answer
+    through_jacobi["kw"] = {}
+    ec, _ = xt.linalg.symeig(At, NEIG, "lowest", method="exacteig")
+    assert float((ec - et).abs().max()) <= 2e-5 * e0.max()
+    assert jacobi_sweep_cuda.launches == 0 and dc_precondition_cuda.launches == 0
+
+
+def test_slice_warm_gradient_matches_jax(through_jacobi):
+    through_jacobi["kw"] = {"precondition": True}
+    rng = np.random.default_rng(5)
+    lam = np.concatenate([np.linspace(0.2, 0.8, NEIG), np.linspace(2.0, 6.0, N2 - NEIG)])
+    q = np.linalg.qr(rng.standard_normal((B2, N2, N2)))[0]
+    a = ((q * lam) @ q.transpose(0, 2, 1)).astype(np.float32)
+    we = rng.standard_normal((B2, NEIG)).astype(np.float32)
+    wp = rng.standard_normal((B2, N2, N2)).astype(np.float32)
+
+    def fj(x):
+        A = xj.LinearOperator.m((x + jnp.swapaxes(x, -2, -1)) / 2, is_hermitian=True)
+        e, X = xj.linalg.symeig(A, NEIG, "lowest", method="exacteig")
+        return jnp.sum(e * we) + jnp.sum((X @ jnp.swapaxes(X, -2, -1)) * wp)
+
+    gj = np.asarray(jax.grad(fj)(jnp.asarray(a)))
+    x = torch.tensor(a, requires_grad=True)
+    A = xt.LinearOperator.m((x + x.mT) / 2, is_hermitian=True)
+    e, X = xt.linalg.symeig(A, NEIG, "lowest")       # default routing: exacteig
+    loss = (e * torch.as_tensor(we)).sum() + ((X @ X.mT) * torch.as_tensor(wp)).sum()
+    (gt,) = torch.autograd.grad(loss, x)
+    assert through_jacobi["n"] == 1
+    assert _rel(gt, gj) <= TOL   # float32 eigenvectors at gaps of 0.2
+
+
+def test_slice_complex_exacteig_and_svd_match_jax(through_jacobi):
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((B2, N2, N2)) + 1j * rng.standard_normal((B2, N2, N2))
+    herm = (a @ a.conj().transpose(0, 2, 1) / N2 + 2.0 * np.eye(N2)).astype(np.complex64)
+    gen = (a / np.sqrt(N2)).astype(np.complex64)
+    ej, vj = xj.linalg.symeig(xj.LinearOperator.m(jnp.asarray(herm), is_hermitian=True),
+                              NEIG, "lowest", method="exacteig")
+    At = xt.LinearOperator.m(torch.as_tensor(herm), is_hermitian=True)
+    et, vt = xt.linalg.symeig(At, NEIG, "lowest")
+    assert through_jacobi["n"] == 1
+    assert et.dtype == torch.float32 and vt.dtype == torch.complex64
+    e0 = np.linalg.eigvalsh(herm.astype(np.complex128))
+    # the reference's complex64 gate: 3e-5 of the spectral scale
+    assert np.abs(et.numpy() - np.asarray(ej)).max() <= 3e-5 * e0.max()
+    assert np.abs(et.numpy() - e0[:, :NEIG]).max() <= 3e-5 * e0.max()
+    assert float((At.mm(vt) - vt * et[..., None, :]).abs().max()) <= 2e-4
+    _, sj, _ = xj.linalg.svd(xj.LinearOperator.m(jnp.asarray(gen)), NEIG)
+    u, s, vh = xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(gen)), NEIG)
+    s0 = np.linalg.svd(gen.astype(np.complex128), compute_uv=False)[:, :NEIG][:, ::-1]
+    assert np.abs(s.numpy() - np.asarray(sj)).max() <= 3e-5 * s0.max()
+    assert np.abs(s.numpy() - s0).max() <= 3e-5 * s0.max()
+    resid = torch.as_tensor(gen) @ vh.mH - u * s[..., None, :]
+    assert float(resid.abs().max()) <= 2e-4
+
+
+def test_slice_complex_gradient_matches_jax(through_jacobi):
+    rng = np.random.default_rng(7)
+    lam = np.concatenate([np.linspace(0.2, 0.8, NEIG), np.linspace(2.0, 6.0, N2 - NEIG)])
+    z = rng.standard_normal((B2, N2, N2)) + 1j * rng.standard_normal((B2, N2, N2))
+    q = np.linalg.qr(z)[0]
+    a = (q * lam) @ q.conj().transpose(0, 2, 1)
+    ar, ai = a.real.astype(np.float32), a.imag.astype(np.float32)
+    we = rng.standard_normal((B2, NEIG)).astype(np.float32)
+    wp = rng.standard_normal((B2, N2, N2)).astype(np.float32)
+
+    def fj(ar, ai):
+        x = ar + 1j * ai
+        A = xj.LinearOperator.m((x + jnp.swapaxes(x, -2, -1).conj()) / 2, is_hermitian=True)
+        e, X = xj.linalg.symeig(A, NEIG, "lowest", method="exacteig")
+        P = X @ jnp.swapaxes(X, -2, -1).conj()     # phase-invariant
+        return jnp.sum(e * we) + jnp.sum(jnp.real(P) * wp)
+
+    gjr, gji = jax.grad(fj, argnums=(0, 1))(jnp.asarray(ar), jnp.asarray(ai))
+    tr = torch.tensor(ar, requires_grad=True)
+    ti = torch.tensor(ai, requires_grad=True)
+    x = torch.complex(tr, ti)
+    A = xt.LinearOperator.m((x + x.mH) / 2, is_hermitian=True)
+    e, X = xt.linalg.symeig(A, NEIG, "lowest")
+    loss = (e * torch.as_tensor(we)).sum() + ((X @ X.mH).real * torch.as_tensor(wp)).sum()
+    gtr, gti = torch.autograd.grad(loss, (tr, ti))
+    assert through_jacobi["n"] == 1
+    assert _rel(gtr, gjr) <= TOL and _rel(gti, gji) <= TOL

@@ -6,6 +6,7 @@ from different streams on the two sides, so only converged results are
 compared (eigenvalues, residuals, projectors), with ``v_init="eye"`` where
 a deterministic start matters."""
 import warnings
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -158,6 +159,31 @@ def test_errors_and_routing():
     assert _auto_symeig_method(big, 8, big) == "exacteig"
     e, _ = xt.linalg.symeig(A, 2)
     assert torch.equal(e, xt.linalg.symeig(A, 2, method="exacteig")[0])
+
+
+def _on_card(n, dtype):
+    """What the routing reads of an operator: shape, dtype, device."""
+    return SimpleNamespace(shape=(4, n, n), dtype=dtype, device=torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n, dtype, neig, with_m, expect", [
+    # inside the sweep kernels' window the dense route comes first
+    (256, torch.float32, 8, False, "exacteig"),
+    (256, torch.float32, 8, True, "exacteig"),
+    (256, torch.complex64, 8, False, "exacteig"),
+    (64, torch.float32, 2, False, "exacteig"),
+    (1024, torch.float32, 8, False, "exacteig"),
+    # outside it, the extreme-k gate of the iterative methods
+    (1536, torch.float32, 8, False, "chebfsi"),
+    (1536, torch.float32, 8, True, "davidson"),
+    (256, torch.float64, 8, False, "chebfsi"),
+    (1536, torch.float32, 200, False, "exacteig"),   # not k << n
+    (1536, torch.complex64, 8, False, "exacteig"),   # complex stays dense
+    (48, torch.float32, 2, False, "exacteig"),       # small
+])
+def test_default_routing_on_the_card(n, dtype, neig, with_m, expect):
+    A = _on_card(n, dtype)
+    assert _auto_symeig_method(A, neig, A if with_m else None) == expect
 
 
 # ------------------------------------------------------------------
@@ -353,3 +379,148 @@ def test_svd_gradients_match_jax(method):
     loss = (s ** 3).sum() + (((u * s[..., None, :]) @ vh) * torch.as_tensor(wv)).sum()
     (gg,) = torch.autograd.grad(loss, gt)
     assert np.abs(gg.numpy() - gj).max() <= 1e-6 * max(1.0, np.abs(gj).max())
+
+
+# ------------------------------------------------------------------
+# complex input (the models are tests/test_complex.py's)
+# ------------------------------------------------------------------
+
+def _herm_c(seed, n, batch=()):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((*batch, n, n)) + 1j * rng.standard_normal((*batch, n, n))
+    return a @ np.swapaxes(a, -2, -1).conj() + n * np.eye(n)
+
+
+@pytest.mark.parametrize("method", ["exacteig", "davidson", "chebfsi"])
+def test_symeig_complex_matches_jax(method):
+    n, neig = 8, 3
+    a = _herm_c(0, n, (2,))
+    opts = {} if method == "exacteig" else {"min_eps": 1e-10, "max_niter": 2000}
+    ej, vj = xj.linalg.symeig(_jops(a)[0], neig, "lowest", method=method, **opts)
+    At, _ = pencil_from_numpy(a)
+    assert At.dtype == torch.complex128
+    et, vt = xt.linalg.symeig(At, neig, "lowest", method=method, **opts)
+    assert et.dtype == torch.float64 and vt.dtype == torch.complex128
+    d = np.linalg.eigvalsh(a)[:, :neig]
+    assert np.abs(et.numpy() - d).max() <= 1e-8
+    assert np.abs(et.numpy() - np.asarray(ej)).max() <= 1e-8
+    assert float((At.mm(vt) - vt * et[..., None, :]).abs().max()) <= 1e-7
+    # projectors: eigenvector phases are free
+    pt = vt.numpy() @ np.swapaxes(vt.numpy(), -2, -1).conj()
+    pj = np.asarray(vj) @ np.swapaxes(np.asarray(vj), -2, -1).conj()
+    assert np.abs(pt - pj).max() <= 1e-6
+
+
+@pytest.mark.parametrize("method", ["exacteig", "davidson"])
+def test_symeig_complex_gradient_matches_jax(method):
+    """Gradient of a phase-invariant loss to the real and imaginary parts of
+    a general complex matrix whose hermitian part is decomposed."""
+    n, neig = 8, 2
+    rng = np.random.default_rng(1)
+    ar, ai = rng.standard_normal((n, n)), rng.standard_normal((n, n))
+    kw = {} if method == "exacteig" else {
+        "min_eps": 1e-12, "max_niter": 4000,
+        "bck_options": {"rtol": 1e-12, "atol": 1e-14}}
+
+    def jloss(ar, ai):
+        a = ar + 1j * ai
+        H = (a + a.conj().T) / 2
+        e, v = xj.linalg.symeig(xj.LinearOperator.m(H, is_hermitian=True), neig,
+                                "lowest", method=method, **kw)
+        return jnp.sum(e ** 2) + jnp.sum(jnp.abs(v[:3]) ** 2)
+
+    def tloss(ar, ai):
+        a = torch.complex(ar, ai)
+        H = (a + a.mH) / 2
+        e, v = xt.linalg.symeig(xt.LinearOperator.m(H, is_hermitian=True), neig,
+                                "lowest", method=method, **kw)
+        return (e ** 2).sum() + (v[:3].abs() ** 2).sum()
+
+    gjr, gji = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(ar), jnp.asarray(ai))
+    tr = torch.tensor(ar, requires_grad=True)
+    ti = torch.tensor(ai, requires_grad=True)
+    loss = tloss(tr, ti)
+    gtr, gti = torch.autograd.grad(loss, (tr, ti))
+    assert abs(float(loss.detach()) - float(jloss(jnp.asarray(ar), jnp.asarray(ai)))) <= 1e-8
+    # float64 on both sides; the iterative route's implicit solve is the
+    # looser of the two (the reference's own test allows 1e-4 there)
+    tol = 1e-8 if method == "exacteig" else 1e-5
+    scale = np.abs(np.asarray(gjr)).max()
+    assert np.abs(gtr.numpy() - np.asarray(gjr)).max() <= tol * scale
+    assert np.abs(gti.numpy() - np.asarray(gji)).max() <= tol * scale
+
+
+def test_svd_complex_native_route_matches_jax():
+    m, n, k = 10, 7, 7
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((2, m, n)) + 1j * rng.standard_normal((2, m, n))
+    uj, sj, vhj = xj.linalg.svd(xj.LinearOperator.m(jnp.asarray(a)), k)
+    u, s, vh = xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(a)), k)
+    assert u.shape == (2, m, k) and s.shape == (2, k) and vh.shape == (2, k, n)
+    sref = np.linalg.svd(a, compute_uv=False)[..., ::-1]   # ascending
+    assert np.abs(s.numpy() - sref).max() < 1e-10
+    assert np.abs(s.numpy() - np.asarray(sj)).max() < 1e-10
+    rec = (u * s[..., None, :]) @ vh
+    assert float((rec - torch.as_tensor(a)).abs().max()) < 1e-9
+    # top-3 only, and the lowest end
+    u3, s3, vh3 = xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(a)), 3)
+    assert torch.equal(s3, s[..., -3:]) and vh3.shape == (2, 3, n)
+    _, sl, _ = xt.linalg.svd(xt.LinearOperator.m(torch.as_tensor(a)), 2, "lowest")
+    assert torch.equal(sl, s[..., :2])
+
+    K = rng.standard_normal((m, m)) + 1j * rng.standard_normal((m, m))
+    K = (K + K.conj().T) / 2
+    w = 1.0 + 0.1 * np.arange(k)
+
+    def jloss(ar, ai):
+        u, s, vh = xj.linalg.svd(xj.LinearOperator.m(ar + 1j * ai), k)
+        return (jnp.sum(s * w)
+                + jnp.real(jnp.einsum("bmi,mk,bki->", u.conj(), jnp.asarray(K), u)))
+
+    def tloss(ar, ai):
+        u, s, vh = xt.linalg.svd(xt.LinearOperator.m(torch.complex(ar, ai)), k)
+        return ((s * torch.as_tensor(w)).sum()
+                + torch.einsum("bmi,mk,bki->", u.conj(), torch.as_tensor(K), u).real)
+
+    gjr, gji = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(a.real), jnp.asarray(a.imag))
+    tr = torch.tensor(a.real, requires_grad=True)
+    ti = torch.tensor(a.imag, requires_grad=True)
+    gtr, gti = torch.autograd.grad(tloss(tr, ti), (tr, ti), create_graph=True)
+    # the same tangent rule transposed on both sides, in float64
+    scale = np.abs(np.asarray(gjr)).max()
+    assert np.abs(gtr.detach().numpy() - np.asarray(gjr)).max() <= 1e-8 * scale
+    assert np.abs(gti.detach().numpy() - np.asarray(gji)).max() <= 1e-8 * scale
+    # second order through the backward rule
+    (h,) = torch.autograd.grad((gtr * torch.as_tensor(rng.standard_normal(a.shape))).sum(), tr)
+    assert bool(torch.isfinite(h).all())
+
+
+def test_degen_eigh_complex_gradient_against_torch_eigh():
+    a = _herm_c(3, 6, (2,))
+    w = torch.arange(1.0, 7.0, dtype=torch.float64)
+
+    def loss(f, A):
+        e, v = f((A + A.mH) / 2)
+        return (e ** 2).sum() + ((v * w) @ v.mH).real.pow(2).sum()   # phase-invariant
+
+    A1 = torch.tensor(a, requires_grad=True)
+    A2 = torch.tensor(a, requires_grad=True)
+    (g1,) = torch.autograd.grad(loss(degen_eigh, A1), A1)
+    (g2,) = torch.autograd.grad(loss(torch.linalg.eigh, A2), A2)
+    assert float((g1 - g2).abs().max()) <= 1e-9 * float(g2.abs().max())
+
+
+def test_convert_carries_complex_operators():
+    a = _herm_c(4, 8)
+    m = _herm_c(5, 8) / 8
+    A, M = pencil_from_numpy(a.astype(np.complex64), m.astype(np.complex64))
+    assert A.dtype == torch.complex64 and M.dtype == torch.complex64
+    assert A.is_hermitian and M.is_hermitian
+    e, v = xt.linalg.symeig(A, 2, M=M, method="exacteig")
+    import scipy.linalg
+    e0 = scipy.linalg.eigh(a, m, eigvals_only=True)[:2]
+    assert np.abs(e.numpy() - e0).max() <= 1e-4 * np.abs(e0).max()
+    A128, _ = pencil_from_numpy(a.astype(np.complex64), dtype=torch.complex128)
+    assert A128.dtype == torch.complex128
+    with pytest.raises(ValueError, match="complex"):
+        pencil_from_numpy(a, dtype=torch.float64)

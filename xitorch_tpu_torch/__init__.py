@@ -12,10 +12,12 @@ Ported so far (see ROADMAP.md for the rest):
 * ``TridiagLowRankOperator``, ``BandedLowRankOperator``
 * ``linalg.solve`` with cg / minres / exactsolve / structured_cg
 * ``linalg.symeig`` / ``lsymeig`` / ``usymeig`` / ``svd`` with exacteig /
-  davidson / chebfsi, forward and (implicit) gradient
-* ``ops``: the structured CG kernel, the Thomas kernel and the one-sided
-  Jacobi sweep kernel (``jacobi_eigh``, ``jacobi_svd``), each with its
-  plain PyTorch version
+  davidson / chebfsi, forward and (implicit) gradient, real and complex
+* ``ops``: the structured CG kernel, the Thomas kernel, the one-sided
+  Jacobi sweep kernels for real and for complex input (``jacobi_eigh``,
+  ``jacobi_svd``) and the spectral divide-and-conquer warm start
+  (``dc_kernel``, ``spectral_dc``), each kernel with its plain PyTorch
+  version
 """
 from xitorch_tpu_torch._core.linop import (  # noqa: F401
     LinearOperator, MatrixLinearOperator, checklinop,

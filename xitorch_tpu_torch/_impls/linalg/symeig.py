@@ -5,10 +5,12 @@ iterative (counterpart of xitorch_tpu/_impls/linalg/symeig.py).
   drop the ill-defined rotation inside (near-)degenerate blocks.  Each is
   a ``torch.autograd.Function``; its backward is the transpose of the
   reference's tangent rule, taken with differentiable operations, so it
-  can be differentiated again.  On a CUDA float32 tensor inside the
-  kernel's window the decomposition runs the Jacobi sweep kernel
-  (ops/jacobi_eigh.py); elsewhere it is ``torch.linalg.eigh`` /
-  ``torch.linalg.svd``.
+  can be differentiated again.  On a CUDA float32 or complex64 tensor
+  inside the kernels' window the decomposition runs the Jacobi sweep
+  kernels (ops/jacobi_eigh.py); elsewhere it is ``torch.linalg.eigh`` /
+  ``torch.linalg.svd``.  For complex input the rules drop the per-column
+  phase term, which is valid for losses that do not depend on the phases
+  of the eigenvectors or singular vectors.
 * ``exacteig``: dense path with the M-Cholesky symmetrisation.
 * ``davidson``: fixed-subspace block Davidson with thick restart (basis
   [Ritz vectors X, residuals R, previous X], Cholesky-QR).
@@ -43,10 +45,10 @@ def take_eigpairs(eival: torch.Tensor, eivec: torch.Tensor, neig: int, mode: str
 
 
 def _rr_eigh(T: torch.Tensor):
-    """Solver-internal Rayleigh-Ritz/subspace eigh: real float32 matrices
-    on the card inside the sweep kernel's window go to it, everything else
-    (the 16-32 wide matrices of the usual block sizes among it) to
-    ``torch.linalg.eigh``.  Gradients never pass through this."""
+    """Solver-internal Rayleigh-Ritz/subspace eigh: float32 and complex64
+    matrices on the card inside the sweep kernels' window go to them,
+    everything else (the 16-32 wide matrices of the usual block sizes among
+    it) to ``torch.linalg.eigh``.  Gradients never pass through this."""
     from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, use_jacobi_for
 
     if use_jacobi_for(T):
@@ -175,8 +177,8 @@ def degen_eigh(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     up for degenerate eigenvalues; the contribution of (near-)degenerate
     pairs (|lam_j - lam_i| <= eps**0.6) is dropped, which is valid
     whenever the loss is invariant under rotations within the degenerate
-    subspace.  On a CUDA float32 tensor with 64 <= n <= 1024 the
-    decomposition runs the Jacobi sweep kernel (``ops/jacobi_eigh.py``);
+    subspace.  On a CUDA float32 or complex64 tensor with 64 <= n <= 1024
+    the decomposition runs the Jacobi sweep kernels (``ops/jacobi_eigh.py``);
     set ``xitorch_tpu_torch.ops.jacobi_eigh.ENABLED = False`` to force
     ``torch.linalg.eigh``."""
     return _DegenEigh.apply(A)
@@ -187,10 +189,11 @@ def degen_svd(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor
     **ascending** singular values (the package-wide ordering).  Returns
     ``(U, s, V)``.
 
-    On a CUDA float32 tensor inside the kernel's window the decomposition
-    runs the Hestenes one-sided Jacobi sweep kernel on the columns of A
-    (no Gram matrix, so singular values keep ~eps*kappa(A) relative
-    error); elsewhere it is ``torch.linalg.svd`` flipped to ascending."""
+    On a CUDA float32 or complex64 tensor inside the kernels' window the
+    decomposition runs the Hestenes one-sided Jacobi sweep kernel on the
+    columns of A (complex input on packed planes; no Gram matrix, so
+    singular values keep ~eps*kappa(A) relative error); elsewhere it is
+    ``torch.linalg.svd`` flipped to ascending."""
     return _DegenSvd.apply(A)
 
 

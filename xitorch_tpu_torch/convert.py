@@ -34,13 +34,19 @@ def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
     ``V``), "BandedLowRankOperator" (``d``, ``band_vals`` — a sequence of
     arrays, one per offset in ``offsets`` — optional ``V``) or
     "MatrixLinearOperator" (``mat``; ``is_hermitian`` as in
-    ``LinearOperator.m``).  ``dtype`` defaults to each array's own.
+    ``LinearOperator.m``).  ``dtype`` defaults to each array's own; complex
+    arrays (complex hermitian operators and pencils) come across as complex
+    tensors, and a real ``dtype`` for a complex array is an error.
     """
 
     def t(a):
         if a is None:
             return None
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)  # a copy
+        a = np.asarray(a)
+        if np.iscomplexobj(a) and dtype is not None and not dtype.is_complex:
+            raise ValueError("a complex array cannot be carried across as %s: "
+                             "pass a complex dtype or none" % (dtype,))
+        return torch.tensor(a, dtype=dtype, device=device)  # a copy
 
     if kind == "TridiagLowRankOperator":
         c = params.get("c")

@@ -82,15 +82,16 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
     "resid_rel"}`` of float32 scalars without gradients; a
     :class:`ConvergenceWarning` is emitted on non-convergence.
 
-    .. note:: **Default routing.** With ``method=None``, an operator on a
-       CUDA device and an extreme-k ask (``neig*16 <= n``, ``n >= 128``,
-       real), the default routes to the iterative ``chebfsi`` (``davidson``
-       for a generalized pencil) targeting scale-aware residuals; this
-       matches the dense route's eigenVALUE accuracy (value error is
-       quadratic in the residual) but is a looser eigenVECTOR grade than
-       ``exacteig``'s, and implicit gradients inherit the vector grade.
-       Pass ``min_eps`` for tighter residuals or ``method="exacteig"`` for
-       the dense route; see ``_auto_symeig_method``.
+    .. note:: **Default routing.** With ``method=None`` the default is the
+       dense ``"exacteig"``, which on a CUDA device runs the hand-written
+       Jacobi sweep kernel for float32 and complex64 operators with
+       64 <= n <= 1024 and ``torch.linalg.eigh`` elsewhere.  Only outside
+       that window, for an extreme-k ask on a CUDA device (``neig*16 <= n``,
+       ``n >= 128``, real), it routes to the iterative ``chebfsi``
+       (``davidson`` for a generalized pencil) targeting scale-aware
+       residuals, which matches the dense route's eigenVALUE accuracy but is
+       a looser eigenVECTOR grade.  ``_auto_symeig_method`` records the
+       measurements behind both gates.
     """
     if not A.is_hermitian:
         raise RuntimeError("The linear operator A must be Hermitian")
@@ -159,19 +160,36 @@ def _auto_symeig_method(A: LinearOperator, neig: int,
 
     * default = ``"exacteig"`` everywhere, EXCEPT
     * ``"chebfsi"`` (standard problem) or ``"davidson"`` (generalized
-      pencil, ``M`` given) when ALL of these hold: an extreme-k ask with
-      k << n (``neig * 16 <= n`` and ``n >= 128``), real dtype, and the
-      operator on a CUDA device (on the CPU the iterative methods lose to
-      LAPACK, so the CPU keeps the dense default).
+      pencil, ``M`` given) when ALL of these hold: the operator is on a CUDA
+      device, its dense matrix lies OUTSIDE the sweep kernels' window
+      (``ops.jacobi_eigh.in_jacobi_window``: float32/complex64,
+      64 <= n <= 1024), the ask is extreme-k with k << n
+      (``neig * 16 <= n`` and ``n >= 128``), and the dtype is real.  On the
+      CPU the iterative methods lose to LAPACK, so the CPU keeps the dense
+      default.
 
-    The routed path always computes convergence info and warns on
+    Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``chip_smoke.py``
+    (figures rounded; the script repeats the measurement in every run and
+    prints whether the gate agrees).  Inside the window, 64 float32 SPD
+    matrices of 256 x 256 with neig = 8: the dense route through the sweep
+    kernel takes about 24 ms.  The routing this one replaces (extreme-k gate
+    first, so chebfsi with a 16-wide block and the scale-aware tolerance)
+    took 470 to 600 ms there and warned once; so the window comes first.
+    Outside it, 8 matrices of 1536 x 1536 with neig = 8, over three runs:
+    ``"exacteig"`` (``torch.linalg.eigh``) 147 to 154 ms, ``"chebfsi"`` 41
+    to 76 ms, ``method=None`` 33 to 69 ms (host-bound, hence the spread),
+    all converged; so the extreme-k gate stays there.
+
+    The routed iterative path always computes convergence info and warns on
     non-convergence (the best iterate is still returned), with the
-    scale-aware ``min_eps=None`` tolerance.  The routing serves forward
-    throughput; for gradient-dominated work prefer ``method="exacteig"``.
+    scale-aware ``min_eps=None`` tolerance.
     """
+    from xitorch_tpu_torch.ops.jacobi_eigh import in_jacobi_window
+
     na = A.shape[-1]
+    if A.device.type != "cuda" or in_jacobi_window(na, A.dtype):
+        return "exacteig"
     if (not A.dtype.is_complex and na >= 128 and neig * 16 <= na
-            and A.device.type == "cuda"
             and (M is None or not M.dtype.is_complex)):
         return "chebfsi" if M is None else "davidson"
     return "exacteig"
@@ -369,10 +387,16 @@ def svd(A: LinearOperator, k: Optional[int] = None,
       float32 tensor inside its window, ``torch.linalg.svd`` elsewhere),
       no Gram matrix, so singular values keep ~eps*kappa(A) error.
       ``fwd_options``/``bck_options`` do not apply there.
-    * EXCEPT top-k asks with k << min(m, n) on a CUDA device (``k*16 <= r``,
-      ``r >= 128``, ``mode="uppest"``): these go through ``symeig`` of the
-      Gram (``A A^H`` or ``A^H A``, whichever is smaller), whose own default
-      picks the iterative chebfsi there, with a warning on non-convergence.
+    * EXCEPT real top-k asks with k << min(m, n) on a CUDA device
+      (``k*16 <= r``, ``r >= 128``, ``mode="uppest"``): these go through
+      ``symeig(method="chebfsi")`` of the Gram (``A A^H`` or ``A^H A``,
+      whichever is smaller) at the scale-aware tolerance, with a warning on
+      non-convergence.  The Gram squares kappa, which costs the TOP
+      singular values next to nothing.  (Measured by ``chip_smoke.py`` on
+      an NVIDIA H100 80GB HBM3, 700 W, at 64 x 256 x 256, k = 8:
+      host-bound, it spread from 16 to 30 ms over five runs against 31 to
+      33 ms through the native route, and won in each.)  Complex
+      input always takes the native route.
     * an explicit iterative ``method=`` always uses the Gram + symeig
       route, where ``fwd_options``/``bck_options`` apply.
     """
@@ -389,12 +413,13 @@ def svd(A: LinearOperator, k: Optional[int] = None,
         raise RuntimeError("mode must be 'lowest' or 'uppest'/'uppermost'")
 
     r = min(m, n)
-    # top-k with k << r on the card: skip the full native decomposition and
-    # take the Gram route, whose symeig default is the iterative chebfsi.
-    # (Kron-structured operators, which always keep the Gram route in the
-    # reference, come with slice 6 of the port.)
+    # real top-k with k << r on the card: skip the full native decomposition
+    # and take the Gram route with the iterative chebfsi.  (Kron-structured
+    # operators, which always keep the Gram route in the reference, come
+    # with slice 6 of the port.)
     topk_iterative = (method is None and mode == "uppest"
-                      and k * 16 <= r and r >= 128 and A.device.type == "cuda")
+                      and k * 16 <= r and r >= 128 and A.device.type == "cuda"
+                      and not A.dtype.is_complex)
     if method in (None, "exacteig") and not topk_iterative:
         u, s, v = degen_svd(A.fullmatrix())
         sl = slice(None, k) if mode == "lowest" else slice(-k, None)
@@ -404,8 +429,18 @@ def svd(A: LinearOperator, k: Optional[int] = None,
         AAsym = A.matmul(A.H, is_hermitian=True)
     else:
         AAsym = A.H.matmul(A, is_hermitian=True)
-    eivals, eivecs = symeig(AAsym, k, mode, bck_options=bck_options,
-                            method=method, **fwd_options)
+    if topk_iterative:
+        # symeig's own default would take the dense route for a Gram inside
+        # the sweep window; this route names the iterative method, at the
+        # scale-aware tolerance and with the non-convergence warning that a
+        # silent routing decision owes its caller
+        fwd_options = dict({"min_eps": None}, **fwd_options)
+        eivals, eivecs, _ = symeig(AAsym, k, mode, bck_options=bck_options,
+                                   method="chebfsi", return_info=True,
+                                   **fwd_options)
+    else:
+        eivals, eivecs = symeig(AAsym, k, mode, bck_options=bck_options,
+                                method=method, **fwd_options)
     s = torch.sqrt(torch.clamp(eivals, min=0.0))  # (*BA, k)
     sdiv = torch.clamp(s, min=1e-12)[..., None, :]
     if m < n:

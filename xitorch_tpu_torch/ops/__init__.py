@@ -7,6 +7,11 @@ from xitorch_tpu_torch.ops.tridiag import (  # noqa: F401
 # (jacobi_eigh is not re-exported under its own name: it would shadow the
 # submodule of the same name and its ENABLED switch)
 from xitorch_tpu_torch.ops.jacobi_eigh import (  # noqa: F401
-    fits_jacobi_sweep, jacobi_svd, jacobi_sweep, jacobi_sweep_cuda,
+    fits_jacobi_sweep, in_jacobi_window, jacobi_svd, jacobi_sweep, jacobi_sweep_cuda,
     jacobi_sweep_plain, use_jacobi_for, use_jacobi_svd_for,
+)
+# (likewise dc_kernel and spectral_dc stay submodules: both define a
+# dc_precondition, the fused one and the plain statement of the algorithm)
+from xitorch_tpu_torch.ops.dc_kernel import (  # noqa: F401
+    dc_precondition_cuda, dc_precondition_plain, fits_dc_kernel,
 )

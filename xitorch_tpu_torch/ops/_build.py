@@ -44,9 +44,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    """Path of the shared library built from ``csrc/<name>.cu``."""
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
+    """Path of the shared library built from ``csrc/<name>.cu``, keyed by
+    the source, the headers beside it (``*.cuh``) and the flags."""
+    src = b""
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            src += f.read()
     key = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(_BUILD, "%s-%s.so" % (name, key))
 

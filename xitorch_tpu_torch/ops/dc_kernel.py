@@ -1,0 +1,288 @@
+"""Fused spectral divide-and-conquer warm start for the Jacobi eigh sweep
+(counterpart of the single-shot part of xitorch_tpu/ops/dc_kernel.py).
+
+Semantics and algorithm: ``ops/spectral_dc.py`` (per-segment median split,
+Newton-Schulz matrix sign, slot assignment with the rank-safety blend,
+Newton-Schulz polar orthonormalisation, ``T <- Q^T T Q``).  The fused
+version runs the whole level recursion of one matrix in one place and
+differs from the plain statement of the algorithm in its bookkeeping: the
+``T`` carry is never masked between levels (every use inside a level
+applies the segment mask), the sign iteration is symmetrised once at its
+end instead of at every step, and the warm panel ``G0 <- Q^T G0`` is
+accumulated level by level instead of a total ``Q``.
+
+* :func:`dc_precondition_cuda` launches the hand-written kernel
+  ``csrc/dc_kernel.cu`` on a CUDA tensor (one block per matrix, planes in a
+  workspace in device memory, the 74 products of a level as a tiled
+  shared-memory float32 product inside the kernel) and counts its launches;
+* :func:`dc_precondition_plain` is the kernel's own arithmetic, step by
+  step, in batched PyTorch;
+* :func:`dc_precondition` dispatches: the kernel for a CUDA tensor (or an
+  error), the plain version for a CPU tensor.
+
+Output: ``G0 = Q_tot^T a``, the warm-start row panel of the sweep (rows
+are ``q_i^T a``, so the sweep's eigenvector extraction is unchanged).
+
+The per-level variant of the reference (one launch per level for large n,
+``per_level=True``) is not ported yet and raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from xitorch_tpu_torch.ops import _build
+from xitorch_tpu_torch.ops.spectral_dc import _QUINTIC, _RANK_SAFE_BETA, as_probe
+from xitorch_tpu_torch.ops.tridiag import use_kernel
+from xitorch_tpu_torch.utils.tensor import dot_hi
+
+__all__ = ["dc_precondition", "dc_precondition_cuda", "dc_precondition_plain",
+           "fits_dc_kernel"]
+
+_N_QUINTIC_SIGN = 8    # ramp length = sharpness of the sign transition
+_N_CUBIC_SIGN = 3      # contraction steps (the reference's 2 fast + 1 exact;
+# on this card every product is IEEE float32, so they are one schedule)
+_N_QUINTIC_POLAR = 10
+_N_CUBIC_POLAR = 5     # the reference's 3 fast + 2 exact polish steps
+_N_CUBIC_REFINE = 3
+
+# Window of the kernel on the H100.  n: the segment bookkeeping is static
+# shared-memory vectors of _N_MAX entries (kMaxN in csrc/dc_kernel.cu).
+# levels: segment ids reach 2**levels in an int32.  Workspace: six (n, n)
+# float32 planes a matrix in device memory (T and five scratch planes),
+# bounded here so that a call cannot take the card's memory by surprise:
+# 64 matrices of 256 x 256 need 100 MB, 64 of 1024 x 1024 need 1.6 GB.
+_N_MAX = 1024
+_LEVELS_MAX = 24
+_WORK_PLANES = 6
+_WORK_BUDGET = 8 << 30
+
+_NEXT_SLICE = ("a later slice of the port (the per-level DC kernel, "
+               "xitorch_tpu/ops/dc_kernel.py::_dc_level_kernel; see ROADMAP.md, "
+               "queue 2 row 7)")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "dc_precondition_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def fits_dc_kernel(B: int, n: int, levels: int, dtype) -> bool:
+    """Whether a (B, n, n) batch lies in the kernel's window: float32,
+    1 <= n <= 1024, 0 <= levels <= 24, workspace of at most 8 GiB."""
+    return bool(dtype == torch.float32 and B >= 1 and 1 <= n <= _N_MAX
+                and 0 <= levels <= _LEVELS_MAX
+                and B * _WORK_PLANES * n * n * 4 <= _WORK_BUDGET)
+
+
+def _check_input(a: torch.Tensor, what: str) -> None:
+    if a.dim() != 3 or a.shape[-1] != a.shape[-2] or a.is_complex():
+        raise RuntimeError("%s expects a real (B, n, n) batch, got %s %s"
+                           % (what, a.dtype, tuple(a.shape)))
+
+
+def _outputs(g, t, seg, return_t: bool, return_seg: bool):
+    out = (g,) + ((t,) if return_t else ()) + ((seg,) if return_seg else ())
+    return out if len(out) > 1 else g
+
+
+def dc_precondition_plain(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
+                          return_t: bool = False, return_seg: bool = False,
+                          refine: int = 0, om: Optional[torch.Tensor] = None,
+                          state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Plain PyTorch version of the DC kernel on a real (B, n, n) batch:
+    the same steps in the same order (unmasked ``T`` carry, one
+    symmetrisation at the end of the sign iteration, ``G0 <- Q^T G0``
+    accumulated, the 8 + 3 and 10 + 5 Newton-Schulz schedules, ``refine``
+    re-projection passes).  Outputs ordered ``(g, [t], [seg])``; ``seg`` is
+    (B, n, 1) int32.
+
+    ``state = (t, seg)`` resumes the recursion: ``a`` is then the panel
+    ``G0`` and ``(t, seg)`` the ``return_t`` and ``return_seg`` exports of
+    an earlier call (of this function or of the kernel), and ``levels``
+    more levels run from there.  Resuming after every level reproduces one
+    call of all the levels; it is how a kernel's output is held against
+    this version one level at a time, from the kernel's own state."""
+    _check_input(a, "dc_precondition_plain")
+    B, n, _ = a.shape
+    dt = a.dtype
+    dev = a.device
+    om = as_probe(om, n, dt, dev)
+    qa, qb, qc = _QUINTIC
+    eye = torch.eye(n, dtype=dt, device=dev)
+    iot = torch.arange(n, device=dev)
+
+    def msign(X, mask):
+        for _ in range(_N_QUINTIC_SIGN):
+            X2 = dot_hi(X, X)
+            X4 = dot_hi(X2, X2)
+            X = dot_hi(X, qa * eye + qb * X2 + qc * X4) * mask
+        for _ in range(_N_CUBIC_SIGN):
+            X2 = dot_hi(X, X)
+            X = (1.5 * X - 0.5 * dot_hi(X, X2)) * mask
+        return 0.5 * (X + X.mT)
+
+    def polar_cubic(Q, steps):
+        for _ in range(steps):
+            Gm = dot_hi(Q.mT, Q)
+            Q = 1.5 * Q - 0.5 * dot_hi(Q, Gm)
+        return Q
+
+    def polar(Q):
+        for _ in range(_N_QUINTIC_POLAR):
+            Gm = dot_hi(Q.mT, Q)
+            G2 = dot_hi(Gm, Gm)
+            Q = dot_hi(Q, qa * eye + qb * Gm + qc * G2)
+        return polar_cubic(Q, _N_CUBIC_POLAR)
+
+    def seg_max(v, seg_eq_b):
+        # max of v over the positions of each position's segment (v >= 0)
+        return torch.where(seg_eq_b, v[:, None, :], v.new_zeros(())).amax(-1)
+
+    g = a.clone()
+    if state is None:
+        T = 0.5 * (a + a.mT)
+        seg = torch.zeros((B, n), dtype=torch.int64, device=dev)
+    else:
+        T = state[0].to(dtype=dt, device=dev)
+        seg = state[1].reshape(B, n).to(dtype=torch.int64, device=dev)
+        if T.shape != a.shape:
+            raise ValueError("dc_precondition_plain: state t must be %s, got %s"
+                             % (tuple(a.shape), tuple(T.shape)))
+    for _ in range(levels):
+        seg_eq_b = seg[:, :, None] == seg[:, None, :]
+        seg_eq = seg_eq_b.to(dt)
+        sizes = seg_eq_b.sum(-1)
+        starts = (seg[:, None, :] < seg[:, :, None]).sum(-1)
+        froz = sizes <= min_seg
+        fro_any_b = froz[:, :, None] | froz[:, None, :]
+        fro_any = fro_any_b.to(dt)
+        live = 1.0 - fro_any
+
+        d = torch.diagonal(T, dim1=-2, dim2=-1)
+        # rank of position j's diagonal inside its segment: members i with
+        # (d_i, i) < (d_j, j), ties by index
+        lt2 = (d[:, :, None] < d[:, None, :]) | (
+            (d[:, :, None] == d[:, None, :]) & (iot[:, None] < iot[None, :]))
+        rank = (seg_eq_b & lt2).sum(-2)                              # by j
+        lo_t = torch.div(sizes - 1, 2, rounding_mode="floor")
+        hi_t = torch.div(sizes, 2, rounding_mode="floor")
+        is_lo = seg_eq * (rank[:, None, :] == lo_t[:, :, None])
+        is_hi = seg_eq * (rank[:, None, :] == hi_t[:, :, None])
+        sigma = 0.5 * ((is_lo * d[:, None, :]).sum(-1) + (is_hi * d[:, None, :]).sum(-1))
+
+        C = T * seg_eq - sigma[:, :, None] * eye
+        col1 = C.abs().sum(-2)
+        bound = seg_max(col1, seg_eq_b)
+        X = C / (1.01 * bound[:, :, None] + 1e-30)
+
+        E = msign(X, seg_eq * live)
+        P = 0.5 * (eye * seg_eq - E) * live
+        pd = torch.diagonal(P, dim1=-2, dim2=-1)
+        tr = (seg_eq * pd[:, None, :]).sum(-1)
+        # torch.round, like rintf and jnp.round, rounds half to even
+        r = torch.minimum(torch.clamp(torch.round(tr).to(torch.int64), min=0), sizes)
+        low = ((iot[None, :] - starts) < r) & ~froz
+
+        omb = (fro_any * eye + (1.0 - fro_any) * om) * seg_eq
+        POm = dot_hi(P, omb)
+        # rank-safety blend: see spectral_dc._dc_level at the Y construction
+        Y = ((1.0 - _RANK_SAFE_BETA) * torch.where(low[:, None, :], POm, omb - POm)
+             + _RANK_SAFE_BETA * omb)
+        coln = torch.sqrt((Y * Y).sum(-2, keepdim=True))
+        Y = Y / (coln + 1e-20)
+        rmax = seg_max(Y.abs().sum(-1), seg_eq_b)
+        cmax = seg_max(Y.abs().sum(-2), seg_eq_b)
+        scale = 1.01 * torch.sqrt(rmax * cmax) + 1e-30
+        Q = polar(Y / scale[:, None, :])
+
+        for _r in range(refine):
+            # subspace refinement: re-project the orthonormal basis through
+            # the projector (low slots through P, high slots through I - P)
+            # and re-orthonormalise with a short cubic polar
+            PQ = dot_hi(P, Q)
+            Q = torch.where(low[:, None, :], PQ, Q - PQ)
+            # frozen segments keep their identity columns
+            Q = torch.where(fro_any_b, eye * seg_eq, Q)
+            coln = torch.sqrt((Q * Q).sum(-2, keepdim=True))
+            Q = polar_cubic(Q / (coln + 1e-20), _N_CUBIC_REFINE)
+
+        T = dot_hi(Q.mT, dot_hi(T, Q))
+        # the carry is not masked between levels: every use inside a level
+        # applies the segment mask, so an exported T is exact at all
+        # segment boundaries
+        T = 0.5 * (T + T.mT)
+        g = dot_hi(Q.mT, g)
+        seg = seg * 2 + torch.where(low | froz, 0, 1)
+    return _outputs(g, T, seg.to(torch.int32)[..., None], return_t, return_seg)
+
+
+def dc_precondition_cuda(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
+                         return_t: bool = False, return_seg: bool = False,
+                         refine: int = 0, om: Optional[torch.Tensor] = None):
+    """Launch the DC kernel on a contiguous float32 CUDA batch (B, n, n)
+    inside the window of :func:`fits_dc_kernel`.  Outputs ordered
+    ``(g, [t], [seg])``; ``seg`` is (B, n, 1) int32."""
+    _check_input(a, "dc_precondition_cuda")
+    if not a.is_cuda or a.dtype != torch.float32 or not a.is_contiguous():
+        raise RuntimeError("dc_precondition_cuda: expected a contiguous float32 "
+                           "CUDA batch (B, n, n)")
+    B, n, _ = a.shape
+    if not fits_dc_kernel(B, n, levels, a.dtype) or min_seg < 0 or refine < 0:
+        raise RuntimeError(
+            "dc_precondition_cuda: a (%d, %d, %d) batch with levels=%d, min_seg=%d, "
+            "refine=%d is outside the kernel's window (1 <= B, 1 <= n <= %d, "
+            "0 <= levels <= %d, workspace B*%d*n*n*4 B <= %d B)"
+            % (B, n, n, levels, min_seg, refine, _N_MAX, _LEVELS_MAX, _WORK_PLANES,
+               _WORK_BUDGET))
+    om = as_probe(om, n, a.dtype, a.device)
+    g = torch.empty_like(a)
+    t = torch.empty_like(a) if return_t else None
+    seg = torch.empty((B, n, 1), dtype=torch.int32, device=a.device) \
+        if return_seg else None
+    work = torch.empty((B, _WORK_PLANES, n, n), dtype=torch.float32, device=a.device)
+    lib = _build.load("dc_kernel", _SIGNATURES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.dc_precondition_f32(
+            a.data_ptr(), om.data_ptr(), g.data_ptr(),
+            t.data_ptr() if return_t else None,
+            seg.data_ptr() if return_seg else None,
+            work.data_ptr(), B, n, int(levels), int(min_seg), int(refine), stream)
+    _build.check(rc, "dc_precondition_cuda")
+    dc_precondition_cuda.launches += 1
+    return _outputs(g, t, seg, return_t, return_seg)
+
+
+dc_precondition_cuda.launches = 0
+
+
+def dc_precondition(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
+                    per_level: Optional[bool] = None, return_t: bool = False,
+                    return_seg: bool = False, refine: int = 0,
+                    om: Optional[torch.Tensor] = None):
+    """``G0 = Q^T a`` warm-start panels for (B, n, n) symmetric ``a`` (the
+    Jacobi caller passes the shifted, padded matrix): the kernel for a CUDA
+    tensor (or an error), the plain version for a CPU tensor.  Counterpart
+    of ``dc_precondition_tpu``.
+
+    ``return_t`` also returns ``T = Q^T a Q`` of the last level (never
+    masked, so exact at every segment boundary); ``return_seg`` the final
+    (B, n, 1) int32 segment ids (non-decreasing along the index);
+    ``refine`` runs that many re-projection passes per level.  Outputs are
+    ordered ``(g, [t], [seg])``.  ``om``: the (n, n) probe, a tensor or a
+    numpy array; ``None`` draws ``spectral_dc.default_probe`` (seed 1803,
+    on the CPU, moved to ``a``'s device), so kernel and plain version see
+    the same probe.  ``per_level`` (``None`` means no) is not ported yet.
+    """
+    if per_level:
+        raise NotImplementedError(
+            "dc_precondition: per_level=True comes with " + _NEXT_SLICE)
+    kw = dict(levels=levels, min_seg=min_seg, return_t=return_t,
+              return_seg=return_seg, refine=refine, om=om)
+    if use_kernel(a):
+        return dc_precondition_cuda(a.contiguous(), **kw)
+    return dc_precondition_plain(a, **kw)

@@ -30,11 +30,24 @@ and sweep count, and the rows keep their input order (the plain version
 moves rows as the reference does, so its output is a row permutation of
 the kernel's: every consumer sorts).
 
-Not in this module yet: the spectral divide-and-conquer warm start
-(``precondition=True``, with its ``_guard_warm_start``/``_rot_correct``
-tail), the deflated path and complex input; each raises
-``NotImplementedError`` naming the slice of the port that brings it.
-The warm start changes how many sweeps run, never the result.
+Complex hermitian input and complex SVD run the same iteration on packed
+real planes ``[Re G^T | Im G^T]`` (``complexpair=True``): the pair dot is
+the hermitian inner product, the bottom row of a pair is phase-aligned by
+``exp(-i arg gamma)`` so that the rotation itself stays real and applies
+to both planes, and the gauge is the hermitian ``re^2 + im^2``.  On the
+card that is the kernel in ``csrc/jacobi_sweep_complex.cu``.
+
+The warm start (``precondition=True``): the spectral divide-and-conquer
+sort (``ops/dc_kernel.py``) hands the sweep ``G0 = Q^T A_shift`` instead of
+``A_shift``, after a gap-clipped first-order correction
+(:func:`_rot_correct`) and behind a per-matrix orthogonality guard
+(:func:`_guard_warm_start`) that sends a matrix with a broken panel back to
+the cold start.  The warm start changes how many sweeps run, never the
+result.
+
+Not in this module yet: the deflated path (``deflate=True``), which builds
+on the lab module of the reference; it raises ``NotImplementedError``
+naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -51,7 +64,7 @@ from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["jacobi_eigh", "jacobi_svd", "use_jacobi_for", "use_jacobi_svd_for",
            "jacobi_sweep", "jacobi_sweep_cuda", "jacobi_sweep_plain",
-           "fits_jacobi_sweep"]
+           "fits_jacobi_sweep", "in_jacobi_window"]
 
 # global switch: degen_eigh / degen_svd dispatch the dense decomposition
 # here when use_jacobi_for / use_jacobi_svd_for approve
@@ -70,51 +83,71 @@ _W_MAX = 4096
 # reduction arrays (and headroom)
 _SMEM_PANEL = 232448 - 8192
 
-_NEXT_SLICE = ("the next slice of the port (config 2 warm start: the DC "
-               "kernel, spectral_dc, _guard_warm_start/_rot_correct and the "
-               "complex sweep kernel; see ROADMAP.md)")
+_NEXT_SLICE = ("the last slice of the port (the deflated path of the "
+               "reference's _finisher_lab; see ROADMAP.md, queue 1)")
+
+# Runtime guard on the warm start (see _guard_warm_start): relative
+# ||G0^T G0 - A_shift^2||_F above which a matrix falls back to the cold
+# sweep.  Healthy panels sit at ~eps*sqrt(n); the rank-deficiency failure
+# this guards against breaks the identity by 1e-5..1e-3.
+_GUARD_RTOL = 5e-6
+_ROT_EMAX = 0.1  # |E_ij| clip of the first-order rotational correction
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "jacobi_sweep_f32": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                         ctypes.c_float, ctypes.c_int, _P],
-}
+_SWEEP_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P]
+_SIGNATURES = {"jacobi_sweep_f32": _SWEEP_ARGS}
+_SIGNATURES_COMPLEX = {"jacobi_sweep_c32": _SWEEP_ARGS}
 
 
 def _eps_floor(dtype) -> float:
     return float(torch.finfo(dtype).tiny) * 16.0
 
 
-def fits_jacobi_sweep(n: int, width: int, dtype) -> bool:
-    """Whether an (n, width) panel lies in the kernel's window: float32,
-    n even and at most 1024 rows, width at most 4096."""
+def fits_jacobi_sweep(n: int, width: int, dtype, complexpair: bool = False) -> bool:
+    """Whether an (n, width) panel lies in the kernels' window: float32,
+    n even and at most 1024 rows, width at most 4096 (for packed complex
+    planes ``[Re | Im]`` the width is even, so the half-width is at most
+    2048)."""
     return bool(dtype == torch.float32 and n >= 2 and n % 2 == 0
-                and n <= _N_MAX and 1 <= width <= _W_MAX)
+                and n <= _N_MAX and 1 <= width <= _W_MAX
+                and not (complexpair and width % 2))
 
 
 # ------------------------------------------------------------------
 # the sweep: plain version, kernel wrapper, dispatcher
 # ------------------------------------------------------------------
 
-def _max_cos2(G: torch.Tensor) -> torch.Tensor:
+def _max_cos2(G: torch.Tensor, complexpair: bool = False) -> torch.Tensor:
     """Gram gauge of a (B, n, width) panel: per matrix, the max over i != j
-    of ``<g_i, g_j>^2 / max(|g_i|^2 |g_j|^2, 16 tiny)``, in IEEE float32."""
+    of ``|<g_i, g_j>|^2 / max(|g_i|^2 |g_j|^2, 16 tiny)``, in IEEE float32.
+    With ``complexpair`` the rows are packed ``[Re | Im]`` and the inner
+    product is hermitian."""
     n = G.shape[-2]
     nrm = (G * G).sum(-1)
     gram = dot_hi(G, G.mT)
+    gram2 = gram * gram
+    if complexpair:
+        hw = G.shape[-1] // 2
+        # Im <g_i, g_j> = g_i . swap(g_j) with swap = [Im | -Re]
+        gsw = torch.cat([G[..., hw:], -G[..., :hw]], dim=-1)
+        im = dot_hi(G, gsw.mT)
+        gram2 = gram2 + im * im
     denom = torch.clamp(nrm[..., :, None] * nrm[..., None, :],
                         min=_eps_floor(G.dtype))
-    ratio = gram * gram / denom
+    ratio = gram2 / denom
     eye = torch.eye(n, dtype=torch.bool, device=G.device)
     return ratio.masked_fill(eye, 0.0).amax(dim=(-2, -1))
 
 
-def _rot_coeffs(nt, nb, gam, live_thresh: float):
+def _rot_coeffs(nt, nb, gam, live_thresh: float, gam2=None):
     """Jacobi rotation (c, s) for row pairs with carried squared norms
-    ``nt``/``nb`` and pair dot ``gam``; pairs already orthogonal (or zero)
-    get the identity."""
-    ratio = gam * gam / torch.clamp(nt * nb, min=_eps_floor(gam.dtype))
+    ``nt``/``nb`` and pair dot ``gam`` (``|gamma|`` on the complex path,
+    with ``gam2 = |gamma|^2`` as it was summed); pairs already orthogonal
+    (or zero) get the identity.  Returns ``(c, s, live)``."""
+    if gam2 is None:
+        gam2 = gam * gam
+    ratio = gam2 / torch.clamp(nt * nb, min=_eps_floor(gam.dtype))
     live = ratio > live_thresh
     zeta = (nb - nt) / torch.where(live, 2.0 * gam, torch.ones_like(gam))
     sgn = torch.where(zeta >= 0, 1.0, -1.0).to(gam.dtype)
@@ -126,7 +159,7 @@ def _rot_coeffs(nt, nb, gam, live_thresh: float):
     s = c * t
     c = torch.where(live, c, torch.ones_like(c))
     s = torch.where(live, s, torch.zeros_like(s))
-    return c, s
+    return c, s, live
 
 
 def _shuffle(h: int, top, bot):
@@ -140,9 +173,29 @@ def _shuffle(h: int, top, bot):
     return new_top, new_bot
 
 
-def _one_round(h: int, top, bot, nt, nb, live_thresh: float):
-    gam = (top * bot).sum(-1, keepdim=True)
-    c, s = _rot_coeffs(nt, nb, gam, live_thresh)
+def _one_round(h: int, top, bot, nt, nb, live_thresh: float, complexpair: bool):
+    if complexpair:
+        hw = top.shape[-1] // 2
+        rt, it = top[..., :hw], top[..., hw:]
+        rb, ib = bot[..., :hw], bot[..., hw:]
+        # gamma = <g_p, g_q>, the hermitian inner product: two reductions
+        g_re = (rt * rb + it * ib).sum(-1, keepdim=True)
+        g_im = (rt * ib - it * rb).sum(-1, keepdim=True)
+        gam2 = g_re * g_re + g_im * g_im
+        gam = torch.sqrt(gam2)
+        c, s, live = _rot_coeffs(nt, nb, gam, live_thresh, gam2)
+        # phase-align g_q by exp(-i arg gamma), so that the rotation itself
+        # is real; a pair that is not rotated (gamma ~ 0) keeps the identity
+        # phase: dividing by a floored |gamma| would zero the bottom row
+        floor = _eps_floor(gam.dtype)
+        safe = live & (gam > floor)
+        denom = torch.clamp(gam, min=floor)
+        ph_c = torch.where(safe, g_re / denom, torch.ones_like(gam))
+        ph_s = torch.where(safe, g_im / denom, torch.zeros_like(gam))
+        bot = torch.cat([ph_c * rb + ph_s * ib, ph_c * ib - ph_s * rb], dim=-1)
+    else:
+        gam = (top * bot).sum(-1, keepdim=True)
+        c, s, _ = _rot_coeffs(nt, nb, gam, live_thresh)
     # c top - s bot and s top + c bot, written so that 1 - c is never formed
     # by rounding c (tau = s/(1+c) = (1-c)/s): in float32 c rounds to 1 for
     # the many small rotations of the late sweeps, and applying c and s as
@@ -160,20 +213,27 @@ def _one_round(h: int, top, bot, nt, nb, live_thresh: float):
     return new_top, new_bot, new_nt, new_nb
 
 
-def _check_panel(panel: torch.Tensor, what: str) -> None:
+def _check_panel(panel: torch.Tensor, what: str, complexpair: bool = False) -> None:
     if panel.dim() != 3 or panel.shape[-2] < 2 or panel.shape[-2] % 2:
         raise RuntimeError("%s expects a (B, n, width) panel with n even, got %s"
                            % (what, tuple(panel.shape)))
+    if complexpair and (panel.shape[-1] % 2 or panel.is_complex()):
+        raise RuntimeError("%s: complexpair takes real packed planes [Re | Im] of "
+                           "even width, got %s %s"
+                           % (what, panel.dtype, tuple(panel.shape)))
 
 
-def jacobi_sweep_plain(panel: torch.Tensor, max_sweeps: int, tol: float
+def jacobi_sweep_plain(panel: torch.Tensor, max_sweeps: int, tol: float,
+                       complexpair: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the sweep kernel on a (B, n, width) panel:
+    """Plain PyTorch version of the sweep kernels on a (B, n, width) panel:
     the same rotations, pairing, norm carry, per-sweep refresh and gauge
-    exit, each matrix leaving on its own gauge.  Returns ``(G, sweeps)``:
-    the swept panel (rows in tournament order, a permutation of the
-    input's) and each matrix's executed sweep count (B,) int32."""
-    _check_panel(panel, "jacobi_sweep_plain")
+    exit, each matrix leaving on its own gauge.  ``complexpair``: the rows
+    are packed real planes ``[Re g_i | Im g_i]`` of complex vectors.
+    Returns ``(G, sweeps)``: the swept panel (rows in tournament order, a
+    permutation of the input's) and each matrix's executed sweep count
+    (B,) int32."""
+    _check_panel(panel, "jacobi_sweep_plain", complexpair)
     B, n, _ = panel.shape
     h = n // 2
     tol2 = tol * tol
@@ -181,8 +241,10 @@ def jacobi_sweep_plain(panel: torch.Tensor, max_sweeps: int, tol: float
     rounds = -(-(n - 1) // _UNROLL) * _UNROLL
     G = panel.clone()
     sweeps = torch.zeros(B, dtype=torch.int32, device=panel.device)
-    worst = _max_cos2(G) if B else G.new_zeros(0)
+    worst = _max_cos2(G, complexpair) if B else G.new_zeros(0)
     for _ in range(max_sweeps):
+        # the negated <= keeps a matrix whose gauge is NaN sweeping, as the
+        # kernels' `gauge > tol^2` does not: both leave it after max_sweeps
         idx = (worst > tol2).nonzero()[:, 0]
         if idx.numel() == 0:
             break
@@ -192,64 +254,90 @@ def jacobi_sweep_plain(panel: torch.Tensor, max_sweeps: int, tol: float
         nt = (top * top).sum(-1, keepdim=True)
         nb = (bot * bot).sum(-1, keepdim=True)
         for _r in range(rounds):
-            top, bot, nt, nb = _one_round(h, top, bot, nt, nb, live_thresh)
+            top, bot, nt, nb = _one_round(h, top, bot, nt, nb, live_thresh,
+                                          complexpair)
         g = torch.cat([top, bot], dim=1)
         G[idx] = g
         sweeps[idx] += 1
-        worst[idx] = _max_cos2(g)
+        worst[idx] = _max_cos2(g, complexpair)
     return G, sweeps
 
 
+def _pad_halves(panel: torch.Tensor, hw: int, hw4: int) -> torch.Tensor:
+    """[Re | Im] with each half zero-padded from hw to hw4 columns."""
+    return torch.cat([F.pad(panel[..., :hw], (0, hw4 - hw)),
+                      F.pad(panel[..., hw:], (0, hw4 - hw))], dim=-1)
+
+
 def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
-                      return_stats: bool = False):
-    """Launch the sweep kernel on a contiguous float32 CUDA panel
-    (B, n, width) inside the window of :func:`fits_jacobi_sweep`.  Returns
-    ``(G, sweeps)`` (rows in the input's order), and with ``return_stats``
-    also each matrix's last measured gauge (B,) float32 and its number of
-    rotated pairs (B,) int32 (pairs skipped as orthogonal do not count)."""
-    _check_panel(panel, "jacobi_sweep_cuda")
+                      return_stats: bool = False, complexpair: bool = False):
+    """Launch a sweep kernel on a contiguous float32 CUDA panel
+    (B, n, width) inside the window of :func:`fits_jacobi_sweep`: the real
+    kernel (``csrc/jacobi_sweep.cu``), or with ``complexpair`` the complex
+    one (``csrc/jacobi_sweep_complex.cu``) on packed planes ``[Re | Im]``.
+    Returns ``(G, sweeps)`` (rows in the input's order), and with
+    ``return_stats`` also each matrix's last measured gauge (B,) float32
+    and its number of rotated pairs (B,) int32 (pairs skipped as orthogonal
+    do not count).  ``jacobi_sweep_cuda.launches`` counts the real kernel's
+    launches, ``jacobi_sweep_cuda.launches_complex`` the complex one's."""
+    _check_panel(panel, "jacobi_sweep_cuda", complexpair)
     if not panel.is_cuda or panel.dtype != torch.float32 or not panel.is_contiguous():
         raise RuntimeError("jacobi_sweep_cuda: expected a contiguous float32 CUDA "
                            "panel (B, n, width)")
     B, n, width = panel.shape
-    if B == 0 or not fits_jacobi_sweep(n, width, panel.dtype):
+    if B == 0 or not fits_jacobi_sweep(n, width, panel.dtype, complexpair):
         raise RuntimeError(
             "jacobi_sweep_cuda: a (%d, %d, %d) panel is outside the kernel's "
-            "window (1 <= B, n even <= %d, width <= %d)"
-            % (B, n, width, _N_MAX, _W_MAX))
-    w4 = -(-width // 4) * 4
-    # the kernel reads rows as float4: zero columns change no dot product
-    a = F.pad(panel, (0, w4 - width)) if w4 != width else panel
+            "window (1 <= B, n even <= %d, width <= %d%s)"
+            % (B, n, width, _N_MAX, _W_MAX, ", even" if complexpair else ""))
+    # the kernels read rows (each half of a packed row) as float4: zero
+    # columns change no dot product
+    if complexpair:
+        hw = width // 2
+        hw4 = -(-hw // 4) * 4
+        a = _pad_halves(panel, hw, hw4) if hw4 != hw else panel
+    else:
+        w4 = -(-width // 4) * 4
+        a = F.pad(panel, (0, w4 - width)) if w4 != width else panel
     g = torch.empty_like(a)
     sweeps = torch.empty(B, dtype=torch.int32, device=panel.device)
     gauge = torch.empty(B, dtype=torch.float32, device=panel.device)
     rotations = torch.empty(B, dtype=torch.int32, device=panel.device)
     tol2 = tol * tol
-    lib = _build.load("jacobi_sweep", _SIGNATURES)
+    if complexpair:
+        entry = _build.load("jacobi_sweep_complex", _SIGNATURES_COMPLEX).jacobi_sweep_c32
+    else:
+        entry = _build.load("jacobi_sweep", _SIGNATURES).jacobi_sweep_f32
     with torch.cuda.device(panel.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.jacobi_sweep_f32(a.data_ptr(), g.data_ptr(), sweeps.data_ptr(),
-                                  gauge.data_ptr(), rotations.data_ptr(), B, n, w4,
-                                  int(max_sweeps),
-                                  tol2, tol2 * 0.01, _SMEM_PANEL, stream)
+        rc = entry(a.data_ptr(), g.data_ptr(), sweeps.data_ptr(), gauge.data_ptr(),
+                   rotations.data_ptr(), B, n, a.shape[-1], int(max_sweeps),
+                   tol2, tol2 * 0.01, _SMEM_PANEL, stream)
     _build.check(rc, "jacobi_sweep_cuda")
-    jacobi_sweep_cuda.launches += 1
-    if w4 != width:
-        g = g[..., :width].contiguous()
+    if complexpair:
+        jacobi_sweep_cuda.launches_complex += 1
+        if hw4 != hw:
+            g = torch.cat([g[..., :hw], g[..., hw4:hw4 + hw]], dim=-1)
+    else:
+        jacobi_sweep_cuda.launches += 1
+        if w4 != width:
+            g = g[..., :width].contiguous()
     return (g, sweeps, gauge, rotations) if return_stats else (g, sweeps)
 
 
 jacobi_sweep_cuda.launches = 0
+jacobi_sweep_cuda.launches_complex = 0
 
 
-def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float,
+                 complexpair: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sweep a (B, n, width) panel: the kernel for a CUDA tensor (or an
     error), the plain version for a CPU tensor.  Counterpart of
     ``_pallas_g_panel``; returns ``(G, sweeps)``."""
     if use_kernel(panel):
-        return jacobi_sweep_cuda(panel.contiguous(), max_sweeps, tol)
-    return jacobi_sweep_plain(panel, max_sweeps, tol)
+        return jacobi_sweep_cuda(panel.contiguous(), max_sweeps, tol,
+                                 complexpair=complexpair)
+    return jacobi_sweep_plain(panel, max_sweeps, tol, complexpair)
 
 
 # ------------------------------------------------------------------
@@ -264,44 +352,135 @@ def _padded_n(n: int) -> int:
 
 
 def _newton_orthonormalize(V: torch.Tensor) -> torch.Tensor:
-    """One Newton step ``V (3 I - V^T V) / 2``: squares the orthogonality
+    """One Newton step ``V (3 I - V^H V) / 2``: squares the orthogonality
     drift away."""
     eye = torch.eye(V.shape[-1], dtype=V.dtype, device=V.device)
-    return dot_hi(V, 1.5 * eye - 0.5 * dot_hi(V.mT, V))
+    return dot_hi(V, 1.5 * eye - 0.5 * dot_hi(V.mH, V))
+
+
+def _guard_warm_start(a_shift: torch.Tensor, g0: torch.Tensor,
+                      rtol: float = _GUARD_RTOL
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-matrix orthogonality guard on the warm panel.
+
+    The sweep rests on the G-invariant: its input panel must be
+    ``R^T A_shift`` for an orthogonal R (then the rows of G at convergence
+    are scaled eigenvectors).  A healthy warm panel is ``Q^T A_shift`` with Q
+    orthogonal to float32, so ``G0^T G0 == A_shift^2``; a rank-deficient Q
+    (a wrongly rounded slot split that the polar ramp cannot repair) breaks
+    that identity by 1e-5..1e-3 against a healthy ~eps*sqrt(n).  A matrix
+    above ``rtol`` falls back to the cold start ``A_shift`` itself (R = I):
+    correctness never depends on the preconditioner.  Two batched products.
+    Returns ``(panel, bad)`` with ``bad`` (B,) bool."""
+    gtg = dot_hi(g0.mT, g0)
+    a2 = dot_hi(a_shift, a_shift)
+    num = torch.sqrt(((gtg - a2) ** 2).sum(dim=(-2, -1)))
+    den = torch.sqrt((a2 * a2).sum(dim=(-2, -1)))
+    # negated <= so that a NaN-poisoned panel (NaN compares False both ways)
+    # is flagged and falls back to the cold start
+    bad = ~(num <= rtol * den)
+    return torch.where(bad[:, None, None], a_shift, g0), bad
+
+
+def _rot_correct(g0: torch.Tensor, passes: int = 2,
+                 emax: float = _ROT_EMAX) -> torch.Tensor:
+    """Gap-clipped first-order rotational correction of a warm panel:
+    products in place of sweeps for the well-gapped leftover couplings.
+
+    The warm panel is ``P = Q^T A_shift`` with Q near the eigenbasis, so
+    ``T = P P^T = Q^T A^2 Q`` is nearly diagonal.  The first-order rotation
+    that zeroes coupling (i, j) of T is ``R = I + E`` with antisymmetric
+    ``E_ij = T_ij / (t_j - t_i)``.  Entries with ``|E_ij| > emax``
+    (couplings between near-degenerate pairs, where first order is invalid)
+    are clipped to zero and left to the sweep, whose 2x2 rotations solve
+    them exactly.  R is made orthogonal by 3 Newton-Schulz polar steps, so
+    the G-invariant survives to rounding and a bad correction costs sweeps,
+    never correctness; the guard runs after this correction."""
+    n = g0.shape[-1]
+    dt = g0.dtype
+    eye = torch.eye(n, dtype=dt, device=g0.device)
+    tiny = _eps_floor(dt)
+    for _ in range(passes):
+        T = dot_hi(g0, g0.mT)
+        t = torch.diagonal(T, dim1=-2, dim2=-1)
+        denom = t[..., None, :] - t[..., :, None]           # t_j - t_i
+        # denom == 0 is excluded explicitly: an exactly degenerate uncoupled
+        # pair (T_ij = 0: identical padding rows, or the zero rows of a
+        # broken preconditioner) passes the clip test, and 0/0 would
+        # NaN-poison the panel before the guard can catch it
+        live = (T.abs() <= emax * denom.abs()) & (denom.abs() > tiny)
+        E = torch.where(live, T / torch.where(live, denom, torch.ones_like(denom)),
+                        torch.zeros_like(T))
+        R = eye + E
+        for _ns in range(3):
+            R = dot_hi(R, 1.5 * eye - 0.5 * dot_hi(R.mT, R))
+        g0 = dot_hi(R.mT, g0)
+    return g0
+
+
+def _resolve_precondition(precondition: Optional[bool], A: torch.Tensor) -> bool:
+    # None is the cold sweep at every size: on the H100 the warm start is
+    # slower wherever it was measured (see jacobi_eigh's docstring)
+    if precondition and A.is_complex():
+        raise ValueError(
+            "jacobi_eigh: precondition=True is not supported for complex input "
+            "(the DC kernel operates on real symmetric matrices; the complex "
+            "path packs [Re|Im] planes, which the segment bookkeeping does not "
+            "model): leave precondition=None or False")
+    return bool(precondition)
 
 
 def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
                 tol: Optional[float] = None,
                 precondition: Optional[bool] = None,
-                deflate: Optional[bool] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched symmetric eigendecomposition, ``torch.linalg.eigh`` contract.
+                deflate: Optional[bool] = None,
+                return_info: bool = False):
+    """Batched symmetric/hermitian eigendecomposition, ``torch.linalg.eigh``
+    contract.
 
-    ``A``: (*B, n, n) real symmetric.  Returns ascending eigenvalues
-    (*B, n) and column eigenvectors (*B, n, n).  Raw entry without
-    derivatives; ``degen_eigh`` wraps it with the degeneracy-safe
-    gradient.  Pads n to a multiple of 16 internally.
+    ``A``: (*B, n, n) real symmetric or complex hermitian.  Returns
+    ascending (real) eigenvalues (*B, n) and column eigenvectors
+    (*B, n, n).  Raw entry without derivatives; ``degen_eigh`` wraps it with
+    the degeneracy-safe gradient.  Pads n to a multiple of 16 internally.
 
-    ``precondition=None`` resolves to the cold sweep; the warm start
-    (``precondition=True``) and ``deflate=True`` are not ported yet.
+    ``precondition=True`` (real input only) runs the spectral
+    divide-and-conquer sort first (``ops/dc_kernel.py``, split down to
+    pairs) and hands the sweep ``G0 = Q^T A_shift`` instead of ``A_shift``,
+    after :func:`_rot_correct` and behind :func:`_guard_warm_start`.  The
+    sweep's G-invariant makes this transparent: extraction, polish and
+    sorting are unchanged, and a bad preconditioner costs sweeps, never
+    correctness.  ``precondition=None`` means ``False``: on the card the
+    warm start does not pay yet.  On an NVIDIA H100 80GB HBM3 (700 W), 64
+    matrices of 256 x 256 (printed by ``chip_smoke.py``, figures rounded):
+    the warm start lowers the sweeps from 8.8 to 2.5 a matrix, but
+    ``jacobi_eigh`` takes about 145 ms warm against 24 ms cold.  The DC
+    kernel alone takes about 121 ms, which is slower than its own plain
+    PyTorch version (54 ms) and than its 592 products as ``torch.bmm``
+    (29 ms): it fills 64 of the 132 multiprocessors with one block each.
+    And the sweeps left still take 22 ms: every matrix is its own block
+    and all run at once, so the call lasts as long as its slowest matrix,
+    and the guard sent 4 of the 64 back to the cold start.  At 8 matrices of
+    512 x 512 it is about 1.1 s against 0.13 s; 700 x 700 is outside the
+    useful window of this kernel altogether: 3.5 s against 0.3 s, and the
+    guard threw the warm start of 7 of the 8 away.  Until the kernel is made
+    faster, ``precondition=True`` pays that for fewer sweeps and no time.
+
+    ``return_info`` also returns a dictionary with each matrix's executed
+    sweep count (``sweeps``, (Bflat,) int32) and, on the warm path, the
+    guard's fall-back flags (``guard_bad``, (Bflat,) bool).
+
+    ``deflate=True`` is not ported yet.
     """
     if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError("jacobi_eigh expects (*B, n, n), got %s" % (tuple(A.shape),))
-    if A.is_complex():
-        raise NotImplementedError(
-            "jacobi_eigh: complex hermitian input needs the complex sweep "
-            "kernel, which comes with " + _NEXT_SLICE)
-    if precondition:
-        raise NotImplementedError(
-            "jacobi_eigh: precondition=True (the spectral divide-and-conquer "
-            "warm start) comes with " + _NEXT_SLICE)
+    iscomplex = A.is_complex()
+    precondition = _resolve_precondition(precondition, A)
     if deflate:
         raise NotImplementedError(
-            "jacobi_eigh: deflate=True builds on the DC kernel, which comes "
-            "with " + _NEXT_SLICE)
+            "jacobi_eigh: deflate=True comes with " + _NEXT_SLICE)
     batch = A.shape[:-2]
     n = A.shape[-1]
-    dt = A.dtype
+    dt = A.real.dtype if iscomplex else A.dtype
     if tol is None:
         # the reachable floor: after a rotation, rounding leaves pair
         # cosines at ~eps*sqrt(n), so a tolerance below that can never be
@@ -315,7 +494,7 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     # plus a 1% ||A||_F margin that floors the smallest shifted eigenvalue
     # (the eigenvector extraction divides by lambda'_i = |g_i|)
     absa = a.abs()
-    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    diag = torch.diagonal(a, dim1=-2, dim2=-1).real
     offsum = absa.sum(-1) - torch.diagonal(absa, dim1=-2, dim2=-1)
     lower = (diag - offsum).amin(-1)
     frob = torch.sqrt((absa * absa).sum(dim=(-2, -1)))
@@ -324,6 +503,9 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     upper = (diag + offsum).amax(-1)
     top = torch.clamp(upper, min=0.0) + sigma
 
+    # a multiple of 16 on every path: the reference pads the preconditioned
+    # path of large n further, for its per-level kernel's copies, which has
+    # no counterpart here
     npad = _padded_n(n)
     if npad != n:
         pad = npad - n
@@ -334,28 +516,59 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
         a = a + torch.diag_embed(pdiag)[None] * top[:, None, None]
     a = a + sigma[:, None, None] * torch.eye(npad, dtype=dt, device=A.device)
 
-    gt, _ = jacobi_sweep(a, max_sweeps, tol)
+    info = {}
+    if iscomplex:
+        # the panel's rows must hold g_i = column i of G = A; A hermitian
+        # means column i = conj(row i), so the planes are (Re A, -Im A)
+        planes = torch.cat([a.real, -a.imag], dim=-1)
+        gt2, sweeps = jacobi_sweep(planes, max_sweeps, tol, complexpair=True)
+        gt = torch.complex(gt2[..., :npad], gt2[..., npad:])
+    elif precondition:
+        from xitorch_tpu_torch.ops.dc_kernel import dc_precondition
+        # depth: split every segment down to pairs; a 2-block is solved
+        # exactly by its first tournament rotation
+        levels = max(3, math.ceil(math.log2(npad)))
+        g0 = dc_precondition(a, levels=levels, min_seg=2)
+        # kills the well-gapped leftover couplings (the rank-safety blend's
+        # global floor among them) with products; near-degenerate pairs are
+        # clipped out and left to the sweep's 2x2 rotations
+        g0 = _rot_correct(g0)
+        # any matrix whose warm panel fails the G-invariant (a rank failure
+        # of the sort, or a divergent correction) falls back to the cold
+        # start.  The reference then sorts the fall-backs together, because
+        # its kernel stacks several matrices in one program with a common
+        # exit; here every matrix is its own block with its own exit, so
+        # there is nothing to cluster.
+        g_in, bad = _guard_warm_start(a, g0)
+        gt, sweeps = jacobi_sweep(g_in, max_sweeps, tol)
+        info["guard_bad"] = bad
+    else:
+        gt, sweeps = jacobi_sweep(a, max_sweeps, tol)
+    info["sweeps"] = sweeps
 
     # row i of G^T is lambda'_i * v_i: norms are the shifted eigenvalues,
     # directions the eigenvectors
-    lam = torch.sqrt((gt * gt).sum(-1))                         # (B, npad)
+    lam = torch.sqrt((gt.abs() ** 2).sum(-1))                   # (B, npad)
     vt = gt / torch.clamp(lam, min=_eps_floor(dt))[..., None]
     if npad != n:
         # the padding rows carry eigenvalues above every true one
         order = torch.argsort(lam, dim=-1)
         vt = torch.take_along_dim(vt, order[..., None], dim=-2)
     vt = vt[:, :n, :n]
+    # row i of the panel holds g_i itself, so a plain transpose puts the
+    # eigenvectors in columns (no conjugation, also for complex input)
     V = vt.mT
 
     # polish: one Newton orthonormalisation, then Rayleigh quotients on the
     # unshifted input recover eps*|A| (instead of eps*sigma) accuracy
     V = _newton_orthonormalize(V)
     AV = dot_hi(a0, V)
-    lam = (V * AV).sum(-2)
+    lam = (V.conj() * AV).sum(-2).real
     order = torch.argsort(lam, dim=-1)
     lam = torch.take_along_dim(lam, order, dim=-1)
     V = torch.take_along_dim(V, order[:, None, :], dim=-1)
-    return lam.reshape(*batch, n), V.reshape(*batch, n, n)
+    out = (lam.reshape(*batch, n), V.reshape(*batch, n, n))
+    return out + (info,) if return_info else out
 
 
 def _complete_null_columns(Q: torch.Tensor, good: torch.Tensor) -> torch.Tensor:
@@ -365,58 +578,59 @@ def _complete_null_columns(Q: torch.Tensor, good: torch.Tensor) -> torch.Tensor:
     Numerically-zero singular values leave zero rows in the Hestenes
     panel, hence zero (or junk) columns in U and V, while the library svd
     returns orthonormal null-space completions.  Bad slots get a fixed
-    quasi-random fill projected against the good columns and
-    orthonormalised among themselves by a masked CholQR (twice)."""
+    quasi-random fill (real: full rank against complex good columns too)
+    projected against the good columns and orthonormalised among
+    themselves by a masked CholQR (twice)."""
     B, mdim, r = Q.shape
     dt = Q.dtype
+    rdt = Q.real.dtype if Q.is_complex() else dt
     g = good.to(dt)
-    iot_m = torch.arange(mdim, dtype=dt, device=Q.device)[:, None]
-    iot_r = torch.arange(r, dtype=dt, device=Q.device)[None, :]
+    iot_m = torch.arange(mdim, dtype=rdt, device=Q.device)[:, None]
+    iot_r = torch.arange(r, dtype=rdt, device=Q.device)[None, :]
     Fm = torch.sin(iot_m * (0.7391 * iot_r + 1.137) + 0.31 * iot_r)
-    Fm = (Fm / math.sqrt(mdim)).expand(B, mdim, r)
+    Fm = (Fm / math.sqrt(mdim)).to(dt).expand(B, mdim, r)
     Qg = Q * g[:, None, :]
-    Fm = Fm - dot_hi(Qg, dot_hi(Qg.mT, Fm))
+    Fm = Fm - dot_hi(Qg, dot_hi(Qg.mH, Fm))
     b = 1.0 - g
     Fb = Fm * b[:, None, :]
     eye = torch.eye(r, dtype=dt, device=Q.device)
-    ridge = 16 * float(torch.finfo(dt).eps) / mdim
+    ridge = 16 * float(torch.finfo(rdt).eps) / mdim
     for _ in range(2):
-        Gm = dot_hi(Fb.mT, Fb)
+        Gm = dot_hi(Fb.mH, Fb)
         # good slots pinned to the identity so the factorisation stays SPD
         Gm = (Gm * (b[:, :, None] * b[:, None, :]) + eye * g[:, None, :]
               + eye * ridge * b[:, None, :])
         L = torch.linalg.cholesky(Gm)
-        Y = torch.linalg.solve_triangular(L, Fb.mT, upper=False)  # L^-1 Fb^T
-        Fb = Y.mT
+        Y = torch.linalg.solve_triangular(L, Fb.mH, upper=False)  # L^-1 Fb^H
+        Fb = Y.mH
     return Qg + Fb * b[:, None, :]
 
 
 def jacobi_svd(A: torch.Tensor, *, max_sweeps: int = 18,
                tol: Optional[float] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched real economy SVD ``A = U diag(s) V^T`` by one-sided
-    (Hestenes) Jacobi: the same sweep as :func:`jacobi_eigh`, run on the
-    columns of A instead of on a Gram matrix, so singular values keep
-    ~eps*kappa(A) relative error and no shift is needed.
+    """Batched economy SVD ``A = U diag(s) V^H`` by one-sided (Hestenes)
+    Jacobi: the same sweep as :func:`jacobi_eigh`, run on the columns of A
+    instead of on a Gram matrix, so singular values keep ~eps*kappa(A)
+    relative error and no shift is needed.
 
-    ``A``: (*B, m, n) real.  Returns ``(U (*B, m, r), s (*B, r)
-    ASCENDING, V (*B, n, r))`` with ``r = min(m, n)``.  Directions in the
-    numerical null space are arbitrary but orthonormal."""
+    ``A``: (*B, m, n) real or complex.  Returns ``(U (*B, m, r), s (*B, r)
+    ASCENDING, V (*B, n, r))`` with ``r = min(m, n)``.  Complex input runs
+    the complex-pair sweep on the packed planes ``[Re col_i | Im col_i]``.
+    Directions in the numerical null space are arbitrary but orthonormal."""
     if A.dim() < 2:
         raise ValueError("jacobi_svd expects (*B, m, n), got %s" % (tuple(A.shape),))
-    if A.is_complex():
-        raise NotImplementedError(
-            "jacobi_svd: complex input needs the complex sweep kernel, which "
-            "comes with " + _NEXT_SLICE)
+    iscomplex = A.is_complex()
     batch = A.shape[:-2]
     m_, n_ = A.shape[-2], A.shape[-1]
     if m_ < n_:
-        # work on A^T (tall): A^T = U' S V'^T  =>  A = V' S U'^T
-        u, s, v = jacobi_svd(A.mT, max_sweeps=max_sweeps, tol=tol)
+        # work on A^H (tall): A^H = U' S V'^H  =>  A = V' S U'^H
+        u, s, v = jacobi_svd(A.mH, max_sweeps=max_sweeps, tol=tol)
         return v, s, u
     dt = A.dtype
+    rdt = A.real.dtype if iscomplex else dt
     if tol is None:
-        tol = float(torch.finfo(dt).eps) * 4.0 * math.sqrt(n_)
+        tol = float(torch.finfo(rdt).eps) * 4.0 * math.sqrt(n_)
     Bflat = math.prod(batch) if batch else 1
     a = A.reshape(Bflat, m_, n_)
 
@@ -426,26 +640,31 @@ def jacobi_svd(A: torch.Tensor, *, max_sweeps: int = 18,
     panel = a.mT
     if npad != n_:
         panel = F.pad(panel, (0, 0, 0, npad - n_))
-    gt, _ = jacobi_sweep(panel.contiguous(), max_sweeps, tol)   # (B, npad, m)
+    if iscomplex:
+        planes = torch.cat([panel.real, panel.imag], dim=-1)   # (B, npad, 2m)
+        gt2, _ = jacobi_sweep(planes, max_sweeps, tol, complexpair=True)
+        gt = torch.complex(gt2[..., :m_], gt2[..., m_:])
+    else:
+        gt, _ = jacobi_sweep(panel.contiguous(), max_sweeps, tol)  # (B, npad, m)
 
     # row i of G^T is s_i * u_i; the zero pads sort first
-    lam = torch.sqrt((gt * gt).sum(-1))                        # (B, npad)
+    lam = torch.sqrt((gt.abs() ** 2).sum(-1))                  # (B, npad)
     order = torch.argsort(lam, dim=-1)[..., npad - n_:]        # ascending
     gt = torch.take_along_dim(gt, order[..., None], dim=-2)    # (B, n, m)
     lam = torch.take_along_dim(lam, order, dim=-1)
-    tiny = _eps_floor(dt)
+    tiny = _eps_floor(rdt)
     U = (gt / torch.clamp(lam, min=tiny)[..., None]).mT
 
-    # polish: one Newton orthonormalisation of U, then V from A^T U =
+    # polish: one Newton orthonormalisation of U, then V from A^H U =
     # V diag(s).  s stays the row norms, and V's columns are normalised by
-    # |A^T u_i| (not divided by s): recomputing would inflate exact-zero
+    # |A^H u_i| (not divided by s): recomputing would inflate exact-zero
     # singular values to junk
     U = _newton_orthonormalize(U)
-    W = dot_hi(a.mT, U)                                        # (B, n, r)
-    wn = torch.sqrt((W * W).sum(-2))
+    W = dot_hi(a.mH, U)                                        # (B, n, r)
+    wn = torch.sqrt((W.abs() ** 2).sum(-2))
     V = W / torch.clamp(wn, min=tiny)[..., None, :]
     s = lam
-    good = lam > (4.0 * float(torch.finfo(dt).eps) * math.sqrt(m_)
+    good = lam > (4.0 * float(torch.finfo(rdt).eps) * math.sqrt(m_)
                   * lam[..., -1:] + tiny)
     U = _complete_null_columns(U, good)
     V = _complete_null_columns(V, good)
@@ -455,27 +674,48 @@ def jacobi_svd(A: torch.Tensor, *, max_sweeps: int = 18,
             V.reshape(*batch, n_, n_))
 
 
+def _sweep_dtype(dtype):
+    """(real dtype the sweep kernel would see, packed-width factor) for
+    float32 and complex64, else None."""
+    if dtype == torch.float32:
+        return torch.float32, 1
+    if dtype == torch.complex64:
+        return torch.float32, 2
+    return None
+
+
+def in_jacobi_window(n: int, dtype) -> bool:
+    """Whether an (n, n) matrix of ``dtype`` lies in the sweep kernels'
+    window on the card: float32 or complex64, 64 <= n, and the padded n at
+    most 1024 rows (the packed complex panel is then 2 n <= 2048 wide,
+    inside the 4096 columns).  Shape and type only: ``linalg.symeig``'s
+    default routing asks this of an operator before it builds the matrix."""
+    kind = _sweep_dtype(dtype)
+    if kind is None or n < 64:
+        return False
+    npad = _padded_n(n)
+    return fits_jacobi_sweep(npad, kind[1] * npad, kind[0], kind[1] == 2)
+
+
 def use_jacobi_svd_for(A: torch.Tensor) -> bool:
-    """Dispatch gate used by ``degen_svd``: a real float32 CUDA tensor
-    whose small side is at least 64 and whose panel (small side padded to
-    16 rows, long side wide) lies in the kernel's window.  Complex input
-    waits for the complex sweep kernel."""
+    """Dispatch gate used by ``degen_svd``: a float32 or complex64 CUDA
+    tensor whose small side is at least 64 and whose panel (small side
+    padded to 16 rows, long side wide, twice as wide when packed complex)
+    lies in the kernels' window."""
     if not (ENABLED and A.is_cuda and A.dim() >= 2):
+        return False
+    kind = _sweep_dtype(A.dtype)
+    if kind is None:
         return False
     r = min(A.shape[-1], A.shape[-2])
     w = max(A.shape[-1], A.shape[-2])
-    return bool(64 <= r and not A.is_complex()
-                and fits_jacobi_sweep(_padded_n(r), w, A.dtype))
+    return bool(64 <= r and fits_jacobi_sweep(_padded_n(r), kind[1] * w, kind[0],
+                                              kind[1] == 2))
 
 
 def use_jacobi_for(A: torch.Tensor) -> bool:
-    """Dispatch gate used by ``degen_eigh``: a real float32 CUDA tensor
-    (*B, n, n) with 64 <= n and the padded n inside the kernel's window
-    (1024 rows).  Complex input waits for the complex sweep kernel."""
-    if not (ENABLED and A.is_cuda and A.dim() >= 2
-            and A.shape[-1] == A.shape[-2]):
-        return False
-    n = A.shape[-1]
-    npad = _padded_n(n)
-    return bool(64 <= n and not A.is_complex()
-                and fits_jacobi_sweep(npad, npad, A.dtype))
+    """Dispatch gate used by ``degen_eigh``: a CUDA tensor (*B, n, n) inside
+    :func:`in_jacobi_window`."""
+    return bool(ENABLED and A.is_cuda and A.dim() >= 2
+                and A.shape[-1] == A.shape[-2]
+                and in_jacobi_window(A.shape[-1], A.dtype))
