@@ -32,7 +32,22 @@ paths give it, and drives these configurations through the public API:
   hermitian complex64 matrices through ``linalg.symeig`` (default
   routing), ``linalg.svd`` of 64 complex general matrices, and the
   gradient of a phase-invariant loss against complex128
-  ``torch.linalg.eigh`` autograd.
+  ``torch.linalg.eigh`` autograd;
+* dense operators (path A): the fused dense CG kernel against its plain
+  version at (64, 700, 700) with 50 right-hand sides and at the nine points
+  of the upstream solve benchmark's grid that go through it, then that grid (hermitian or not, four
+  eigenvalue ranges, n = 100, 350, 700, 50 right-hand sides, float32)
+  through ``linalg.solve`` by fused_cg, cg, cg_ir, bicgstab, gmres and the
+  default routing (the non-hermitian float32 points held to the residual
+  that float32 ``torch.linalg.solve`` leaves on the same system), and the
+  batched point forward and gradient;
+* Kron operators (path B): the real sweep kernel against its plain version
+  on one 128 x 128 and one 64 x 64 factor panel (the shapes this path gives
+  it), then a ``KronSumOperator`` of two shifted 128-point Laplacians
+  (N = 16,384) and of three 64-point ones (N = 262,144) through
+  ``linalg.solve`` (default routing: kron_direct) beside cg, with and
+  without shifts E, ``linalg.symeig`` (default routing: kron_exact) against
+  the analytic spectrum, and the gradients to the factors.
 
 It reads the kernels' launch counters to show that each main path went
 through its kernels, and times kernels, forward and gradient with CUDA
@@ -92,6 +107,28 @@ WARM_BIG = (512, 700)
 # run of that level differs from it
 DC_LEVEL_TOL = 1e-4
 DC_LEVEL_F64 = 4.0
+
+
+# path A: the upstream solve benchmark's grid (benchmarks/benchmarks_solve.py)
+# and one batched point at full width
+GRID_SIZES = (100, 350, 700)
+GRID_RANGES = ((-1.0, 1.0), (0.0, 1.0), (0.2, 1.0), (0.5, 1.0))
+GRID_NCOLS, GRID_SEED, GRID_MINABS = 50, 12, 0.1
+GRID_RTOL, GRID_ATOL = 1e-5, 1e-7
+DENSE_BATCH, DENSE_N, DENSE_RANGE = 64, 700, (0.2, 1.0)
+# the fused kernel stops on the recurrence residual; the measured residual
+# differs from it by the rounding of the steps taken (about
+# steps * eps * |A| |x|, a few percent of the stop at these shapes)
+RESID_DRIFT = 1.1
+# a non-hermitian float32 point that does not reach rtol must come within
+# this multiple of the residual float32 torch.linalg.solve leaves there
+FLOOR_MULT = 10.0
+
+# path B: benchmarks/bench_kron.py's operator, and the 3-factor size that
+# cannot be materialised
+KRON_POINTS = ((128, 128), (64, 64, 64))
+KRON_NCOLS, KRON_NEIG = 4, 8
+KRON_CG = {"rtol": 1e-5, "atol": 1e-6, "max_niter": 600}
 
 
 def card_line() -> str:
@@ -163,6 +200,17 @@ def config3_arrays(np, rng):
     V = rng.standard_normal((BATCH, N, RANK)) / math.sqrt(N)
     b = rng.standard_normal((BATCH, N, 1))
     return d, V, b
+
+
+def shifted_panel(torch, mats):
+    """The panel ``jacobi_eigh`` hands the sweep kernel for symmetric
+    ``mats`` (B, n, n) with n a multiple of 16: the input shifted positive
+    definite by its one-sided Gershgorin bound plus 1% of its Frobenius norm."""
+    diag = torch.diagonal(mats, dim1=-2, dim2=-1)
+    lower = (diag - (mats.abs().sum(-1) - diag.abs())).amin(-1)
+    sigma = torch.clamp(-lower, min=0.0) + 0.01 * torch.linalg.norm(mats, dim=(-2, -1))
+    eye = torch.eye(mats.shape[-1], dtype=mats.dtype, device=mats.device)
+    return (mats + sigma[:, None, None] * eye).contiguous()
 
 
 def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=False):
@@ -242,11 +290,7 @@ def config2(torch, np, xt, device, card):
 
     # ---- kernel vs plain at the config-2 panel and one rectangular panel ----
     # the panel jacobi_eigh hands the kernel: the Gershgorin-shifted input
-    absa = mats.abs()
-    diag = torch.diagonal(mats, dim1=-2, dim2=-1)
-    lower = (diag - (absa.sum(-1) - diag.abs())).amin(-1)
-    sigma = torch.clamp(-lower, min=0.0) + 0.01 * torch.linalg.norm(mats, dim=(-2, -1))
-    panel = (mats + sigma[:, None, None] * torch.eye(N2, device=device)).contiguous()
+    panel = shifted_panel(torch, mats)
     Gk, sk, gk, rk = jacobi_sweep_cuda(panel, max_sweeps, tol, return_stats=True)
     Gp, sp = jacobi_sweep_plain(panel, max_sweeps, tol)
     torch.cuda.synchronize()
@@ -650,7 +694,8 @@ def config2_warm(torch, np, xt, device, card, shared):
     """Config 2 with the spectral divide-and-conquer warm start: the DC
     kernel against its plain version on the panel ``jacobi_eigh`` hands it,
     then the warm route against the cold one through ``jacobi_eigh`` and
-    ``linalg.symeig``.  Returns the kernel's record for the JSON line."""
+    ``linalg.symeig``.  Returns the kernel's record for the JSON line and
+    the sweep kernel's launches on the warm paths."""
     from xitorch_tpu_torch.ops import jacobi_eigh as jmod
     from xitorch_tpu_torch.ops.dc_kernel import (
         dc_precondition_cuda, dc_precondition_plain,
@@ -880,7 +925,7 @@ def config2_warm(torch, np, xt, device, card, shared):
             "replaces": "xitorch_tpu/ops/dc_kernel.py:72",
             "launches": launches["dc"], "max_abs_err": dc_abs,
             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
-            "library_ms": None}
+            "library_ms": None}, launches["sweep"]
 
 
 def config2_complex(torch, np, xt, device, card, shared):
@@ -1071,6 +1116,604 @@ def config2_complex(torch, np, xt, device, card, shared):
             "library_ms": lib_ms}
 
 
+def random_square_matrix(np, n, is_hermitian, lo, hi, minabs=GRID_MINABS, seed=GRID_SEED):
+    """The upstream benchmark's matrix factory (numpy, float64): eigenvalues
+    ``linspace(lo, hi, n)`` pushed out to ``|.| >= minabs``, under a random
+    orthogonal (hermitian) or column-normalised general similarity."""
+    rng = np.random.default_rng(seed)
+    eivals = np.linspace(lo, hi, n)
+    sign = np.where(eivals >= 0, 1.0, -1.0)
+    eivals = np.where(np.abs(eivals) < minabs, sign * minabs, eivals)
+    if is_hermitian:
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        mat = (q * eivals) @ q.T
+        return (mat + mat.T) * 0.5
+    a = rng.standard_normal((n, n))
+    a = a / np.linalg.norm(a, axis=-2, keepdims=True)
+    return np.linalg.solve(a, eivals[:, None] * a)
+
+
+def dense_batch(torch, np, device):
+    """The batched dense point: 64 hermitian matrices of the benchmark's
+    recipe (eigenvalues ``linspace(0.2, 1, 700)``), the normals drawn with
+    numpy and the float64 QR and products done on the card, then cast."""
+    rng = np.random.default_rng(GRID_SEED)
+    g = torch.as_tensor(rng.standard_normal((DENSE_BATCH, DENSE_N, DENSE_N)), device=device)
+    q = torch.linalg.qr(g)[0]
+    ev = torch.linspace(*DENSE_RANGE, DENSE_N, dtype=torch.float64, device=device)
+    mats = (q * ev) @ q.mT
+    mats = ((mats + mats.mT) * 0.5).float().contiguous()
+    B = torch.as_tensor(rng.standard_normal((DENSE_BATCH, DENSE_N, GRID_NCOLS)),
+                        dtype=torch.float32, device=device)
+    w = torch.as_tensor(rng.standard_normal((DENSE_BATCH, DENSE_N, GRID_NCOLS)),
+                        dtype=torch.float32, device=device)
+    return mats, B, w
+
+
+def resid_over_stop(torch, A, x, B, rtol=GRID_RTOL, atol=GRID_ATOL):
+    """Largest measured ``|A x - b| / max(rtol |b|, atol)`` over the columns,
+    in float64."""
+    A, x, B = A.double(), x.double(), B.double()
+    r = torch.linalg.norm(A @ x - B, dim=-2)
+    stop = torch.clamp(rtol * torch.linalg.norm(B, dim=-2), min=atol)
+    return float((r / stop).max())
+
+
+def fused_cg_kernel_phase(torch, np, xt, device, card):
+    """The fused dense CG kernel against its plain version (same per-group
+    stop rule) at the batched point and at every point of the grid that
+    path A sends through it, and its time beside its bound and the PyTorch
+    calls for the same function (``library_ms``: the faster of the two).
+    Returns the kernel's record and the batched point's tensors."""
+    from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_plain, group_size
+
+    mats, B, w = dense_batch(torch, np, device)
+    # every shape path A hands the kernel: the batched point, and the grid's
+    # hermitian points with lo >= 0 (one matrix a call, one column a block)
+    points = [("batched", mats, B)]
+    rng = np.random.default_rng(0)
+    for lo, hi in GRID_RANGES:
+        for n in GRID_SIZES:
+            if lo >= 0:
+                one = torch.as_tensor(random_square_matrix(np, n, True, lo, hi),
+                                      dtype=torch.float32, device=device)[None].contiguous()
+                B1 = torch.as_tensor(rng.standard_normal((1, n, GRID_NCOLS)),
+                                     dtype=torch.float32, device=device)
+                points.append(("grid (%g, %g) n=%d" % (lo, hi, n), one, B1))
+    results = {}
+    for name, A3, B3 in points:
+        nb, n, nc = B3.shape
+        group = group_size(nb, n, nc, torch.float32)
+        kw = dict(rtol=GRID_RTOL, atol=GRID_ATOL, max_niter=int(1.5 * n), group=group)
+        a_idx = torch.arange(nb, device=device)
+        xk, itk = fused_cg_cuda(A3, a_idx, B3, **kw)
+        xp, itp = fused_cg_plain(A3, B3, **kw)
+        torch.cuda.synchronize()
+        rel = float((xk - xp).abs().max() / xp.abs().max())
+        dsteps = int((itk - itp).abs().max())
+        rk, rp = resid_over_stop(torch, A3, xk, B3), resid_over_stop(torch, A3, xp, B3)
+        print("fused_cg kernel vs plain, %s (%d, %d, %d, nc %d), %d columns a block, %d "
+              "blocks: max |x_k - x_p| / max |x| %.2e, steps %d..%d (max |diff| %d), measured "
+              "|Ax-b| / max(rtol |b|, atol) kernel %.3f, plain %.3f"
+              % (name, nb, n, n, nc, group, itk.numel(), rel, int(itk.min()), int(itk.max()),
+                 dsteps, rk, rp))
+        check(bool(torch.isfinite(xk).all()), "fused_cg kernel returned non-finite values")
+        # sums in another order (warp tree vs cuBLAS), so the iterates drift
+        # apart by a few ulps a step
+        check(rel <= 1e-4, "fused_cg kernel disagrees with plain at %s: %.3e" % (name, rel))
+        check(dsteps <= 2, "fused_cg step counts differ by %d at %s" % (dsteps, name))
+        check(max(rk, rp) <= RESID_DRIFT, "fused_cg measured residual above the stop at %s: "
+              "kernel %.3f, plain %.3f" % (name, rk, rp))
+        results[name] = (A3, a_idx, B3, kw, itk, float((xk - xp).abs().max()))
+    # timed below: the widest range at the middle size
+    n_mid = GRID_SIZES[len(GRID_SIZES) // 2]
+    results["grid"] = results["grid (0, 1) n=%d" % n_mid]
+
+    A3, a_idx, B3, kw, itk, _ = results["batched"]
+    abs_err = max(r[5] for r in results.values())
+    nb, n, nc = B3.shape
+    group = kw["group"]
+    k_ms = timed_ms(torch, lambda: fused_cg_cuda(A3, a_idx, B3, **kw), reps=3, inner=3)
+    plain_ms = timed_ms(torch, lambda: fused_cg_plain(A3, B3, **kw), reps=3, inner=1)
+    solve_ms = timed_ms(torch, lambda: torch.linalg.solve(A3, B3), reps=3, inner=1)
+    chol_ms = timed_ms(torch, lambda: torch.cholesky_solve(B3, torch.linalg.cholesky(A3)),
+                       reps=3, inner=1)
+    A_op = xt.LinearOperator.m(A3, is_hermitian=True)
+    cg_ms = timed_ms(torch, lambda: xt.linalg.solve(A_op, B3, method="cg", rtol=GRID_RTOL,
+                                                    atol=GRID_ATOL), reps=3, inner=1)
+    g1, a1, b1, kw1 = results["grid"][0], results["grid"][1], results["grid"][2], \
+        results["grid"][3]
+    grid_ms = timed_ms(torch, lambda: fused_cg_cuda(g1, a1, b1, **kw1), reps=3, inner=3)
+    grid_lib_ms = timed_ms(torch, lambda: torch.linalg.solve(g1, b1), reps=3, inner=3)
+    # the bound on this run's data: every matrix and B read once, x written
+    # once; 2 n^2 operations a column and step, for the steps each block took
+    cols = torch.full((itk.shape[1],), group, device=device)
+    cols[-1] = nc - group * (itk.shape[1] - 1)
+    flops = float((itk * cols).sum()) * 2.0 * n * n
+    k_bound, k_by = bound((nb * n * n + 2 * nb * n * nc) * 4, flops)
+    print("timing, fused dense CG [%s], CUDA events after warm-up (median):" % card)
+    print("  fused_cg kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s: %.1f GFLOP over the "
+          "steps taken, %.1f MB); torch.linalg.solve %.3f ms, torch.linalg.cholesky + "
+          "cholesky_solve %.3f ms, the port's cg (Python loop) %.3f ms (%d x %d x %d, nc "
+          "%d, %d columns a block) [%s]"
+          % (k_ms, plain_ms, k_bound, k_by, flops / 1e9,
+             (nb * n * n + 2 * nb * n * nc) * 4 / 1e6, solve_ms, chol_ms, cg_ms, nb, n, n,
+             nc, group, card))
+    print("  at the grid point (1 x %d x %d, nc %d, %d blocks): kernel %.3f ms, "
+          "torch.linalg.solve %.3f ms [%s]"
+          % (n_mid, n_mid, nc, results["grid"][4].numel(), grid_ms, grid_lib_ms, card))
+    print(json.dumps({"phase": "fused_cg_kernel", "card": card, "shape": [nb, n, n, nc],
+                      "group": group, "kernel_ms": k_ms, "plain_ms": plain_ms,
+                      "bound_ms": k_bound, "bound_by": k_by, "linalg_solve_ms": solve_ms,
+                      "cholesky_solve_ms": chol_ms, "port_cg_ms": cg_ms,
+                      "grid_point_kernel_ms": grid_ms, "grid_point_linalg_solve_ms": grid_lib_ms,
+                      "steps_min": int(itk.min()), "steps_max": int(itk.max())}))
+    record = {"name": "fused_cg", "route": "cuda",
+              "source": "xitorch_tpu_torch/csrc/fused_cg.cu",
+              "replaces": "xitorch_tpu/ops/fused_cg.py:38",
+              "launches": 0, "max_abs_err": abs_err,
+              "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
+              "library_ms": min(solve_ms, chol_ms)}
+    return record, (mats, B, w)
+
+
+def path_a(torch, np, xt, device, card, batched):
+    """Dense operators through ``linalg.solve``: the upstream benchmark's
+    grid, one matrix a call, and the batched point forward and gradient.
+    Returns the fused-CG launches of the path."""
+    import warnings
+
+    from xitorch_tpu_torch.linalg.solve import _default_method
+    from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
+
+    class MatVecOnly(xt.LinearOperator):
+        """The same matrix without ``_fullmatrix``: a matrix-free operator,
+        which the default routing may not send to the dense solve."""
+
+        def __init__(self, mat):
+            super().__init__(shape=mat.shape, dtype=mat.dtype, device=mat.device)
+            self.mat = mat
+
+        def _getparamnames(self, prefix=""):
+            return [prefix + "mat"]
+
+        def _mv(self, x):
+            return (self.mat @ x[..., None])[..., 0]
+
+        def _mm(self, x):
+            return self.mat @ x
+
+        def _rmm(self, x):
+            return self.mat.mT @ x
+
+    opts = dict(rtol=GRID_RTOL, atol=GRID_ATOL)
+    launches = 0
+    rng = np.random.default_rng(0)
+    busy = {}
+    rows = []
+
+    def run(A, B, method, mat, **kw):
+        """One solve through the public API: time (host clock around a
+        synchronised call), info, measured residual, warnings."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if method == "fused_cg":   # reports no info
+                x, info = xt.linalg.solve(A, B, method=method, **kw), None
+            else:
+                x, info = xt.linalg.solve(A, B, method=method, return_info=True, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        warned = [wi for wi in caught if issubclass(wi.category, ConvergenceWarning)]
+        rel = resid_over_stop(torch, mat, x, B)
+        rcol = torch.linalg.norm(mat.double() @ x.double() - B.double(), dim=-2)
+        over_b = float((rcol / torch.linalg.norm(B.double(), dim=-2)).max())
+        return {"x": x, "ms": ms, "rel": rel, "resid": float(rcol.max()), "over_b": over_b,
+                "warned": bool(warned),
+                "iters": None if info is None else int(info["iterations"]),
+                "conv": None if info is None else float(info["converged"])}
+
+    def report(tag, n, out, gate, floor=None):
+        """``gate``: "converge" (no ConvergenceWarning, converged); "floor"
+        (converged, or a residual within FLOOR_MULT times ``floor``, the
+        residual that float32 ``torch.linalg.solve`` leaves on the same
+        system); "benchmark" (the upstream benchmark's gate: converged, or
+        max |Ax-b| < 0.05 n; and every column's residual below |b|, which x = 0
+        would not pass: the methods return their best iterate); or "report"
+        (finite only: the method's defaults do not cover this point, see the
+        caller)."""
+        vs_floor = "" if floor is None else ", %.3g x the float32 direct solve's %.2e" % (
+            out["resid"] / floor, floor)
+        print("  %-44s %9.3f ms, iterations %s, converged %s, |Ax-b|/stop %.3g, max |Ax-b| "
+              "%.2e%s%s" % (tag, out["ms"], out["iters"], out["conv"], out["rel"],
+                            out["resid"], vs_floor, ", warned" if out["warned"] else ""))
+        rows.append({"point": tag, "ms": out["ms"], "iterations": out["iters"],
+                     "converged": out["conv"], "resid_over_stop": out["rel"],
+                     "max_resid": out["resid"], "direct_solve_resid": floor,
+                     "resid_over_b": out["over_b"], "warned": out["warned"], "gate": gate})
+        check(bool(torch.isfinite(out["x"]).all()), "%s: non-finite solution" % tag)
+        if gate == "converge":
+            check(not out["warned"], "%s: ConvergenceWarning" % tag)
+            check(out["conv"] in (None, 1.0), "%s: converged = %s" % (tag, out["conv"]))
+        elif gate == "floor":
+            check(out["conv"] == 1.0 or out["resid"] <= FLOOR_MULT * floor,
+                  "%s: not converged, and max |Ax-b| %.3e is %.1f times the float32 direct "
+                  "solve's %.3e" % (tag, out["resid"], out["resid"] / floor, floor))
+        elif gate == "benchmark":
+            check(out["conv"] == 1.0 or out["resid"] < 1e-2 * n * 5.0,
+                  "%s: neither converged nor under the gate (max |Ax-b| %.3e)"
+                  % (tag, out["resid"]))
+            check(out["over_b"] < 1.0, "%s: a column's residual is %.3f of its |b|: no "
+                  "better than x = 0" % (tag, out["over_b"]))
+
+    print("path A, the solve benchmark's grid (float32, nc %d, rtol %.0e, atol %.0e, "
+          "max_niter 8 n), one call each, host clock [%s]:" % (GRID_NCOLS, GRID_RTOL,
+                                                               GRID_ATOL, card))
+    for herm in (True, False):
+        for lo, hi in GRID_RANGES:
+            for n in GRID_SIZES:
+                mat = torch.as_tensor(random_square_matrix(np, n, herm, lo, hi),
+                                      dtype=torch.float32, device=device)
+                A = xt.LinearOperator.m(mat, is_hermitian=herm)
+                B = torch.as_tensor(rng.standard_normal((n, GRID_NCOLS)),
+                                    dtype=torch.float32, device=device)
+                kw = dict(opts, max_niter=8 * n)
+                tag = "%s (%g, %g) n=%d" % ("herm" if herm else "nonherm", lo, hi, n)
+                definite = "converge" if lo >= 0 else "benchmark"
+                if herm:
+                    if lo >= 0:
+                        fused_cg_cuda.launches = 0
+                        out = run(A, B, "fused_cg", mat, **kw)
+                        check(fused_cg_cuda.launches == 1, "%s: fused_cg launched the "
+                              "kernel %d times" % (tag, fused_cg_cuda.launches))
+                        launches += fused_cg_cuda.launches
+                        report(tag + " fused_cg", n, out, "converge")
+                        check(out["rel"] <= RESID_DRIFT, "%s fused_cg: measured residual "
+                              "%.3f of the stop" % (tag, out["rel"]))
+                    report(tag + " cg", n, run(A, B, "cg", mat, posdef=None, **kw), definite)
+                    # cg_ir refines with the operator taken as positive definite
+                    # (as in the JAX package): on the indefinite range its best
+                    # iterate is reported, not gated
+                    report(tag + " cg_ir", n, run(A, B, "cg_ir", mat, posdef=None, **kw),
+                           definite if lo >= 0 else "report")
+                else:
+                    # the non-hermitian matrices are a spectrum under a random
+                    # non-orthogonal similarity, whose conditioning floors the
+                    # float32 residual above rtol 1e-5.  The floor is measured:
+                    # the residual float32 torch.linalg.solve leaves on the same
+                    # system.  Where the spectrum is definite (lo >= 0) bicgstab
+                    # and gmres must converge or come within FLOOR_MULT of it,
+                    # and where lo > 0 their float64 runs must converge without
+                    # a warning.  On the indefinite range bicgstab stalls far
+                    # above the floor in either precision, which is why the
+                    # upstream benchmark has its loose gate: that gate, and a
+                    # residual below |b| in every column
+                    xf = torch.linalg.solve(mat, B)
+                    floor = float(torch.linalg.norm(mat.double() @ xf.double() - B.double(),
+                                                    dim=-2).max())
+                    gate = "floor" if lo >= 0 else "benchmark"
+                    # bicgstab handles indefinite systems directly: no probe
+                    report(tag + " bicgstab", n, run(A, B, "bicgstab", mat, posdef=True, **kw),
+                           gate, floor)
+                    Afree = MatVecOnly(mat)
+                    route = _default_method(Afree, None, None)
+                    check(route == "bicgstab", "%s: method=None on a matrix-free "
+                          "non-hermitian operator routes to %s" % (tag, route))
+                    # the default options probe definiteness (posdef=None), and
+                    # an indefinite operator then goes through the normal
+                    # equations, as in the JAX package: reported, not gated
+                    report(tag + " method=None (-> %s)" % route, n,
+                           run(Afree, B, None, mat, **kw), gate if lo >= 0 else "report", floor)
+                    check(_default_method(A, None, None) == "exactsolve",
+                          "%s: an explicit matrix no longer routes to exactsolve" % tag)
+                    if n == GRID_SIZES[-1]:
+                        report(tag + " gmres(100)", n,
+                               run(A, B, "gmres", mat, restart=100, **kw), gate, floor)
+                    mat64 = torch.as_tensor(random_square_matrix(np, n, herm, lo, hi),
+                                            device=device)
+                    A64 = xt.LinearOperator.m(mat64, is_hermitian=False)
+                    gate64 = "converge" if lo > 0 else "report"
+                    report(tag + " bicgstab, float64", n,
+                           run(A64, B.double(), "bicgstab", mat64, posdef=True, **kw), gate64)
+                    if n == GRID_SIZES[-1]:
+                        report(tag + " gmres(100), float64", n,
+                               run(A64, B.double(), "gmres", mat64, restart=100, **kw),
+                               gate64)
+                if n == GRID_SIZES[-1] and (lo, hi) == DENSE_RANGE:
+                    # device idle share at n = 700
+                    for method, extra in ((("fused_cg", {}), ("cg", {"posdef": None}))
+                                          if herm else (("bicgstab", {"posdef": True}),)):
+                        def call():
+                            return xt.linalg.solve(A, B, method=method, **extra, **kw)
+                        ms = timed_ms(torch, call, reps=3, inner=1)
+                        busy[method] = (device_busy_ms(torch, call, calls=3), ms)
+    for method, (b_ms, ms) in busy.items():
+        print("  %s at n = 700, range (0.2, 1): %.3f ms a call, device busy %.3f ms, idle "
+              "share %.0f%% [%s]" % (method, ms, b_ms, 100 * max(0.0, 1 - b_ms / ms), card))
+
+    # ---- the batched point: 64 x (700 x 700), forward and gradient ----
+    mats, B, w = batched
+    Aop = xt.LinearOperator.m(mats, is_hermitian=True)
+    print("path A, the batched point (%d x %d x %d, nc %d, range %s) [%s]:"
+          % (DENSE_BATCH, DENSE_N, DENSE_N, GRID_NCOLS, DENSE_RANGE, card))
+    a64 = mats.double().requires_grad_()
+    b64 = B.double().requires_grad_()
+    x64 = torch.linalg.solve((a64 + a64.mT) / 2, b64)
+    gA64, gB64 = torch.autograd.grad((x64 * w.double()).sum(), (a64, b64))
+
+    def grads(method, **kw):
+        la = mats.detach().clone().requires_grad_()
+        lb = B.detach().clone().requires_grad_()
+        x = xt.linalg.solve(xt.LinearOperator.m((la + la.mT) / 2, is_hermitian=True), lb,
+                            method=method, **opts, **kw)
+        return torch.autograd.grad((x * w).sum(), (la, lb))
+
+    def rel_l2(a, b):
+        return float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+
+    for method, kw in (("fused_cg", {}), ("cg", {"posdef": None}), ("cg_ir", {"posdef": None})):
+        fused_cg_cuda.launches = 0
+        out = run(Aop, B, method, mats, **opts, **kw)
+        n_fwd = fused_cg_cuda.launches
+        report("batched %s" % method, DENSE_N, out, "converge")
+        xerr = float((out["x"].double() - x64.detach()).abs().max() / x64.detach().abs().max())
+        fused_cg_cuda.launches = 0
+        gA, gB = grads(method, **kw)
+        torch.cuda.synchronize()
+        n_grad = fused_cg_cuda.launches
+        rA, rB = rel_l2(gA, gA64), rel_l2(gB, gB64)
+        fwd_ms = timed_ms(torch, lambda: xt.linalg.solve(Aop, B, method=method, **opts, **kw),
+                          reps=3, inner=1)
+        grad_ms = timed_ms(torch, lambda: grads(method, **kw), reps=3, inner=1)
+        print("    x against the float64 dense solve: max rel %.2e; gradient of (x.w).sum() "
+              "rel L2 against float64 torch.linalg.solve autograd: to A %.2e, to B %.2e; "
+              "fused_cg launches forward %d, forward + gradient %d; %.1f solves/s "
+              "(%.3f ms), %.1f grads/s (%.3f ms) [%s]"
+              % (xerr, rA, rB, n_fwd, n_grad, DENSE_BATCH / fwd_ms * 1e3, fwd_ms,
+                 DENSE_BATCH / grad_ms * 1e3, grad_ms, card))
+        # rtol 1e-5 on the residual times kappa = 5
+        check(xerr <= 2e-4, "batched %s: x off the float64 solve by %.3e" % (method, xerr))
+        # two float32 solves at rtol 1e-5, kappa = 5
+        check(max(rA, rB) <= 1e-3, "batched %s: gradient off float64 by %.3e / %.3e"
+              % (method, rA, rB))
+        check(bool(torch.isfinite(gA).all()) and bool(torch.isfinite(gB).all()),
+              "batched %s: non-finite gradient" % method)
+        if method == "fused_cg":
+            check(n_fwd == 1, "batched fused_cg: forward launched the kernel %d times"
+                  % n_fwd)
+            check(n_grad == 2, "batched fused_cg: forward + adjoint launched the kernel "
+                  "%d times, not 2" % n_grad)
+            launches += n_fwd + n_grad
+            fb = device_busy_ms(torch, lambda: xt.linalg.solve(Aop, B, method=method, **opts))
+            print("    fused_cg forward: device busy %.3f ms, idle share %.0f%% [%s]"
+                  % (fb, 100 * max(0.0, 1 - fb / fwd_ms), card))
+            busy["fused_cg, batched"] = (fb, fwd_ms)
+        rows[-1].update({"x_rel_err": xerr, "grad_rel_l2": [rA, rB], "forward_ms": fwd_ms,
+                         "forward_and_gradient_ms": grad_ms})
+    # what the kernel does not take (here: a shift E) is an error on the card,
+    # so that naming the method never runs the Python-loop cg unnoticed
+    fused_cg_cuda.launches = 0
+    try:
+        xt.linalg.solve(Aop, B, E=torch.zeros(GRID_NCOLS, device=device), method="fused_cg",
+                        **opts)
+        refused = False
+    except RuntimeError as err:
+        refused = "method='cg'" in str(err)
+    print("  fused_cg with a shift E on the card: refused %s, kernel launches %d"
+          % (refused, fused_cg_cuda.launches))
+    check(refused and fused_cg_cuda.launches == 0,
+          "fused_cg outside the kernel's window did not raise on the card")
+    print(json.dumps({"phase": "path_a", "card": card, "fused_cg_launches": launches,
+                      "device_busy_ms_and_call_ms": busy, "points": rows}))
+    return launches
+
+
+def lap1d(torch, n, device, dtype):
+    """benchmarks/bench_kron.py's factor: the 1-D Laplacian shifted by 0.05
+    (SPD; eigenvalues 2.05 - 2 cos(k pi / (n + 1)))."""
+    off = -torch.ones(n - 1, dtype=dtype, device=device)
+    return (2.05 * torch.eye(n, dtype=dtype, device=device)
+            + torch.diag(off, 1) + torch.diag(off, -1))
+
+
+def path_b(torch, np, xt, device, card):
+    """Kron operators through ``linalg.solve`` and ``linalg.symeig``.
+    Returns the real sweep kernel's launches on the path (the factor
+    decompositions go through it)."""
+    import warnings
+
+    from xitorch_tpu_torch.linalg.solve import _default_method
+    from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_sweep_cuda, jacobi_sweep_plain
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(1)
+
+    # ---- the sweep kernel against its plain version at the shapes this path
+    # gives it: one factor a launch, batch 1, the whole panel in one block ----
+    factor_ms = {}
+    for n in sorted({n for dims in KRON_POINTS for n in dims}):
+        panel = shifted_panel(torch, lap1d(torch, n, device, f32)[None])
+        tol = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(n)
+        Gk, sk, gk, _ = jacobi_sweep_cuda(panel, 18, tol, return_stats=True)
+        Gp, sp = jacobi_sweep_plain(panel, 18, tol)
+        torch.cuda.synchronize()
+        sweep_checks(torch, "jacobi_sweep (1, %d, %d)" % (n, n), panel, Gk, Gp, sk, sp, gk,
+                     tol, torch.linalg.eigvalsh(panel.double()))
+        factor_ms[n] = (timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol), reps=3,
+                                 inner=3),
+                        timed_ms(torch, lambda: torch.linalg.eigh(panel), reps=3, inner=3))
+        print("  sweep kernel at (1, %d, %d): %.3f ms, torch.linalg.eigh of the panel %.3f ms "
+              "[%s]" % (n, n, *factor_ms[n], card))
+    sweeps = 0
+    rows = []
+
+    def driven(fn):
+        nonlocal sweeps
+        jacobi_sweep_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        sweeps += jacobi_sweep_cuda.launches
+        return out, jacobi_sweep_cuda.launches
+
+    def once_ms(fn):
+        return timed_ms(torch, fn, reps=3, inner=1)
+
+    for dims in KRON_POINTS:
+        N = math.prod(dims)
+        factors = [lap1d(torch, n, device, f32) for n in dims]
+        A = xt.KronSumOperator(*factors, is_hermitian=True)
+        B = torch.as_tensor(rng.standard_normal((N, KRON_NCOLS)), dtype=f32, device=device)
+        w = torch.as_tensor(rng.standard_normal((N, KRON_NCOLS)), dtype=f32, device=device)
+        tag = "kron %s (N = %d)" % (" x ".join(map(str, dims)), N)
+        print("path B, %s, nc %d, float32 [%s]:" % (tag, KRON_NCOLS, card))
+        check(_default_method(A, None, None) == "kron_direct",
+              "%s: method=None does not route to kron_direct" % tag)
+        lam1 = [2.05 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1)) for n in dims]
+        grid = lam1[0]
+        for l1 in lam1[1:]:
+            grid = np.add.outer(grid, l1)
+        analytic = np.sort(grid.reshape(-1))
+        # shifts below the spectrum (the pencil stays positive definite)
+        E = torch.as_tensor([-0.5, -0.1, 0.0, 0.5 * analytic[0]], dtype=f32, device=device)
+
+        for e_name, Ev in (("E=None", None), ("per-column E", E)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                (x, info), n_sw = driven(lambda: xt.linalg.solve(A, B, E=Ev, return_info=True))
+                xc, ic = xt.linalg.solve(A, B, E=Ev, method="cg", return_info=True, **KRON_CG)
+            r = A.mm(x) - B
+            rc = A.mm(xc) - B
+            if Ev is not None:
+                r, rc = r - x * Ev, rc - xc * Ev
+            d_ms = once_ms(lambda: xt.linalg.solve(A, B, E=Ev))
+            c_ms = once_ms(lambda: xt.linalg.solve(A, B, E=Ev, method="cg", **KRON_CG))
+            print("  solve %s: method=None (kron_direct) converged %.0f, backward-error ratio "
+                  "%.3g, max |Ax-b| %.2e, sweep launches %d, %.3f ms; cg converged %.0f after "
+                  "%.0f iterations, max |Ax-b| %.2e, %.3f ms; max |x_direct - x_cg| / max |x| "
+                  "%.2e; warnings %s"
+                  % (e_name, float(info["converged"]), float(info["resid_rel"]),
+                     float(r.abs().max()), n_sw, d_ms, float(ic["converged"]),
+                     float(ic["iterations"]), float(rc.abs().max()), c_ms,
+                     float((x - xc).abs().max() / xc.abs().max()),
+                     [wi.category.__name__ for wi in caught]))
+            rows.append({"point": tag, "case": "solve, " + e_name, "kron_direct_ms": d_ms,
+                         "cg_ms": c_ms, "cg_iterations": float(ic["iterations"]),
+                         "kron_direct_max_resid": float(r.abs().max()),
+                         "cg_max_resid": float(rc.abs().max())})
+            check(float(info["converged"]) == 1.0 and bool(torch.isfinite(x).all()),
+                  "%s %s: kron_direct did not converge" % (tag, e_name))
+            check(float(ic["converged"]) == 1.0, "%s %s: cg did not converge" % (tag, e_name))
+            check(not any(issubclass(wi.category, ConvergenceWarning) for wi in caught),
+                  "%s %s: ConvergenceWarning" % (tag, e_name))
+            check(n_sw == len(dims), "%s %s: %d sweep launches for %d factors"
+                  % (tag, e_name, n_sw, len(dims)))
+            # cg stops at rtol 1e-5 on a kappa ~ 80 operator
+            check(float((x - xc).abs().max() / xc.abs().max()) <= 2e-3,
+                  "%s %s: kron_direct and cg disagree" % (tag, e_name))
+
+        # a shift AT a (computed) eigenvalue sum: flagged, no Inf/NaN
+        comb, _ = A.combined_eigendecomposition()
+        E_sing = E.clone()
+        E_sing[1] = comb.reshape(-1)[N // 3]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ConvergenceWarning)
+            xs, i_s = xt.linalg.solve(A, B, E=E_sing, return_info=True)
+        print("  solve with E[1] at an eigenvalue sum: converged %.0f, finite %s, max |x| %.2e"
+              % (float(i_s["converged"]), bool(torch.isfinite(xs).all()), float(xs.abs().max())))
+        check(float(i_s["converged"]) == 0.0 and bool(torch.isfinite(xs).all()),
+              "%s: a singular shift is not flagged, or gave Inf/NaN" % tag)
+
+        # ---- symeig: default routing takes kron_exact ----
+        (ev, X, ie), n_sw = driven(lambda: xt.linalg.symeig(A, KRON_NEIG, "lowest",
+                                                            return_info=True))
+        want = analytic[:KRON_NEIG]
+        scale = analytic[-1]
+        err = float(np.abs(ev.double().cpu().numpy() - want).max() / scale)
+        res = float((A.mm(X) - X * ev).abs().max())
+        orth = float((X.mT @ X - torch.eye(KRON_NEIG, device=device)).abs().max())
+        e_ms = once_ms(lambda: xt.linalg.symeig(A, KRON_NEIG, "lowest"))
+        print("  symeig(A, %d, lowest), method=None: evals against the analytic sums, max "
+              "|diff| / max |lambda| %.2e (lowest %.6f, analytic %.6f), max |A X - X E| %.2e, "
+              "|X^T X - I|_max %.2e, sweep launches %d, %.3f ms"
+              % (KRON_NEIG, err, float(ev[0]), want[0], res, orth, n_sw, e_ms))
+        check(tuple(X.shape) == (N, KRON_NEIG) and float(ie["converged"]) == 1.0,
+              "%s symeig: bad shapes or info" % tag)
+        # float32 factor decompositions: eps |A| per factor
+        check(err <= 1e-5, "%s symeig: eigenvalues off the analytic sums by %.3e"
+              % (tag, err))
+        # the float32 gates of config 2: residual / |A| and orthonormality
+        check(res <= 2e-5 * scale and orth <= 5e-5, "%s symeig: residual %.3e, "
+              "orthogonality %.3e" % (tag, res, orth))
+        check(n_sw == len(dims), "%s symeig: %d sweep launches" % (tag, n_sw))
+
+        # ---- gradients to the factors ----
+        def solve_grads(dtype, method=None):
+            leaves = [f.to(dtype).clone().requires_grad_() for f in factors]
+            op = xt.KronSumOperator(*((l + l.mT) / 2 for l in leaves), is_hermitian=True)
+            x = xt.linalg.solve(op, B.to(dtype), E=E.to(dtype), method=method)
+            return torch.autograd.grad((x * w.to(dtype)).sum(), leaves)
+
+        def eig_grads(dtype):
+            leaves = [f.to(dtype).clone().requires_grad_() for f in factors]
+            op = xt.KronSumOperator(*((l + l.mT) / 2 for l in leaves), is_hermitian=True)
+            ev, _ = xt.linalg.symeig(op, KRON_NEIG, "lowest")
+            # symmetric in the (degenerate) eigenvalues: their order is free
+            return torch.autograd.grad((ev ** 2).sum(), leaves)
+
+        g_solve, n_sw_g = driven(lambda: solve_grads(f32))
+        g_eig, _ = driven(lambda: eig_grads(f32))
+        if len(dims) == 2:
+            # float64 reference independent of the port: the materialised
+            # operator and torch.linalg.solve, column by column for E
+            leaves = [f.double().clone().requires_grad_() for f in factors]
+            s0, s1 = ((l + l.mT) / 2 for l in leaves)
+            eye0 = torch.eye(dims[0], dtype=f64, device=device)
+            eye1 = torch.eye(dims[1], dtype=f64, device=device)
+            dense = torch.kron(s0, eye1) + torch.kron(eye0, s1)
+            eyeN = torch.eye(N, dtype=f64, device=device)
+            cols = [torch.linalg.solve(dense - E[c].double() * eyeN, B[:, c].double())
+                    for c in range(KRON_NCOLS)]
+            ref_solve = torch.autograd.grad((torch.stack(cols, -1) * w.double()).sum(), leaves)
+            ref_name = "float64 torch.linalg.solve of the materialised operator"
+            del dense, eyeN, cols
+        else:
+            ref_solve = solve_grads(f64)
+            ref_name = "the float64 run of the same route (torch.linalg.eigh factors)"
+        # eigenvalues: the factors' float64 torch.linalg.eigvalsh, summed
+        leaves = [f.double().clone().requires_grad_() for f in factors]
+        tot = None
+        for i, l in enumerate(leaves):
+            shape = [-1 if j == i else 1 for j in range(len(dims))]
+            li = torch.linalg.eigvalsh((l + l.mT) / 2).reshape(shape)
+            tot = li if tot is None else tot + li
+        low = torch.sort(tot.reshape(-1)).values[:KRON_NEIG]
+        ref_eig = torch.autograd.grad((low ** 2).sum(), leaves)
+        rs = [float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+              for a, b in zip(g_solve, ref_solve)]
+        re_ = [float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+               for a, b in zip(g_eig, ref_eig)]
+        gs_ms = once_ms(lambda: solve_grads(f32))
+        print("  gradient to the factors, rel L2: through kron_direct against %s: %s "
+              "(sweep launches forward + adjoint %d, %.3f ms); of sum(evals^2) through "
+              "kron_exact against float64 eigvalsh of the factors: %s"
+              % (ref_name, ", ".join("%.2e" % v for v in rs), n_sw_g, gs_ms,
+                 ", ".join("%.2e" % v for v in re_)))
+        rows.append({"point": tag, "case": "symeig and gradients", "symeig_ms": e_ms,
+                     "evals_rel_err": err, "kron_direct_forward_and_gradient_ms": gs_ms,
+                     "grad_rel_l2_kron_direct": rs, "grad_rel_l2_kron_exact": re_})
+        check(max(rs) <= 1e-3, "%s: kron_direct gradient off float64: %s" % (tag, rs))
+        check(max(re_) <= 1e-3, "%s: kron_exact gradient off float64: %s" % (tag, re_))
+        check(n_sw_g == 2 * len(dims), "%s: gradient through kron_direct made %d sweep "
+              "launches, not %d" % (tag, n_sw_g, 2 * len(dims)))
+    check(sweeps >= 1, "path B did not launch the sweep kernel")
+    print(json.dumps({"phase": "path_b", "card": card, "sweep_launches": sweeps,
+                      "factor_sweep_kernel_ms_and_eigh_ms": factor_ms, "points": rows}))
+    return sweeps
+
+
 def main() -> int:
     import torch
 
@@ -1101,7 +1744,7 @@ def main() -> int:
     # ---- 1. build ----
     t_start = t0 = time.perf_counter()
     libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
-                         "jacobi_sweep_complex"])
+                         "jacobi_sweep_complex", "fused_cg"])
     print("build: %.1f s; %s" % (time.perf_counter() - t0,
                                  ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
 
@@ -1170,6 +1813,16 @@ def main() -> int:
           % (BATCH, N, th_rel, th_abs))
     check(bool(torch.isfinite(xtk).all()), "thomas kernel returned non-finite values")
     check(th_rel <= 1e-5, "thomas kernel disagrees with plain: rel %.3e" % th_rel)
+    # the PyTorch call for the same function: a dense solve of the
+    # materialised tridiagonal batch (2 GB at this shape)
+    T_dense = (torch.diag_embed(dp.T) + torch.diag_embed(dlp.T[:, 1:], offset=-1)
+               + torch.diag_embed(dup.T[:, :-1], offset=1))
+    x_lib = torch.linalg.solve(T_dense, bp.T[..., None])[..., 0].T
+    check(float((xtk - x_lib).abs().max() / x_lib.abs().max()) <= 1e-5,
+          "thomas kernel disagrees with torch.linalg.solve of the dense batch")
+    th_lib_ms = timed_ms(torch, lambda: torch.linalg.solve(T_dense, bp.T[..., None]),
+                         reps=3, inner=1)
+    del T_dense, x_lib
 
     launches = {"structured_cg": 0, "thomas": 0}
 
@@ -1287,8 +1940,8 @@ def main() -> int:
           % (card, REPS, INNER))
     print("  structured_cg kernel %.3f ms, plain %.3f ms (K=%d, n=%d, r=%d) [%s]"
           % (cg_ms, cg_plain_ms, BATCH, N, RANK, card))
-    print("  thomas kernel %.3f ms, plain %.3f ms (K=%d, n=%d) [%s]"
-          % (th_ms, th_plain_ms, BATCH, N, card))
+    print("  thomas kernel %.3f ms, plain %.3f ms, torch.linalg.solve of the materialised "
+          "batch %.3f ms (K=%d, n=%d) [%s]" % (th_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
     print("  FWD solve (incl. the eager convergence check): %.1f solves/s (%.3f ms), "
           "plain path %.1f solves/s (%.3f ms) [%s]"
           % (BATCH / fwd_ms * 1e3, fwd_ms, BATCH / fwd_plain_ms * 1e3, fwd_plain_ms, card))
@@ -1320,10 +1973,21 @@ def main() -> int:
     routing_outside_window(torch, np, xt, device, card)
 
     # ---- 9. config 2 with the warm start: the DC kernel ----
-    dc_record = config2_warm(torch, np, xt, device, card, shared)
+    dc_record, warm_sweeps = config2_warm(torch, np, xt, device, card, shared)
+    jacobi_record["launches"] += warm_sweeps
 
     # ---- 10. config 2 with complex input: the complex sweep kernel ----
     complex_record = config2_complex(torch, np, xt, device, card, shared)
+
+    # ---- 11. dense operators: the fused dense CG kernel and path A ----
+    fused_record, batched = fused_cg_kernel_phase(torch, np, xt, device, card)
+    fused_record["launches"] = path_a(torch, np, xt, device, card, batched)
+    check(fused_record["launches"] >= 1, "path A did not launch the fused_cg kernel")
+    del batched
+
+    # ---- 12. Kron operators: path B (the factor decompositions go through
+    # the real sweep kernel) ----
+    jacobi_record["launches"] += path_b(torch, np, xt, device, card)
 
     print(json.dumps({"kernels": [
         {"name": "structured_cg", "route": "cuda",
@@ -1337,8 +2001,8 @@ def main() -> int:
          "replaces": "xitorch_tpu/ops/tridiag.py:38",
          "launches": launches["thomas"], "max_abs_err": th_abs,
          "ms": th_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
-         "bound_by": th_by, "library_ms": None},
-        jacobi_record, dc_record, complex_record,
+         "bound_by": th_by, "library_ms": th_lib_ms},
+        jacobi_record, dc_record, complex_record, fused_record,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(card_line())

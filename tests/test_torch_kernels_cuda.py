@@ -11,7 +11,8 @@ need not have; this file imports no JAX.)
 (``python3 chip_smoke.py`` covers the BASELINE config-3 and config-2
 shapes; these cases cover odd sizes, several bands, other ranks, float64
 Thomas, the real and the complex Jacobi sweep kernel on both of their
-memory paths, and the divide-and-conquer kernel with its exports.)
+memory paths, the divide-and-conquer kernel with its exports, and the fused
+dense CG kernel over odd sizes, every group size, float64 and a broadcast A.)
 """
 import importlib.util
 import os
@@ -23,6 +24,9 @@ import torch
 import xitorch_tpu_torch as xt
 from xitorch_tpu_torch.ops import (
     structured_cg_cuda, structured_cg_plain, thomas_cuda, thomas_plain,
+)
+from xitorch_tpu_torch.ops.fused_cg import (
+    fused_cg_cuda, fused_cg_dense, fused_cg_plain, group_size,
 )
 from xitorch_tpu_torch.ops.dc_kernel import (
     dc_precondition, dc_precondition_cuda, dc_precondition_plain,
@@ -442,3 +446,121 @@ def test_complex_symeig_and_svd_on_card_go_through_the_complex_kernel(cuda):
     s0 = np.linalg.svd(gm.to(torch.complex128).cpu().numpy(), compute_uv=False)[:, :4][:, ::-1]
     assert np.abs(s.cpu().numpy() - s0).max() <= 3e-5 * s0.max()
     assert float((gm @ vh.mH - u * s[..., None, :]).abs().max()) <= 2e-4
+
+
+def _spd_batch(nb, n, nc, dtype, device, seed=0, lo=0.2):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((nb, n, n)))
+    a = (q * np.linspace(lo, 1.0, n)) @ np.swapaxes(q, -1, -2)
+    a = (a + np.swapaxes(a, -1, -2)) / 2
+    b = rng.standard_normal((nb, n, nc))
+    return (torch.tensor(a, dtype=dtype, device=device),
+            torch.tensor(b, dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol, xtol", [(torch.float32, 1e-6, 1e-4),
+                                               (torch.float64, 1e-12, 1e-10)])
+@pytest.mark.parametrize("nb, n, nc, group", [
+    (3, 33, 1, None), (2, 97, 5, None), (5, 130, 11, 8), (2, 700, 13, 4), (40, 64, 9, 2),
+    (1, 257, 3, 1),
+])
+def test_fused_cg_kernel_matches_plain(cuda, dtype, rtol, xtol, nb, n, nc, group):
+    A, B = _spd_batch(nb, n, nc, dtype, cuda, seed=n)
+    B[0, :, 0] = 0.0  # a zero column: stop = atol, r.r = 0, x = 0 at once
+    if group is None:
+        group = group_size(nb, n, nc, dtype)
+    kw = dict(rtol=rtol, atol=rtol * 1e-2, max_niter=int(1.5 * n), group=group)
+    a_idx = torch.arange(nb, device=cuda)
+    xk, itk = fused_cg_cuda(A, a_idx, B, **kw)
+    xp, itp = fused_cg_plain(A, B, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xk).all()) and bool((xk[0, :, 0] == 0).all())
+    # sums in another order (warp tree vs PyTorch's reduction)
+    assert float((xk - xp).abs().max() / xp.abs().max()) <= xtol
+    # a per-group stop on rounded recurrences: a step or two either way
+    assert itk.shape == itp.shape == (nb, -(-nc // group))
+    assert int((itk - itp).abs().max()) <= 2
+    r = torch.linalg.norm(A @ xk - B, dim=-2)
+    stop = torch.clamp(rtol * torch.linalg.norm(B, dim=-2), min=rtol * 1e-2)
+    # the recurrence residual drifts from the measured one by rounding
+    assert bool((r <= 2.0 * stop).all())
+
+
+@pytest.mark.cuda
+def test_fused_cg_kernel_max_niter_and_broadcast_a(cuda):
+    A, B = _spd_batch(1, 96, 4, torch.float32, cuda, seed=5, lo=0.01)
+    B = B.expand(6, 96, 4).clone() * torch.arange(1, 7, device=cuda)[:, None, None]
+    kw = dict(rtol=1e-6, atol=1e-8)
+    x, steps = fused_cg_dense(A[0], B, max_niter=3, return_steps=True, **kw)
+    assert bool((steps == 3).all())
+    # a broadcast A is indexed: every system solved with the one matrix
+    fused_cg_cuda.launches = 0
+    x = fused_cg_dense(A[0], B, **kw)
+    xp, _ = fused_cg_plain(A.expand(6, 96, 96), B, max_niter=144, group=1, **kw)
+    torch.cuda.synchronize()
+    assert fused_cg_cuda.launches == 1
+    assert float((x - xp).abs().max() / xp.abs().max()) <= 1e-4
+    with pytest.raises(RuntimeError, match="does not match"):
+        fused_cg_dense(A[0].double(), B)
+
+
+@pytest.mark.cuda
+def test_solve_fused_cg_on_card_launches_forward_and_adjoint(cuda):
+    A, B = _spd_batch(4, 80, 6, torch.float32, cuda, seed=7)
+    leaf = A.clone().requires_grad_()
+    Bl = B.clone().requires_grad_()
+    w = torch.ones_like(B)
+    fused_cg_cuda.launches = 0
+    x = xt.linalg.solve(xt.LinearOperator.m((leaf + leaf.mT) / 2, is_hermitian=True), Bl,
+                        method="fused_cg", rtol=1e-6, atol=1e-8)
+    assert fused_cg_cuda.launches == 1
+    gA, gB = torch.autograd.grad((x * w).sum(), (leaf, Bl))
+    assert fused_cg_cuda.launches == 2
+    A64 = A.double().requires_grad_()
+    B64 = B.double().requires_grad_()
+    x64 = torch.linalg.solve((A64 + A64.mT) / 2, B64)
+    rA, rB = torch.autograd.grad((x64 * w.double()).sum(), (A64, B64))
+    for g, r in ((gA, rA), (gB, rB)):
+        assert float(torch.linalg.norm(g.double() - r) / torch.linalg.norm(r)) <= 1e-4
+
+
+class _MatVecOnly(xt.LinearOperator):
+    """A hermitian matrix without ``_fullmatrix``: matrix-free."""
+
+    def __init__(self, mat):
+        super().__init__(shape=mat.shape, dtype=mat.dtype, device=mat.device,
+                         is_hermitian=True)
+        self.mat = mat
+
+    def _getparamnames(self, prefix=""):
+        return [prefix + "mat"]
+
+    def _mv(self, x):
+        return (self.mat @ x[..., None])[..., 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["E", "matrix_free", "complex"])
+def test_solve_fused_cg_on_card_raises_outside_the_kernel(cuda, case):
+    # naming the kernel's method on the card never runs the Python-loop cg
+    # unnoticed: what the kernel does not take is an error there
+    A, B = _spd_batch(1, 64, 3, torch.float32, cuda, seed=11)
+    op, kw = xt.LinearOperator.m(A[0], is_hermitian=True), {}
+    if case == "E":
+        kw["E"] = torch.zeros(3, device=cuda)
+    elif case == "matrix_free":
+        op = _MatVecOnly(A[0])
+    else:
+        op = xt.LinearOperator.m(A[0].to(torch.complex64), is_hermitian=True)
+        B = B.to(torch.complex64)
+    fused_cg_cuda.launches = 0
+    with pytest.raises(RuntimeError, match="method='cg'"):
+        xt.linalg.solve(op, B[0], method="fused_cg", **kw)
+    assert fused_cg_cuda.launches == 0
+    # the same call on CPU tensors goes to the matrix-free cg, as in the reference
+    cpu_op = _MatVecOnly(A[0].cpu()) if case == "matrix_free" else \
+        xt.LinearOperator.m(op.fullmatrix().cpu(), is_hermitian=True)
+    cpu_kw = {k: v.cpu() for k, v in kw.items()}
+    x = xt.linalg.solve(cpu_op, B[0].cpu(), method="fused_cg", **cpu_kw)
+    assert bool(torch.isfinite(torch.view_as_real(x) if x.is_complex() else x).all())

@@ -182,16 +182,17 @@ def test_default_routing_pure_tridiag_takes_thomas(monkeypatch):
     assert np.max(np.abs(xtv.numpy() - xjv)) <= 1e-5 * np.max(np.abs(xjv))
 
 
-@pytest.mark.parametrize("method", ["bicgstab", "gmres", "cg_ir", "fused_cg", "kron_direct"])
+@pytest.mark.parametrize("method", ["broyden1"])
 def test_unported_method_raises(method):
     d, c, V, b = _tridiag_np()
     _, At = _ops(d, c, V)
-    with pytest.raises(RuntimeError, match="slice 6"):
+    with pytest.raises(RuntimeError, match="slice 3"):
         tsolve(At, torch.as_tensor(b), method=method)
 
 
-def test_non_hermitian_default_raises_instead_of_substituting():
+def test_non_hermitian_default_routes_to_bicgstab_and_agrees_with_jax():
     rng = np.random.default_rng(9)
+    s = rng.uniform(size=N)
 
     class Shift(xt.LinearOperator):
         def __init__(self, s):
@@ -204,9 +205,23 @@ def test_non_hermitian_default_raises_instead_of_substituting():
         def _mv(self, x):
             return 3.0 * x + self.s * torch.roll(x, 1, dims=-1)
 
-    A = Shift(torch.as_tensor(rng.uniform(size=N)))
-    with pytest.raises(RuntimeError, match="bicgstab"):
-        tsolve(A, torch.ones(N, 1, dtype=torch.float64))
+    class ShiftJ(xj.LinearOperator):
+        def __init__(self, s):
+            super().__init__(shape=(N, N), dtype=s.dtype)
+            self.s = s
+
+        def _getparamnames(self, prefix=""):
+            return [prefix + "s"]
+
+        def _mv(self, x):
+            return 3.0 * x + self.s * jnp.roll(x, 1, axis=-1)
+
+    A = Shift(torch.as_tensor(s))
+    b = torch.ones(N, 1, dtype=torch.float64)
+    x = tsolve(A, b)
+    assert torch.equal(x, tsolve(A, b, method="bicgstab"))
+    xjv = jsolve(ShiftJ(jnp.asarray(s)), jnp.ones((N, 1)))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xjv), atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("method", ["cg", "minres", "custom_exactsolve", "structured_cg"])

@@ -9,11 +9,15 @@ through iterations.
 Ported so far (see ROADMAP.md for the rest):
 
 * ``LinearOperator``, ``MatrixLinearOperator``, ``checklinop``
-* ``TridiagLowRankOperator``, ``BandedLowRankOperator``
-* ``linalg.solve`` with cg / minres / exactsolve / structured_cg
+* ``TridiagLowRankOperator``, ``BandedLowRankOperator``, ``KronOperator``,
+  ``KronSumOperator``
+* ``linalg.solve`` with cg / cg_ir / fused_cg / structured_cg / kron_direct /
+  minres / bicgstab / gmres / exactsolve / scipy_gmres
 * ``linalg.symeig`` / ``lsymeig`` / ``usymeig`` / ``svd`` with exacteig /
-  davidson / chebfsi, forward and (implicit) gradient, real and complex
-* ``ops``: the structured CG kernel, the Thomas kernel, the one-sided
+  kron_exact / davidson / chebfsi, forward and (implicit) gradient, real and
+  complex
+* ``ops``: the structured CG kernel, the fused dense CG kernel, the Thomas
+  kernel, the one-sided
   Jacobi sweep kernels for real and for complex input (``jacobi_eigh``,
   ``jacobi_svd``) and the spectral divide-and-conquer warm start
   (``dc_kernel``, ``spectral_dc``), each kernel with its plain PyTorch
@@ -25,6 +29,7 @@ from xitorch_tpu_torch._core.linop import (  # noqa: F401
 from xitorch_tpu_torch._core.structured import (  # noqa: F401
     BandedLowRankOperator, TridiagLowRankOperator,
 )
+from xitorch_tpu_torch._core.kron import KronOperator, KronSumOperator  # noqa: F401
 from xitorch_tpu_torch.debug.modes import (  # noqa: F401
     set_debug_mode, is_debug_enabled, enable_debug, disable_debug,
 )

@@ -7,7 +7,10 @@ xitorch_tpu/_impls/linalg/solve.py).
   loop is a Python loop whose stop test reads one scalar per iteration.
 * The generalized problem ``AX - MXE = B`` is the broadcast operator
   ``X -> A.mm(X) - M.mm(X) * E[..., None, :]``.
-* Non-convergence never raises: cg returns the best iterate seen.
+* Non-convergence never raises: cg, bicgstab and cg_ir return the best
+  iterate seen.
+* ``gmres`` is a batched Givens-rotation GMRES: the residual falls out of
+  the rotated right-hand side, which the loop reads once a step.
 * The positive-definiteness probe is a power iteration from a fixed
   probe vector (``torch.Generator`` seeded 4219); the non-posdef fallback
   solves the normal equations ``A^H A x = A^H b``.
@@ -17,15 +20,17 @@ wraps them in its implicit-gradient rule.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from xitorch_tpu_torch._core.linop import LinearOperator
 from xitorch_tpu_torch.utils.bcast import get_bcasted_dims, normalize_bcast_dims
-from xitorch_tpu_torch.utils.tensor import dot_hi
+from xitorch_tpu_torch.utils.tensor import dot_hi, einsum_hi
 
-__all__ = ["cg", "minres", "exactsolve", "solve_ABE"]
+__all__ = ["cg", "cg_ir", "minres", "bicgstab", "gmres", "exactsolve", "solve_ABE",
+           "scipy_gmres", "broyden1_solve"]
 
 
 # ------------------------------------------------------------------
@@ -375,6 +380,233 @@ def minres(A: LinearOperator, B: torch.Tensor,
 
 
 # ------------------------------------------------------------------
+# BiCGSTAB
+# ------------------------------------------------------------------
+
+def bicgstab(A: LinearOperator, B: torch.Tensor,
+             E: Optional[torch.Tensor] = None,
+             M: Optional[LinearOperator] = None,
+             posdef: Optional[bool] = None,
+             precond_l=None,
+             precond_r=None,
+             max_niter: Optional[int] = None,
+             rtol: float = 1e-6,
+             atol: float = 1e-8,
+             eps: float = 1e-12,
+             resid_calc_every: int = 10,
+             return_info: bool = False,
+             **unused) -> torch.Tensor:
+    """Batched stabilized biconjugate gradient (non-hermitian systems).
+
+    posdef: as in :func:`cg` (``True`` skips the probe and the
+        normal-equation fallback; bicgstab handles indefinite systems).
+    precond_l, precond_r: left / right preconditioners (LinearOperator,
+        callable or None).
+    max_niter: default int(1.5 * na).
+    resid_calc_every: recompute the true residual with this cadence.
+    The best iterate seen is returned.
+    """
+    nr = A.shape[-1]
+    if max_niter is None:
+        max_niter = int(1.5 * nr)
+
+    pl = _setup_precond(precond_l)
+    pr = _setup_precond(precond_r)
+    A_fcn, _, B2 = setup_linear_problem(A, B, E, M, posdef, need_hermit=False)
+
+    stop_matrix = torch.clamp(rtol * _colnorm(B2), min=atol)
+
+    xk = torch.zeros_like(B2)
+    rk = B2 - A_fcn(xk)
+    r0hat = rk
+    rho_k = _dot(r0hat, rk)
+    omega_k = torch.ones_like(rho_k)
+    alpha = torch.ones_like(rho_k)
+    vk = torch.zeros_like(rk)
+    pk = torch.zeros_like(rk)
+    best_x = xk
+    best_resid = float(_colnorm(rk).max())
+
+    k = 0
+    resid_max_rel = float("inf")
+    while k < max_niter and resid_max_rel >= 1.0:
+        rho_new = _dot(r0hat, rk)
+        beta = rho_new / _safedenom(rho_k, eps) * (alpha / _safedenom(omega_k, eps))
+        pk = rk + beta * (pk - omega_k * vk)
+        y = pr(pk)
+        vk = A_fcn(y)
+        alpha = rho_new / _safedenom(_dot(r0hat, vk), eps)
+        h = xk + alpha * y
+        s = rk - alpha * vk
+        z = pr(s)
+        t = A_fcn(z)
+        Kt = pl(t)
+        omega_k = _dot(Kt, pl(s)) / _safedenom(_dot(Kt, Kt), eps)
+        xk = h + omega_k * z
+        if resid_calc_every > 0 and (k + 1) % resid_calc_every == 0:
+            rk = B2 - A_fcn(xk)
+        else:
+            rk = s - omega_k * t
+
+        resid_norm = _colnorm(rk)
+        max_resid = float(resid_norm.max())
+        if max_resid < best_resid:
+            best_x = xk
+            best_resid = max_resid
+        resid_max_rel = float((resid_norm / stop_matrix).max())
+        rho_k = rho_new
+        k += 1
+
+    if return_info:
+        # describe the returned best iterate, not the final loop iterate
+        rc = _colnorm(B2 - A_fcn(best_x))
+        rel = (rc / stop_matrix).max()
+        return best_x, _make_info(rel < 1.0, k, rc.max(), rel)
+    return best_x
+
+
+# ------------------------------------------------------------------
+# GMRES (batched, Givens rotations)
+# ------------------------------------------------------------------
+
+def gmres(A: LinearOperator, B: torch.Tensor,
+          E: Optional[torch.Tensor] = None,
+          M: Optional[LinearOperator] = None,
+          posdef: Optional[bool] = None,
+          max_niter: Optional[int] = None,
+          rtol: float = 1e-6,
+          atol: float = 1e-8,
+          eps: float = 1e-12,
+          restart: Optional[int] = None,
+          return_info: bool = False,
+          **unused) -> torch.Tensor:
+    """Batched GMRES with classical Gram-Schmidt (twice) and Givens rotations.
+
+    The Arnoldi orthogonalisation is two batched contractions a step and
+    the least-squares residual falls out of the Givens-rotated right-hand
+    side.  Memory: the Krylov basis ``(k+1, *B, na, ncols)`` where
+    ``k = restart`` (GMRES(k): cycles restart from the current iterate
+    until ``max_niter`` total iterations) or ``max_niter`` when ``restart``
+    is None (full GMRES; default ``min(na, 200)``).
+    """
+    nr = A.shape[-1]
+    if max_niter is None:
+        max_niter = min(int(nr), 200)
+
+    # gmres handles general (non-hermitian, indefinite) systems directly, so
+    # the normal-equation fallback is unnecessary: skip the posdef probe
+    A_fcn, _, B2 = setup_linear_problem(A, B, E, M, True, need_hermit=False)
+
+    stop_matrix = torch.clamp(rtol * _colnorm(B2), min=atol).squeeze(-2)  # (*B, nc)
+
+    if restart is None or restart >= max_niter:
+        x, iters, _ = _gmres_cycle(A_fcn, B2, torch.zeros_like(B2), max_niter,
+                                   stop_matrix, eps)
+    else:
+        m = int(restart)
+        ncycles = -(-max_niter // m)  # ceil
+        x, iters, rel, c = torch.zeros_like(B2), 0, float("inf"), 0
+        # same 0.5 estimate margin as the inner cycle (see _gmres_cycle)
+        while c < ncycles and rel >= 0.5:
+            x, k_fin, rel = _gmres_cycle(A_fcn, B2, x, m, stop_matrix, eps)
+            iters += k_fin
+            c += 1
+
+    if return_info:
+        # measured residual (one extra matvec): the Givens-rotated rhs
+        # only gives a floating-point *estimate* of the residual norm
+        rc = _colnorm(B2 - A_fcn(x))
+        rel = (rc.squeeze(-2) / stop_matrix).max()
+        return x, _make_info(rel < 1.0, iters, rc.max(), rel)
+    return x
+
+
+def _gmres_cycle(A_fcn, B2, x0, m: int, stop_matrix, eps: float):
+    """One GMRES cycle of up to ``m`` Arnoldi steps from iterate ``x0``.
+    Returns ``(x1, steps taken, resid_rel)``.
+
+    The rotations of the steps so far are kept as their product ``Q``
+    (``(*B, nc, m+1, m+1)``), so a new Hessenberg column is rotated by one
+    contraction instead of one small operation per earlier step."""
+    batch = B2.shape[:-2]
+    nr, ncols = B2.shape[-2:]
+    dtype, device = B2.dtype, B2.device
+
+    r0 = B2 - A_fcn(x0)
+    beta = _colnorm(r0)  # (*B, 1, nc)
+    V = torch.zeros((m + 1, *batch, nr, ncols), dtype=dtype, device=device)
+    V[0] = r0 / _safedenom(beta, eps)
+    # Hessenberg in Givens-rotated (upper-triangular) form
+    R = torch.zeros((*batch, ncols, m, m), dtype=dtype, device=device)
+    g = torch.zeros((*batch, ncols, m + 1), dtype=dtype, device=device)
+    g[..., 0] = beta.squeeze(-2).to(dtype)
+    Q = torch.eye(m + 1, dtype=dtype, device=device).repeat(*batch, ncols, 1, 1)
+
+    def arnoldi_dots(Vk, w):
+        # Vk: (k+1, *B, nr, nc), w: (*B, nr, nc) -> h: (k+1, *B, nc); IEEE
+        # float32: TF32 would lose the Krylov basis' orthogonality
+        return einsum_hi("k...rc,...rc->k...c", Vk.conj(), w)
+
+    k = 0
+    resid_max_rel = float("inf")
+    # iterate to HALF the tolerance (same margin as minres): the loop stops
+    # on the Givens-rotated-rhs *estimate* of the residual, which
+    # CGS2/rounding drift lets sit above the measured residual; the margin
+    # keeps the post-hoc ``rel < 1.0`` info check from flagging a solve the
+    # recurrence believed had just converged
+    while k < m and resid_max_rel >= 0.5:
+        w = A_fcn(V[k])
+        Vk = V[:k + 1]
+        # CGS2 orthogonalisation: two batched contraction sweeps
+        h1 = arnoldi_dots(Vk, w)
+        w = w - einsum_hi("k...c,k...rc->...rc", h1, Vk)
+        h2 = arnoldi_dots(Vk, w)
+        w = w - einsum_hi("k...c,k...rc->...rc", h2, Vk)
+        hk1 = _colnorm(w)  # (*B, 1, nc), real
+        V[k + 1] = w / _safedenom(hk1, eps)
+
+        hcol = torch.cat([torch.movedim(h1 + h2, 0, -1),
+                          hk1.squeeze(-2).to(dtype)[..., None]], dim=-1)  # (*B, nc, k+2)
+        # the rotations of steps 0..k-1
+        hcol = einsum_hi("...ij,...j->...i", Q[..., :k + 2, :k + 2], hcol)
+
+        # new rotation zeroing the subdiagonal entry k+1
+        f = hcol[..., k]        # (*B, nc), possibly complex
+        gg = hcol[..., k + 1]   # (*B, nc), the magnitude hk1
+        denom = _safedenom(torch.sqrt(f.abs() ** 2 + gg.abs() ** 2), eps)
+        absf = _safedenom(f.abs(), eps)
+        tiny_f = f.abs() < eps
+        c_new = torch.where(tiny_f, 0.0, f.abs() / denom).to(dtype)
+        s_new = torch.where(tiny_f, (gg / denom).to(dtype),
+                            (f.conj() / absf) * (gg / denom))
+        R[..., :k, k] = hcol[..., :k]
+        R[..., k, k] = c_new.conj() * f + s_new.conj() * gg
+        qk, qk1 = Q[..., k, :].clone(), Q[..., k + 1, :].clone()
+        Q[..., k, :] = c_new.conj()[..., None] * qk + s_new.conj()[..., None] * qk1
+        Q[..., k + 1, :] = -s_new[..., None] * qk + c_new[..., None] * qk1
+
+        # update the rotated rhs
+        gk = g[..., k].clone()
+        g[..., k] = c_new.conj() * gk
+        g[..., k + 1] = -s_new * gk
+
+        # |g_{k+1}| is the GMRES residual norm of this step
+        resid_max_rel = float((g[..., k + 1].abs() / stop_matrix).max())
+        k += 1
+
+    # back-substitute the (k x k) triangular system.  A column whose
+    # right-hand side is zero breaks down at once with a zero diagonal and a
+    # zero rotated rhs: a unit diagonal there gives y = 0, its solution (the
+    # JAX package returns NaN for such a column)
+    Rk = R[..., :k, :k]
+    zero_diag = torch.diagonal(Rk, dim1=-2, dim2=-1) == 0
+    y = torch.linalg.solve_triangular(Rk + torch.diag_embed(zero_diag.to(dtype)),
+                                      g[..., :k, None], upper=True)[..., 0]  # (*B, nc, k)
+    x = x0 + einsum_hi("k...rc,...ck->...rc", V[:k], y)
+    return x, k, resid_max_rel
+
+
+# ------------------------------------------------------------------
 # exact (dense) solve
 # ------------------------------------------------------------------
 
@@ -458,3 +690,140 @@ def solve_ABE(A: torch.Tensor, B: torch.Tensor, E: torch.Tensor) -> torch.Tensor
         AE_safe = AE + eye * torch.where(bad, dAE, torch.zeros_like(dAE))
         cols.append(torch.linalg.solve(AE_safe, B_[..., c:c + 1])[..., 0])
     return torch.stack(cols, dim=-1)
+
+
+# ------------------------------------------------------------------
+# bridges
+# ------------------------------------------------------------------
+
+def scipy_gmres(A: LinearOperator, B: torch.Tensor, E=None, M=None,
+                min_eps: float = 1e-9, max_niter: Optional[int] = None,
+                **unused) -> torch.Tensor:
+    """SciPy gmres bridge: the operator is materialised and copied to the
+    host with B, each column is solved there, and the result is copied
+    back.  Kept for parity; prefer the native :func:`gmres`."""
+    import numpy as np
+    from scipy.sparse.linalg import gmres as _sp_gmres
+
+    if E is not None or M is not None:
+        raise RuntimeError("scipy_gmres can only do AX=B")
+    if len(A.shape) != 2:
+        raise RuntimeError("scipy_gmres requires an unbatched A")
+    if max_niter is None:
+        max_niter = 2 * A.shape[-1]
+    Anp = A.fullmatrix().detach().cpu().numpy()
+    Bnp = B.detach().cpu().numpy()
+    Bb = Bnp.reshape(-1, *Bnp.shape[-2:])
+    out = np.empty_like(Bb)
+    for i in range(Bb.shape[0]):
+        for c in range(Bb.shape[-1]):
+            out[i, :, c], _ = _sp_gmres(Anp, Bb[i, :, c], rtol=min_eps, atol=1e-12,
+                                        maxiter=max_niter)
+    return torch.as_tensor(out.reshape(Bnp.shape), dtype=B.dtype, device=B.device)
+
+
+def broyden1_solve(A: LinearOperator, B: torch.Tensor, E=None, M=None, **options):
+    """Solve the linear system with the Broyden rootfinder on the residual.
+    The rootfinder comes with ``optimize`` (slice 3 of the port, ROADMAP.md
+    queue 1)."""
+    raise RuntimeError(
+        "solve method 'broyden1' is not ported to xitorch_tpu_torch yet: it "
+        "needs the Broyden rootfinder of optimize, slice 3 of the port "
+        "(ROADMAP.md, queue 1)")
+
+
+# ------------------------------------------------------------------
+# mixed-precision iterative refinement
+# ------------------------------------------------------------------
+
+def cg_ir(A: LinearOperator, B: torch.Tensor,
+          E: Optional[torch.Tensor] = None,
+          M: Optional[LinearOperator] = None,
+          posdef: Optional[bool] = None,
+          rtol: float = 1e-6,
+          atol: float = 1e-8,
+          inner_rtol: float = 5e-2,
+          inner_max_niter: Optional[int] = None,
+          max_refine: int = 20,
+          low_dtype: torch.dtype = torch.bfloat16,
+          return_info: bool = False,
+          **options) -> torch.Tensor:
+    """Mixed-precision iterative refinement around CG: the inner solves run
+    with the operator's parameters cast to ``low_dtype``, while residuals
+    are computed and accumulated at the working precision.  Converges to
+    working-precision accuracy whenever kappa(A) * eps_low < 1.
+
+    Keyword arguments: rtol/atol (outer stopping), inner_rtol (inner CG
+    tolerance per refinement step), inner_max_niter, max_refine (outer
+    iteration cap), low_dtype.
+    """
+    # cg_ir is only consistent when the OUTER residual operator is the plain
+    # A - ME (hermitian, assumed posdef): a non-hermitian A (or an explicit
+    # posdef=False) would switch the outer problem to the normal equations
+    # while the inner correction still solves with plain A, an inconsistent
+    # correction direction.  Fall back to cg in those cases.
+    def full_precision_cg():
+        return cg(A, B, E, M, posdef=posdef, rtol=rtol, atol=atol,
+                  return_info=return_info, **options)
+
+    is_hermit = A.is_hermitian and (M is None or M.is_hermitian)
+    if max_refine <= 0 or B.is_complex() or not is_hermit or posdef is False:
+        return full_precision_cg()
+    work_dtype = B.dtype
+    low = {id(p): p.detach().to(low_dtype)
+           for op in (A, M) if op is not None
+           for p in op.getlinopparams() if p.is_floating_point()}
+    E_lo = E.to(low_dtype) if E is not None else None
+    if inner_max_niter is None:
+        inner_max_niter = min(int(A.shape[-1]), 100)
+
+    def low_precision(fn):
+        with ExitStack() as stack:
+            stack.enter_context(A._replaced_params(low))
+            if M is not None:
+                stack.enter_context(M._replaced_params(low))
+            return fn()
+
+    # an operator whose matvec does not follow its parameters' type (a
+    # closure over float32 tensors, say) cannot take the low type: one
+    # product on a zero probe finds out, and such an operator gets the
+    # full-precision cg
+    probe = torch.zeros((*A.shape[:-2], A.shape[-1], B.shape[-1]), dtype=low_dtype,
+                        device=B.device)
+    try:
+        if low_precision(lambda: A.mm(probe)).dtype != low_dtype:
+            return full_precision_cg()
+    except Exception:
+        return full_precision_cg()
+
+    A_fcn, _, B2 = setup_linear_problem(A, B, E, M, True, need_hermit=True)
+    stop = torch.clamp(rtol * _colnorm(B2), min=atol)
+
+    x = torch.zeros_like(B2)
+    best_x, best_rmax, best_abs = x, float("inf"), float("inf")
+    k = 0
+    rmax = float("inf")
+    while k < max_refine and rmax >= 1.0:
+        r = B2 - A_fcn(x)
+        # normalize the inner rhs per column so the low-precision solve's
+        # tolerances stay meaningful as the residual shrinks (a fixed inner
+        # atol would stall the refinement once ||r|| drops below it), and so
+        # tiny residuals survive the cast
+        rnorm = _colnorm(r).to(work_dtype)
+        rhat = (r / _safedenom(rnorm, 1e-30)).to(low_dtype)
+        dz = low_precision(lambda: cg(A, rhat, E_lo, M, posdef=True, rtol=inner_rtol,
+                                      atol=1e-4, max_niter=inner_max_niter))
+        x = x + dz.to(work_dtype) * rnorm
+        r2c = _colnorm(B2 - A_fcn(x))
+        rmax = float((r2c / stop).max())
+        # best-iterate semantics: a stalled or diverging refinement must not
+        # return a worse-than-best iterate
+        if rmax < best_rmax:
+            best_x, best_rmax, best_abs = x, rmax, float(r2c.max())
+        k += 1
+
+    if return_info:
+        # the loop measures the TRUE residual of every iterate (not a
+        # recurrence estimate), so the best iterate's numbers are at hand
+        return best_x, _make_info(best_rmax < 1.0, k, best_abs, best_rmax)
+    return best_x

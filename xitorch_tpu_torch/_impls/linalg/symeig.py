@@ -12,6 +12,8 @@ iterative (counterpart of xitorch_tpu/_impls/linalg/symeig.py).
   phase term, which is valid for losses that do not depend on the phases
   of the eigenvectors or singular vectors.
 * ``exacteig``: dense path with the M-Cholesky symmetrisation.
+* ``kron_exacteig``: exact eigenpairs of a hermitian Kronecker-structured
+  operator from its factor decompositions.
 * ``davidson``: fixed-subspace block Davidson with thick restart (basis
   [Ritz vectors X, residuals R, previous X], Cholesky-QR).
 * ``chebfsi``: Chebyshev-filtered subspace iteration.
@@ -33,8 +35,8 @@ from xitorch_tpu_torch._core.linop import LinearOperator, MatrixLinearOperator
 from xitorch_tpu_torch.utils.bcast import get_bcasted_dims
 from xitorch_tpu_torch.utils.tensor import dot_hi, tallqr
 
-__all__ = ["exacteig", "degen_eigh", "degen_svd", "davidson", "chebfsi",
-           "take_eigpairs"]
+__all__ = ["exacteig", "kron_exacteig", "degen_eigh", "degen_svd", "davidson",
+           "chebfsi", "take_eigpairs"]
 
 
 def take_eigpairs(eival: torch.Tensor, eivec: torch.Tensor, neig: int, mode: str):
@@ -224,6 +226,60 @@ def exacteig(A: LinearOperator, neig: int, mode: str,
     evals, evecs = degen_eigh(A2)
     evals, evecs = take_eigpairs(evals, evecs, neig, mode)
     return evals, dot_hi(LinvT, evecs)  # M-orthonormal eigenvectors
+
+
+def kron_exacteig(A, neig: int, mode: str,
+                  M: Optional[LinearOperator] = None,
+                  return_info: bool = False, **unused):
+    """Exact eigenpairs of a hermitian Kronecker-structured operator from
+    its *factor* decompositions (see _core/kron.py).
+
+    For ``KronSumOperator`` the eigenvalues are all sums
+    ``sum_i l_i[j_i]`` with eigenvectors ``v_1[j_1] (x) ... (x) v_k[j_k]``;
+    for ``KronOperator`` the products.  One small decomposition per factor
+    (the Jacobi sweep kernel for CUDA float32 factors inside its window)
+    and a sort of the combined spectrum: O(sum n_i^3) instead of
+    O((prod n_i)^3).  Natively differentiable through ``degen_eigh`` (the
+    same contract as exacteig); mixed-index eigenvalue crossings cost
+    nothing, because gradients flow through the factor decompositions
+    independently.
+    """
+    from xitorch_tpu_torch._core.kron import KronOperator, KronSumOperator
+
+    if M is not None:
+        raise RuntimeError("kron_exact does not support a generalized "
+                           "(M != None) problem")
+    if not isinstance(A, (KronOperator, KronSumOperator)):
+        raise RuntimeError(
+            "kron_exact requires a KronOperator/KronSumOperator "
+            "(got %s)" % type(A).__name__)
+    if not A.is_hermitian:
+        raise RuntimeError("kron_exact requires hermitian factors "
+                           "(declare is_hermitian=True)")
+
+    comb, Vs = A.combined_eigendecomposition()
+    batch = comb.shape[:-len(A.dims)]
+    flat = comb.reshape(*batch, A.shape[-1])
+    order = torch.argsort(flat, dim=-1)
+    sel = order[..., :neig] if mode == "lowest" else order[..., -neig:]
+    lam = torch.take_along_dim(flat, sel, dim=-1)        # (*B, neig)
+    # row-major multi-index of each selected flat position, last axis
+    # fastest; eigenvector = product of gathered factor columns
+    idx = sel
+    gathered = []
+    for d, V in zip(reversed(A.dims), reversed(Vs)):
+        ji = idx % d
+        idx = idx // d
+        gathered.append(torch.take_along_dim(V.expand(*batch, d, d),
+                                             ji[..., None, :], dim=-1))
+    evecs = None                                         # (*B, prod, neig)
+    for Vg in reversed(gathered):                        # factor order
+        evecs = Vg if evecs is None else (
+            evecs[..., :, None, :] * Vg[..., None, :, :]).reshape(
+                *batch, evecs.shape[-2] * Vg.shape[-2], neig)
+    if return_info:
+        return lam, evecs, _direct_info(lam.device)
+    return lam, evecs
 
 
 # ------------------------------------------------------------------

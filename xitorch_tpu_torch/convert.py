@@ -14,6 +14,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from xitorch_tpu_torch._core.kron import KronOperator, KronSumOperator
 from xitorch_tpu_torch._core.linop import LinearOperator, MatrixLinearOperator
 from xitorch_tpu_torch._core.structured import (
     BandedLowRankOperator, TridiagLowRankOperator,
@@ -21,7 +22,8 @@ from xitorch_tpu_torch._core.structured import (
 
 __all__ = ["operator_from_numpy", "pencil_from_numpy"]
 
-_KINDS = ("TridiagLowRankOperator", "BandedLowRankOperator", "MatrixLinearOperator")
+_KINDS = ("TridiagLowRankOperator", "BandedLowRankOperator", "MatrixLinearOperator",
+          "KronOperator", "KronSumOperator")
 
 
 def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
@@ -34,7 +36,9 @@ def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
     ``V``), "BandedLowRankOperator" (``d``, ``band_vals`` — a sequence of
     arrays, one per offset in ``offsets`` — optional ``V``) or
     "MatrixLinearOperator" (``mat``; ``is_hermitian`` as in
-    ``LinearOperator.m``).  ``dtype`` defaults to each array's own; complex
+    ``LinearOperator.m``), "KronOperator" or "KronSumOperator" (``factors``,
+    a sequence of square arrays; ``is_hermitian`` as the class takes it, so
+    ``None`` means not hermitian for raw arrays).  ``dtype`` defaults to each array's own; complex
     arrays (complex hermitian operators and pencils) come across as complex
     tensors, and a real ``dtype`` for a complex array is an error.
     """
@@ -65,6 +69,12 @@ def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
         if is_hermitian is None:
             return LinearOperator.m(mat)
         return MatrixLinearOperator(mat, is_hermitian)
+    if kind in ("KronOperator", "KronSumOperator"):
+        if not params.get("factors"):
+            raise ValueError("%s needs its factors (params['factors'], a sequence "
+                             "of square arrays)" % kind)
+        cls = KronOperator if kind == "KronOperator" else KronSumOperator
+        return cls(*(t(f) for f in params["factors"]), is_hermitian=is_hermitian)
     raise ValueError("unknown operator kind %r (known: %s)"
                      % (kind, ", ".join(_KINDS)))
 

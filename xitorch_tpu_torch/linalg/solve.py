@@ -18,20 +18,50 @@ from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
 
-from xitorch_tpu_torch._core.linop import LinearOperator
+from xitorch_tpu_torch._core.kron import KronOperator, KronSumOperator
+from xitorch_tpu_torch._core.linop import LinearOperator, MatrixLinearOperator
 from xitorch_tpu_torch._core.structured import (
     BandedLowRankOperator, TridiagLowRankOperator,
 )
 from xitorch_tpu_torch._impls.linalg.solve import (
-    _make_info, cg, exactsolve, get_batchdims, minres,
+    _make_info, bicgstab, broyden1_solve, cg, cg_ir, exactsolve, get_batchdims,
+    gmres, minres, scipy_gmres,
 )
 from xitorch_tpu_torch.debug.modes import is_debug_enabled
+from xitorch_tpu_torch.ops.fused_cg import fits_fused_cg, fused_cg_dense
 from xitorch_tpu_torch.ops.structured_cg import fits_structured_cg, structured_cg_solve
 from xitorch_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve_kernel
 from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 from xitorch_tpu_torch.utils.misc import get_method
 
 __all__ = ["solve"]
+
+
+def _fused_cg(A, B, E=None, M=None, rtol: float = 1e-6, atol: float = 1e-8,
+              max_niter=None, **options):
+    """Whole-iteration CG kernel for an explicit hermitian A
+    (ops/fused_cg.py): one launch, no host round trip per step.  On CUDA
+    tensors the kernel launches or the call raises: what the kernel does
+    not take (a matrix-free or complex operator, an E/M shift, mixed dtypes,
+    a shape outside ``fits_fused_cg``) is an error there, so that naming
+    this method on the card never runs the Python-loop cg unnoticed.  On CPU
+    tensors the kernel's plain PyTorch version runs, and what the kernel
+    does not take goes to the matrix-free cg, as in the JAX package."""
+    if (E is None and M is None and isinstance(A, MatrixLinearOperator)
+            and A.is_hermitian and B.dtype == A.dtype
+            and fits_fused_cg(A.shape[-1], B.shape[-1], A.dtype)):
+        return fused_cg_dense(A.fullmatrix(), B, rtol=rtol, atol=atol,
+                              max_niter=max_niter)
+    if B.is_cuda:
+        raise RuntimeError(
+            "solve(method='fused_cg') on CUDA tensors takes an explicit hermitian "
+            "float32 or float64 matrix operator (LinearOperator.m) of B's dtype, "
+            "without E or M, inside the kernel's window (ops.fused_cg.fits_fused_cg); "
+            "got %s, n=%d, ncols=%d, A %s, B %s, E %s, M %s.  Use method='cg' for "
+            "this system." % (type(A).__name__, A.shape[-1], B.shape[-1], A.dtype,
+                              B.dtype, "set" if E is not None else "None",
+                              "set" if M is not None else "None"))
+    return cg(A, B, E, M, rtol=rtol, atol=atol, max_niter=max_niter, **options)
 
 
 def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
@@ -125,29 +155,109 @@ def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
     return x
 
 
+def _kron_direct(A, B, E=None, M=None, return_info: bool = False,
+                 refine: int = 1, **options):
+    """Direct eigenbasis solve for hermitian Kronecker-structured
+    operators (:class:`KronSumOperator` / :class:`KronOperator`):
+    decompose the small factors (the Jacobi sweep kernel for CUDA float32
+    factors inside its window), transform B into the product eigenbasis,
+    divide by the combined eigenvalues (sums for the Kronecker sum,
+    products for the Kronecker product, minus the per-column shifts E), and
+    transform back: the classic "fast Poisson" route, O(n^3) in the factor
+    sizes instead of O((n1*n2)^3) dense.  M-generalized problems and
+    non-hermitian factors fall back to cg."""
+    if not (M is None and isinstance(A, (KronOperator, KronSumOperator))
+            and A.is_hermitian):
+        return cg(A, B, E, M, return_info=return_info, **options)
+
+    comb, Vs = A.combined_eigendecomposition()
+
+    ncols = B.shape[-1]
+    N = A.shape[-1]
+    batch = comb.shape[:-len(A.dims)]
+    denom = comb.reshape(*batch, N, 1)
+    if E is not None:
+        denom = denom - E[..., None, :]
+    # singular pencils (an E shift hitting an eigenvalue sum exactly)
+    # must not emit Inf/NaN: floor the denominator at eps * spectral
+    # scale (keeping x bounded by ~1/eps) and remember which entries
+    # saturated: info reports converged=0 for them, since the residual
+    # of an ~1/eps-sized x is numerically meaningless
+    eps_c = torch.finfo(comb.dtype).eps
+    # per-batch scale: a global max would inflate the floor (and the
+    # backward-error stop below) for small-scale batch elements
+    anorm_b = comb.abs().reshape(*batch, N).amax(-1)  # (*batch,) spectral norm
+    floor = eps_c * (anorm_b[..., None, None] + 1e-300)
+    singular = denom.abs() < floor
+    denom = torch.where(singular, torch.where(denom < 0, -floor, floor), denom)
+
+    def eig_solve(rhs):
+        # fold the rhs columns into the flattened vector (row-major:
+        # they ride along as trailing "extra" in every axis transform)
+        c = rhs.reshape(*rhs.shape[:-2], N * ncols)
+        for i, V in enumerate(Vs):  # into the product eigenbasis
+            c = A._apply_axis(c, V.mH, i, extra=ncols)
+        c = c.reshape(*c.shape[:-1], N, ncols) / denom
+        c = c.reshape(*c.shape[:-2], N * ncols)
+        for i, V in enumerate(Vs):  # and back
+            c = A._apply_axis(c, V, i, extra=ncols)
+        return c.reshape(*c.shape[:-1], N, ncols)
+
+    def residual(x):
+        r = B - A.mm(x)
+        if E is not None:
+            r = r + x * E[..., None, :]
+        return r
+
+    x = eig_solve(B)
+    # iterative refinement: the factor decompositions are the accuracy
+    # bottleneck (float32 eigenvector error ~eps/gap on clustered spectra);
+    # each pass costs two transform sweeps + one (cheap) structured matvec
+    # and multiplies the residual by ~eps*kappa
+    for _ in range(max(int(refine), 0)):
+        x = x + eig_solve(residual(x))
+    if return_info:
+        # honest residual (one extra matvec): a singular pencil, an E
+        # shift at an eigenvalue sum, must surface as converged=0
+        r = torch.linalg.norm(residual(x), dim=-2)
+        bn = torch.linalg.norm(B, dim=-2)
+        # direct solve: converged follows the library-wide ``rel < 1.0``
+        # rule (see _make_info) against the normwise backward-error floor
+        # 100*eps*(||A||*||x|| + ||B||) of the working dtype (a direct
+        # method has no iteration tolerance to compare against; ||A||*||x||,
+        # not ||Ax||, is the standard scale, which matters exactly on
+        # the ill-conditioned systems where x has large null-ish modes)
+        eps_d = torch.finfo(r.dtype).eps
+        anorm = anorm_b[..., None]  # (*batch, 1): exact per-batch
+        # spectral norm for Kron (max |combined eigenvalue|)
+        if E is not None:  # per-column pencil norm ||A - e_j||
+            anorm = anorm + E.abs()
+        xn = torch.linalg.norm(x, dim=-2)
+        stop = torch.clamp(100 * eps_d * (bn + anorm * xn), min=1e-30)
+        rel = (r / stop).max()
+        ok = (rel < 1.0) & ~singular.any()
+        return x, _make_info(ok, 1.0 + refine, r.max(), rel)
+    return x
+
+
 _SOLVE_METHODS = {
     "cg": cg,
+    "cg_ir": cg_ir,
+    "fused_cg": _fused_cg,
     "structured_cg": _structured_cg,
+    "kron_direct": _kron_direct,
     "minres": minres,
+    "bicgstab": bicgstab,
+    "gmres": gmres,
     "exactsolve": exactsolve,
     "custom_exactsolve": exactsolve,
+    "scipy_gmres": scipy_gmres,
+    "broyden1": broyden1_solve,
 }
 
 # methods whose impl supports the (x, info) return convention
-_INFO_METHODS = {"cg", "minres", "exactsolve", "custom_exactsolve", "structured_cg"}
-
-# methods of the JAX package that later slices of the port bring
-_LATER_METHODS = {"cg_ir", "fused_cg", "kron_direct", "bicgstab", "gmres",
-                  "scipy_gmres", "broyden1"}
-
-
-def _get_solve_method(method):
-    if isinstance(method, str) and method.lower() in _LATER_METHODS:
-        raise RuntimeError(
-            "solve method %r is not ported to xitorch_tpu_torch yet: it "
-            "belongs to slice 6 of the port (ROADMAP.md, queue 1); "
-            "ported methods: %s" % (method, ", ".join(sorted(_SOLVE_METHODS))))
-    return get_method("solve", _SOLVE_METHODS, method)
+_INFO_METHODS = {"cg", "cg_ir", "minres", "bicgstab", "gmres", "exactsolve",
+                 "custom_exactsolve", "structured_cg", "kron_direct"}
 
 
 def solve(A: LinearOperator, B: torch.Tensor,
@@ -162,11 +272,15 @@ def solve(A: LinearOperator, B: torch.Tensor,
 
     ``A (*BA, na, na)``, ``B (*BB, na, ncols)``, ``E (*BE, ncols)`` or None,
     ``M (*BM, na, na)`` hermitian or None.  ``method`` is a registry string
-    ("cg", "minres", "exactsolve", "custom_exactsolve", "structured_cg") or
-    a custom callable; None picks structured_cg for structured operators
-    (minres when they are E-shifted and not purely tridiagonal),
-    exactsolve for explicit/small operators, else cg for hermitian
-    operators (minres when E-shifted).
+    ("cg", "cg_ir", "fused_cg", "structured_cg", "kron_direct", "minres",
+    "bicgstab", "gmres", "exactsolve", "custom_exactsolve", "scipy_gmres";
+    "broyden1" is not ported yet) or a custom callable.  None picks
+    structured_cg for structured operators (minres when they are E-shifted
+    and not purely tridiagonal), kron_direct for hermitian Kron operators
+    without M (matrix-free cg, minres or bicgstab otherwise), exactsolve for explicit or small
+    operators, else cg for hermitian operators (minres when E-shifted) and
+    bicgstab for non-hermitian ones.  "fused_cg" on CUDA tensors launches
+    its kernel or raises (see :func:`_fused_cg`).
 
     Returns ``X (*BABEM, na, ncols)``; first and second order gradients flow
     to B, E, and the parameters of A and M by implicit differentiation.
@@ -176,7 +290,13 @@ def solve(A: LinearOperator, B: torch.Tensor,
     With ``return_info=True``, returns ``(X, info)`` where ``info`` is a dict
     ``{"converged", "iterations", "resid", "resid_rel"}`` of float32
     scalars without gradients: ``resid`` is the measured residual norm of
-    the returned iterate and ``converged = resid_rel < 1.0``.
+    the returned iterate and ``converged = resid_rel < 1.0`` with
+    ``resid_rel = resid / stop``, where ``stop = max(rtol*|B|, atol)`` for
+    iterative methods and the normwise backward-error floor
+    ``100*eps*(|A|*|X| + |B|)`` for the direct methods (exactsolve,
+    kron_direct, which additionally flags singular pencils).  "fused_cg",
+    "scipy_gmres" and "broyden1" do not report info: ``return_info=True``
+    raises for them.
 
     A :class:`ConvergenceWarning` is emitted when the solve did not
     converge.  The check always runs (PyTorch is eager): one extra matvec,
@@ -216,10 +336,10 @@ def solve(A: LinearOperator, B: torch.Tensor,
             return exactsolve(A, B, E, M, return_info=True)
         return exactsolve(A, B, E, M)
 
-    method_fcn = _get_solve_method(method)
+    method_fcn = get_method("solve", _SOLVE_METHODS, method)
     bck_cfg = dict(bck_options)
     bck_method = bck_cfg.pop("method", method)
-    _get_solve_method(bck_method)
+    get_method("solve", _SOLVE_METHODS, bck_method)
 
     if return_info and isinstance(method, str) and method not in _INFO_METHODS:
         raise RuntimeError(
@@ -245,6 +365,18 @@ def solve(A: LinearOperator, B: torch.Tensor,
 
 
 def _default_method(A, E, M) -> str:
+    kron = (KronOperator, KronSumOperator)
+    if M is None and A.is_hermitian and isinstance(A, kron):
+        # the factor-eigenbasis direct solve: materialising a Kronecker
+        # structure is O((prod n_i)^2) memory
+        return "kron_direct"
+    if isinstance(A, kron) or isinstance(M, kron):
+        # Kron operators outside the kron_direct guard (M-generalized or
+        # non-hermitian factors) must NOT hit the fullmatrix branch below (a
+        # 3-factor 64^3 KronSum is ~275 GB dense).  Stay matrix-free.
+        if A.is_hermitian and (M is None or M.is_hermitian):
+            return "cg" if E is None else "minres"
+        return "bicgstab"
     if isinstance(A, (TridiagLowRankOperator, BandedLowRankOperator)):
         # structured operators implement _fullmatrix for testing, but
         # materializing them defeats their purpose (B=512, n=1024 is
@@ -371,7 +503,8 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
         resid = torch.linalg.norm(Ax - B2, dim=-2)
         bnorm = torch.linalg.norm(B2, dim=-2)
         stop = torch.clamp(rtol * bnorm, min=atol)
-        if isinstance(method, str) and method in ("exactsolve", "custom_exactsolve"):
+        if isinstance(method, str) and method in ("exactsolve", "custom_exactsolve",
+                                                  "kron_direct"):
             # direct methods have no iteration tolerance: their residual
             # floor is the backward-error bound ~eps*(|Ax| + |B|)
             eps_d = torch.finfo(x.dtype).eps

@@ -25,9 +25,10 @@ from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
 
+from xitorch_tpu_torch._core.kron import KronOperator, KronSumOperator
 from xitorch_tpu_torch._core.linop import LinearOperator
 from xitorch_tpu_torch._impls.linalg.symeig import (
-    chebfsi, davidson, degen_svd, exacteig,
+    chebfsi, davidson, degen_svd, exacteig, kron_exacteig,
 )
 from xitorch_tpu_torch.debug.modes import is_debug_enabled
 from xitorch_tpu_torch.linalg.solve import _params, _warn_nonconverged_eager, solve
@@ -41,6 +42,7 @@ _SYMEIG_METHODS = {
     "chebfsi": chebfsi,
     "exacteig": exacteig,
     "custom_exacteig": exacteig,
+    "kron_exact": kron_exacteig,
 }
 
 
@@ -72,8 +74,10 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
     A (and M, if given) must be hermitian LinearOperators of shape
     ``(*B, q, q)``.  Returns ``(evals (*BAM, neig), evecs (*BAM, q, neig))``,
     M-orthonormal, with degeneracy-safe first and second order gradients.
-    ``method``: "exacteig" (dense), "davidson", "chebfsi" or a callable
-    with their signature.  ``bck_options`` may carry
+    ``method``: "exacteig" (dense), "kron_exact" (hermitian
+    ``KronOperator``/``KronSumOperator``: exact pairs from the factor
+    decompositions), "davidson", "chebfsi" or a callable with their
+    signature.  ``bck_options`` may carry
     ``degen_atol``/``degen_rtol`` (and solve options for the iterative
     path's adjoint solve, which defaults to ``method="cg", posdef=False``).
 
@@ -82,7 +86,10 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
     "resid_rel"}`` of float32 scalars without gradients; a
     :class:`ConvergenceWarning` is emitted on non-convergence.
 
-    .. note:: **Default routing.** With ``method=None`` the default is the
+    .. note:: **Default routing.** With ``method=None`` a hermitian
+       Kronecker-structured operator takes ``"kron_exact"`` (``"davidson"``
+       at the scale-aware tolerance for an M-generalized Kron pencil): it is
+       never materialised.  For every other operator the default is the
        dense ``"exacteig"``, which on a CUDA device runs the hand-written
        Jacobi sweep kernel for float32 and complex64 operators with
        64 <= n <= 1024 and ``torch.linalg.eigh`` elsewhere.  Only outside
@@ -108,17 +115,22 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
         raise RuntimeError("mode must be 'lowest' or 'uppest'/'uppermost'")
     if neig is None:
         neig = A.shape[-1]
-    if isinstance(method, str) and method.lower() == "kron_exact":
-        raise RuntimeError(
-            "symeig method 'kron_exact' is not ported to xitorch_tpu_torch yet: "
-            "it belongs to slice 6 of the port (Kron operators; ROADMAP.md, "
-            "queue 1)")
     auto_routed = None
     fwd_options = dict(fwd_options)
-    if method is None:
-        # (the Kronecker-structured branches of the reference come with the
-        # Kron operators, slice 6 of the port)
-        method = _auto_symeig_method(A, neig, M)
+    kron = (KronOperator, KronSumOperator)
+    if method is None and M is None and isinstance(A, kron):
+        # exact eigenpairs from the factor decompositions: exacteig would
+        # materialise the O((prod n_i)^2) dense matrix
+        method = "kron_exact"
+    elif method is None:
+        if isinstance(A, kron) or isinstance(M, kron):
+            # Kron operators outside the kron_exact guard (M-generalized
+            # pencils) must NOT hit exacteig either; davidson stays
+            # matrix-free.  A silent iterative route, so it is marked
+            # auto-routed: info is always computed and non-convergence warns.
+            method = "davidson"
+        else:
+            method = _auto_symeig_method(A, neig, M)
         auto_routed = method if method != "exacteig" else None
         if auto_routed is not None and "min_eps" not in fwd_options:
             # scale-aware tolerance on the silent route: min_eps is
@@ -133,6 +145,9 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
 
     if method == "exacteig":
         return exacteig(A, neig, mode, M, return_info=return_info)
+    if method == "kron_exact":
+        # natively differentiable like exacteig (built on degen_eigh)
+        return kron_exacteig(A, neig, mode, M, return_info=return_info)
 
     method_fcn = get_method("symeig", _SYMEIG_METHODS, method)
     # auto-routed iterative path: always compute the convergence info, so a
@@ -397,8 +412,9 @@ def svd(A: LinearOperator, k: Optional[int] = None,
       host-bound, it spread from 16 to 30 ms over five runs against 31 to
       33 ms through the native route, and won in each.)  Complex
       input always takes the native route.
-    * an explicit iterative ``method=`` always uses the Gram + symeig
-      route, where ``fwd_options``/``bck_options`` apply.
+    * Kron-structured operators or an explicit iterative ``method=`` always
+      use the Gram + symeig route, where ``fwd_options``/``bck_options``
+      apply.
     """
     if is_debug_enabled():
         A.check()
@@ -414,13 +430,13 @@ def svd(A: LinearOperator, k: Optional[int] = None,
 
     r = min(m, n)
     # real top-k with k << r on the card: skip the full native decomposition
-    # and take the Gram route with the iterative chebfsi.  (Kron-structured
-    # operators, which always keep the Gram route in the reference, come
-    # with slice 6 of the port.)
-    topk_iterative = (method is None and mode == "uppest"
+    # and take the Gram route with the iterative chebfsi.  Kron-structured
+    # operators keep the Gram route: they are never materialised.
+    is_kron = isinstance(A, (KronOperator, KronSumOperator))
+    topk_iterative = (method is None and mode == "uppest" and not is_kron
                       and k * 16 <= r and r >= 128 and A.device.type == "cuda"
                       and not A.dtype.is_complex)
-    if method in (None, "exacteig") and not topk_iterative:
+    if method in (None, "exacteig") and not topk_iterative and not is_kron:
         u, s, v = degen_svd(A.fullmatrix())
         sl = slice(None, k) if mode == "lowest" else slice(-k, None)
         return u[..., sl], s[..., sl], v[..., sl].mH

@@ -1,6 +1,9 @@
 from xitorch_tpu_torch.ops.structured_cg import (  # noqa: F401
     fits_structured_cg, structured_cg_cuda, structured_cg_plain, structured_cg_solve,
 )
+from xitorch_tpu_torch.ops.fused_cg import (  # noqa: F401
+    fits_fused_cg, fused_cg_cuda, fused_cg_dense, fused_cg_plain,
+)
 from xitorch_tpu_torch.ops.tridiag import (  # noqa: F401
     thomas_cuda, thomas_plain, tridiag_matvec, tridiag_solve, tridiag_solve_kernel,
 )
