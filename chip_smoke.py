@@ -25,14 +25,24 @@ paths give it, and drives these configurations through the public API:
   runs (and the same 592 products as ``torch.bmm``),
   ``jacobi_eigh(precondition=True)`` and ``symeig`` with the
   warm start forced against the cold route (quality gates, sweeps per
-  matrix, guard fall-backs, decomps/s, device idle share), and
-  ``precondition=True`` once at n = 512 and n = 700;
+  matrix, guard fall-backs, decomps/s, device idle share);
+* the per-level warm start past a padded n of 448: the level kernel
+  against ``dc_level_plain`` one launch (one level) at a time from the
+  kernel's own state at 8 x 700 x 700 (padded to 768, 10 levels) and
+  8 x 512 x 512 (9 levels), the invariants at full depth, then
+  ``jacobi_eigh(precondition=True)`` against the cold sweep (quality gates,
+  sweeps, guard fall-backs, one launch a level) and the level's products
+  as ``torch.bmm``;
 * config 2 with complex input: the complex sweep kernel against its plain
   version on (64, 256, 512) packed planes and one rectangular panel, 64
   hermitian complex64 matrices through ``linalg.symeig`` (default
   routing), ``linalg.svd`` of 64 complex general matrices, and the
   gradient of a phase-invariant loss against complex128
   ``torch.linalg.eigh`` autograd;
+* the table behind the sweep kernels' gate: ``jacobi_eigh`` and
+  ``jacobi_svd`` (float32, complex64) against the gate's library side
+  (``torch.linalg.eigh`` and ``svd`` with one Newton step) at batches 1 to
+  32 and n = 64 to 512, with the gate's choice;
 * dense operators (path A): the fused dense CG kernel against its plain
   version at (64, 700, 700) with 50 right-hand sides and at the nine points
   of the upstream solve benchmark's grid that go through it, then that grid (hermitian or not, four
@@ -47,7 +57,14 @@ paths give it, and drives these configurations through the public API:
   (N = 16,384) and of three 64-point ones (N = 262,144) through
   ``linalg.solve`` (default routing: kron_direct) beside cg, with and
   without shifts E, ``linalg.symeig`` (default routing: kron_exact) against
-  the analytic spectrum, and the gradients to the factors.
+  the analytic spectrum, and the gradients to the factors (the factors
+  decompose where the gate sends them; ``kron_direct`` is also timed with
+  every factor forced through the sweep kernel);
+* BASELINE config 1: the README's 2 x 2 tanh root with first- and
+  second-order implicit gradients, then ``benchmarks/bench_optimize.py``'s
+  512 systems of n = 32 as one joint system through ``rootfinder``
+  (broyden1), ``equilibrium`` (anderson_acc) and ``minimize`` (lbfgs),
+  forward and gradient; no kernel of the package is on this path.
 
 It reads the kernels' launch counters to show that each main path went
 through its kernels, and times kernels, forward and gradient with CUDA
@@ -61,6 +78,11 @@ The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before
 that the per-kernel JSON record.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 2.
+
+    python3 chip_smoke.py --gate-sizes 768,1024
+
+only builds the kernels and measures the gate's table at those sizes (the
+gate's rows above 512 come from this), without holding the gate to it.
 """
 from __future__ import annotations
 
@@ -100,6 +122,12 @@ PEAK_F32_FLOPS = 67e12
 ROUTE_SHAPE = (8, 1536)
 WARM_BIG = (512, 700)
 
+# the sweep-kernel gate's table (sweep_gate_table): batches and sizes, and
+# the ratio past which the gate must pick the faster side
+GATE_BATCHES = (1, 2, 4, 8, 16, 32)
+GATE_SIZES = (64, 128, 256, 512)
+GATE_CLEAR = 1.5
+
 # the DC kernel against its plain version, one level at a time (see
 # dc_level_by_level): largest entrywise difference of G0 and T after a level,
 # as a share of their largest entry; a level that amplifies rounding may
@@ -124,6 +152,13 @@ RESID_DRIFT = 1.1
 # this multiple of the residual float32 torch.linalg.solve leaves there
 FLOOR_MULT = 10.0
 
+# config 1: benchmarks/bench_optimize.py's forward workload (systems, n) and
+# its per-system tolerance
+OPT_SHAPE = (512, 32)
+OPT_TOL = 5e-5
+# the one config-1 route whose idle share torch.profiler reads
+PROFILED_OPT = "rootfinder broyden1"
+
 # path B: benchmarks/bench_kron.py's operator, and the 3-factor size that
 # cannot be materialised
 KRON_POINTS = ((128, 128), (64, 64, 64))
@@ -143,10 +178,12 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER) -> float:
+def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = True) -> float:
     """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
-    calls of ``fn()``, per call, after one warm-up call."""
-    fn()
+    calls of ``fn()``, per call, after one warm-up call (``warmup=False``:
+    none, for a function that already ran at these shapes)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
@@ -460,16 +497,16 @@ def config2(torch, np, xt, device, card):
           "chebfsi gradient disagrees")
 
     # ---- timing ----
-    def once(fn, reps=3):
-        return timed_ms(torch, fn, reps=reps, inner=1)
+    def once(fn, reps=3, warmup=True):
+        return timed_ms(torch, fn, reps=reps, inner=1, warmup=warmup)
 
     k_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, max_sweeps, tol), inner=3)
     gauge_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 0, tol), inner=3)
     copy_ms = timed_ms(torch, lambda: panel.clone(), inner=3)
-    plain_ms = once(lambda: jacobi_sweep_plain(panel, max_sweeps, tol), reps=1)
+    # the plain sweep (seconds a call) already ran on this panel above
+    plain_ms = once(lambda: jacobi_sweep_plain(panel, max_sweeps, tol), reps=1, warmup=False)
     lib_eigh_panel_ms = once(lambda: torch.linalg.eigh(panel))
     je_ms = timed_ms(torch, lambda: jacobi_eigh(mats), inner=3)
-    eigh_ms = once(lambda: torch.linalg.eigh(mats))
     js_ms = timed_ms(torch, lambda: jacobi_svd(gmats), inner=3)
     svd_ms = once(lambda: torch.linalg.svd(gmats, full_matrices=False))
     # a Rayleigh-Ritz size: the library call beside the sweep kernel (below
@@ -520,9 +557,9 @@ def config2(torch, np, xt, device, card):
     print("  gauge + norm refresh alone (max_sweeps=0, panel copy of %.3f ms taken "
           "off) %.3f ms a time: %.0f%% of the kernel's time [%s]"
           % (copy_ms, gauge_ms - copy_ms, 100 * gauge_share, card))
-    print("  jacobi_eigh %.3f ms vs torch.linalg.eigh %.3f ms; jacobi_svd %.3f ms vs "
-          "torch.linalg.svd %.3f ms (%d x %d x %d) [%s]"
-          % (je_ms, eigh_ms, js_ms, svd_ms, B2, N2, N2, card))
+    print("  jacobi_eigh %.3f ms vs torch.linalg.eigh (of the panel, above: same shape) "
+          "%.3f ms; jacobi_svd %.3f ms vs torch.linalg.svd %.3f ms (%d x %d x %d) [%s]"
+          % (je_ms, lib_eigh_panel_ms, js_ms, svd_ms, B2, N2, N2, card))
     print("  at a Rayleigh-Ritz size (64 x 32 x 32): torch.linalg.eigh %.3f ms vs "
           "jacobi_eigh (the sweep kernel) %.3f ms [%s]"
           % (small_lib_ms, small_kernel_ms, card))
@@ -604,9 +641,11 @@ def routing_outside_window(torch, np, xt, device, card):
              faster, "agrees" if faster == route else "DISAGREES", card))
 
 
-def dc_level_by_level(torch, a, levels, min_seg, refine=0):
+def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
     """Hold the DC kernel against its plain version one level at a time, from
-    the kernel's own state, on the (B, n, n) float32 CUDA batch ``a``.
+    the kernel's own state, on the (B, n, n) float32 CUDA batch ``a``; with
+    ``per_level`` the per-level kernel (``dc_level_cuda``, one launch a
+    level) against ``dc_level_plain``.
 
     The sort is chaotic over its levels: a level whose projector is soft, or
     whose probe block has a tiny singular value, amplifies rounding (on
@@ -615,7 +654,8 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0):
     free runs of 8 levels differ by O(1) on some matrices and cannot be
     compared entry by entry.  One level from the same state can.  For
     ``level = 1 .. levels`` the kernel runs ``level`` levels from the input
-    (its output after ``level - 1`` levels is the state), and the plain
+    (its output after ``level - 1`` levels is the state; the per-level
+    kernel runs the one level from that state), and the plain
     version runs that one level from the kernel's state, in float32 and in
     float64.  Checked for every matrix and level, frozen segments and deep
     bookkeeping included:
@@ -633,6 +673,7 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0):
     ``|G0_kernel - G0_plain|`` over the levels, and the printed summary's
     rows."""
     from xitorch_tpu_torch.ops.dc_kernel import dc_precondition_cuda, dc_precondition_plain
+    from xitorch_tpu_torch.ops.dc_level import dc_level_cuda, dc_level_plain
     from xitorch_tpu_torch.ops.spectral_dc import default_probe
 
     n = a.shape[-1]
@@ -652,11 +693,20 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0):
 
     g_prev, state, rows, max_abs = a, None, [], 0.0
     for level in range(1, levels + 1):
-        gk, tk, sk = dc_precondition_cuda(a, levels=level, **kw)
-        gp, tp, sp = dc_precondition_plain(g_prev, levels=1, state=state, **kw)
-        state64 = None if state is None else (state[0].double(), state[1])
-        g6, t6, _ = dc_precondition_plain(g_prev.double(), levels=1, state=state64,
-                                          om=om64, **kw)
+        if per_level:
+            # one launch is one level: the kernel runs from its own state
+            t_prev, s_prev = state if state is not None else (
+                0.5 * (a + a.mT), torch.zeros_like(a[..., :1], dtype=torch.int32))
+            sk, tk, gk = dc_level_cuda(s_prev, t_prev, g_prev, min_seg=min_seg)
+            sp, tp, gp = dc_level_plain(s_prev, t_prev, g_prev, min_seg=min_seg)
+            _, t6, g6 = dc_level_plain(s_prev, t_prev.double(), g_prev.double(), om=om64,
+                                       min_seg=min_seg)
+        else:
+            gk, tk, sk = dc_precondition_cuda(a, levels=level, **kw)
+            gp, tp, sp = dc_precondition_plain(g_prev, levels=1, state=state, **kw)
+            state64 = None if state is None else (state[0].double(), state[1])
+            g6, t6, _ = dc_precondition_plain(g_prev.double(), levels=1, state=state64,
+                                              om=om64, **kw)
         check(bool(torch.isfinite(gk).all()) and bool(torch.isfinite(tk).all()),
               "dc kernel returned non-finite values at level %d" % level)
         dg, dg64 = rel(gk, gp, gk), rel(gp, g6, gk)
@@ -849,33 +899,6 @@ def config2_warm(torch, np, xt, device, card, shared):
     check(qs[0] <= 1e-5 and qs[1] < 2e-5 and qs[2] < 5e-5,
           "warm symeig: outside the gates: %s" % (qs,))
 
-    # the window the reference covers with its per-level kernel: quality only
-    for n_big in WARM_BIG:
-        gen = torch.Generator(device=device).manual_seed(n_big)
-        a = torch.randn((8, n_big, n_big), generator=gen, device=device) / math.sqrt(n_big)
-        big = a @ a.mT + 2.0 * torch.eye(n_big, device=device)
-        t0 = time.perf_counter()
-        lb, Vb, ib = jacobi_eigh(big, precondition=True, return_info=True)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        _, _, icb = jacobi_eigh(big, precondition=False, return_info=True)
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        l0 = torch.linalg.eigvalsh(big.double())
-        err = float(((lb.double() - l0).abs() / l0[:, -1:]).max())
-        res = float((torch.linalg.norm((big @ Vb - Vb * lb[:, None, :]).double(), dim=1)
-                     / torch.linalg.norm(big.double(), dim=(1, 2))[:, None]).max())
-        orth = float((Vb.mT @ Vb - torch.eye(n_big, device=device)).abs().max())
-        print("precondition=True at (8, %d, %d): evals rel err %.2e, residual/|A| %.2e, "
-              "|X^T X - I|_max %.2e; sweeps warm mean %.2f, cold mean %.2f; guard "
-              "fall-backs %d; one call warm %.1f ms, cold %.1f ms (host clock) [%s]"
-              % (n_big, n_big, err, res, orth, float(ib["sweeps"].float().mean()),
-                 float(icb["sweeps"].float().mean()), int(ib["guard_bad"].sum()),
-                 warm_s * 1e3, cold_s * 1e3, card))
-        check(err <= 1e-5 and res < 2e-5 and orth < 5e-5,
-              "precondition=True at n=%d: outside the gates" % n_big)
-
     # ---- timing ----
     dc_kw = dict(levels=levels, min_seg=2)
     k_ms = timed_ms(torch, lambda: dc_precondition_cuda(panel, **dc_kw), reps=3, inner=1)
@@ -900,13 +923,28 @@ def config2_warm(torch, np, xt, device, card, shared):
     warm_busy, warm_top = device_busy_ms(torch, lambda: symeig_forced(True),
                                          calls=3, top=5)
     cold_busy = device_busy_ms(torch, lambda: symeig_forced(False), calls=3)
-    flops = float(B2) * n_products * 2.0 * N2 ** 3
+    # the operations this run's data needs: a level's sign, probe and polar
+    # products (71) act on operands block-diagonal over the segments the
+    # level starts from, 2 m^3 a segment of m rows; its tail (Q^T T, T not
+    # masked, that times Q, and Q^T G0) 2 m^2 n a product.  Per matrix,
+    # summed over rows: 142 sum(m^2) + 6 n sum(m), on the kernel's own
+    # segments (its extra launches here are outside the counted runs)
+    flops = 0.0
+    for lv in range(levels):
+        s_ = torch.zeros_like(panel[..., :1], dtype=torch.int32) if lv == 0 else \
+            dc_precondition_cuda(panel, levels=lv, min_seg=2, return_t=True,
+                                 return_seg=True)[2]
+        m = (s_ == s_.mT).sum(-1).double()
+        flops += float(142.0 * (m * m).sum() + 6.0 * N2 * m.sum())
+    dense = float(B2) * n_products * 2.0 * N2 ** 3
     k_bound, k_by = bound((2 * B2 * N2 * N2 + N2 * N2) * 4, flops)
     print("timing, config 2 warm start [%s], CUDA events after warm-up (median):" % card)
-    print("  dc kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s: %d products of 2 n^3 a "
-          "matrix, %.3f TFLOP), the same %d products as torch.bmm %.3f ms (B=%d, n=%d, "
-          "%d levels) [%s]" % (k_ms, plain_ms, k_bound, k_by, n_products, flops / 1e12,
-                               n_products, bmm_ms, B2, N2, levels, card))
+    print("  dc kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s: %.3f TFLOP on this run's "
+          "segments, the kernel at %.1fx its bound; it runs its %d products dense, 2 n^3 "
+          "each a matrix: %.3f TFLOP), the same %d dense products as torch.bmm %.3f ms "
+          "(B=%d, n=%d, %d levels) [%s]"
+          % (k_ms, plain_ms, k_bound, k_by, flops / 1e12, k_ms / k_bound, n_products,
+             dense / 1e12, n_products, bmm_ms, B2, N2, levels, card))
     print("  jacobi_eigh warm %.3f ms (dc %.3f + correction and guard %.3f + sweeps left "
           "%.3f, mean %.2f a matrix) vs cold %.3f ms (sweep kernel %.3f, mean %.2f) [%s]"
           % (warm_ms, k_ms, tail_ms, warm_sweep_ms, float(sw.mean()), cold_ms,
@@ -926,6 +964,264 @@ def config2_warm(torch, np, xt, device, card, shared):
             "launches": launches["dc"], "max_abs_err": dc_abs,
             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
             "library_ms": None}, launches["sweep"]
+
+
+def per_level_warm(torch, np, xt, device, card):
+    """The per-level DC kernel (one launch a level) on the path that runs it,
+    ``jacobi_eigh(precondition=True)`` past a padded n of 448: 8 SPD
+    matrices of 700 x 700 (padded to 768, 10 levels) and of 512 x 512 (9
+    levels), config 2's recipe.  At each size: the kernel against
+    ``dc_level_plain`` one level at a time from the kernel's own state on
+    the panel ``jacobi_eigh`` builds, the G-invariant and concentration of
+    the kernel's and the plain version's full-depth panels, warm against
+    cold through ``jacobi_eigh`` (quality gates, sweeps a matrix, guard
+    fall-backs, the counter at one launch a level) and timings.  Returns the
+    kernel's record for the JSON line (times at 768) and the sweep kernel's
+    launches on these warm paths."""
+    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+    from xitorch_tpu_torch.ops.dc_level import (
+        _PRODUCTS_PER_LEVEL, dc_level_cuda, dc_level_plain, dc_precondition_per_level,
+    )
+    from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, jacobi_sweep_cuda
+
+    bsz = 8
+    sweep_launches, record, max_abs = 0, None, 0.0
+    for n_user in sorted(WARM_BIG, reverse=True):
+        npad = jmod._padded_n(n_user, True)
+        levels = max(3, math.ceil(math.log2(npad)))
+        gen = torch.Generator(device=device).manual_seed(n_user)
+        a = torch.randn((bsz, n_user, n_user), generator=gen, device=device) \
+            / math.sqrt(n_user)
+        big = a @ a.mT + 2.0 * torch.eye(n_user, device=device)
+        panel = jmod._shift_pad(big, npad).contiguous()
+        tag = "(%d, %d, %d), padded to %d, %d levels" % (bsz, n_user, n_user, npad, levels)
+
+        # ---- kernel vs plain, one level a launch from the kernel's state ----
+        (gk, _, _), d_abs, rows = dc_level_by_level(torch, panel, levels, 2, per_level=True)
+        max_abs = max(max_abs, d_abs)
+        print("per-level dc kernel vs plain %s, min_seg 2, level by level from the "
+              "kernel's own state:" % tag)
+        print("\n".join(rows))
+
+        def plain_levels():
+            s_, t_, g_ = torch.zeros_like(panel[..., :1], dtype=torch.int32), \
+                0.5 * (panel + panel.mT), panel
+            for _ in range(levels):
+                s_, t_, g_ = dc_level_plain(s_, t_, g_)
+            return g_
+
+        gp = plain_levels()
+
+        # the operations this run's data needs.  After level l the operands
+        # are block-diagonal over the segments the level starts from, so 71
+        # of a level's products need 2 m^3 a segment of m rows and
+        # G0 <- Q^T G0 needs 2 m^2 n: per matrix, summed over rows,
+        # 142 sum(m^2) + 2 n sum(m).  The kernel's own segments at each
+        # level are counted (its extra launches here precede the counted
+        # run); frozen segments, at most 2 wide, are counted as live
+        s_, t_, g_ = torch.zeros_like(panel[..., :1], dtype=torch.int32), \
+            0.5 * (panel + panel.mT), panel
+        flops = 0.0
+        for _ in range(levels):
+            m = (s_ == s_.mT).sum(-1).double()
+            flops += float((_PRODUCTS_PER_LEVEL - 1) * 2.0 * (m * m).sum()
+                           + 2.0 * npad * m.sum())
+            s_, t_, g_ = dc_level_cuda(s_, t_, g_, min_seg=2)
+        del s_, t_, g_
+        a64 = panel.double()
+        a2 = a64 @ a64
+        off2 = a2 - torch.diag_embed(torch.diagonal(a2, dim1=-2, dim2=-1))
+        stats = []
+        for g in (gk, gp):
+            g = g.double()
+            inv = torch.linalg.norm(g.mT @ g - a2, dim=(-2, -1)) / torch.linalg.norm(
+                a2, dim=(-2, -1))
+            healthy = inv <= 1e-4
+            gg = g @ g.mT
+            off = gg - torch.diag_embed(torch.diagonal(gg, dim1=-2, dim2=-1))
+            conc = torch.linalg.norm(off, dim=(-2, -1)) / torch.linalg.norm(off2, dim=(-2, -1))
+            stats.append({"median": float(inv.median()), "healthy": int(healthy.sum()),
+                          "worst": float(inv.max()),
+                          "conc": float(conc[healthy].max()) if bool(healthy.any())
+                          else float("inf")})
+        k_st, p_st = stats
+        for name, st in (("kernel", k_st), ("plain", p_st)):
+            print("  full depth, %s: |G0^T G0 - A^2|/|A^2| median %.2e, worst %.2e, healthy "
+                  "(<= 1e-4) %d of %d; off-diagonal mass of G0 G0^T over A^2's <= %.3f over "
+                  "the healthy" % (name, st["median"], st["worst"], st["healthy"], bsz,
+                                   st["conc"]))
+        # where the warm start's fall-backs come from: the guard on the panel as
+        # the sort leaves it, and after the first-order rotational correction
+        bad_raw = int(jmod._guard_warm_start(panel, gk)[1].sum())
+        bad_cor = int(jmod._guard_warm_start(panel, jmod._rot_correct(gk))[1].sum())
+        print("  the guard on the kernel's full-depth panel: %d of %d fall back as the "
+              "sort leaves it, %d after the rotational correction" % (bad_raw, bsz, bad_cor))
+        # the reference's G-invariant gate (tests/test_spectral_dc.py: 1e-4); its
+        # concentration gate (0.3) is for an unpadded matrix: the padding
+        # diagonal lies far above the spectrum, so the blend's leak across a
+        # split (cos ~ beta) costs off-diagonal mass of the padding's size
+        # there, and the kernel is held to the plain version's instead
+        check(k_st["median"] <= 1e-4, "per-level dc kernel at %s: the median panel is "
+              "unhealthy" % tag)
+        check(k_st["conc"] <= 1.5 * p_st["conc"] + 1e-3,
+              "per-level dc kernel at %s: its panels concentrate less than the plain "
+              "version's: %.3f against %.3f" % (tag, k_st["conc"], p_st["conc"]))
+        check(k_st["healthy"] >= p_st["healthy"] - 1,
+              "per-level dc kernel at %s: loses more panels than the plain version: %d "
+              "(plain %d)" % (tag, bsz - k_st["healthy"], bsz - p_st["healthy"]))
+
+        # ---- the main path: warm against cold through jacobi_eigh ----
+        dc_level_cuda.launches = jacobi_sweep_cuda.launches = 0
+        lw, Vw, iw = jacobi_eigh(big, precondition=True, return_info=True)
+        torch.cuda.synchronize()
+        n_lv, n_sw = dc_level_cuda.launches, jacobi_sweep_cuda.launches
+        check(n_lv == levels, "warm jacobi_eigh at %s: %d per-level launches, not %d"
+              % (tag, n_lv, levels))
+        check(n_sw >= 1, "warm jacobi_eigh at %s: the sweep kernel was not launched" % tag)
+        if record is None:
+            record = {"launches": 0}
+        record["launches"] += n_lv
+        sweep_launches += n_sw
+        lc, Vc, ic = jacobi_eigh(big, precondition=False, return_info=True)
+        l0 = torch.linalg.eigvalsh(big.double())
+        bnorm = torch.linalg.norm(big.double(), dim=(1, 2))[:, None]
+        eye = torch.eye(n_user, device=device)
+        qual = []
+        for lam, V in ((lw, Vw), (lc, Vc)):
+            qual.append((
+                float(((lam.double() - l0).abs() / l0[:, -1:]).max()),
+                float((torch.linalg.norm((big @ V - V * lam[:, None, :]).double(), dim=1)
+                       / bnorm).max()),
+                float((V.mT @ V - eye).abs().max())))
+        sw, sc = iw["sweeps"].float(), ic["sweeps"].float()
+        n_bad = int(iw["guard_bad"].sum())
+        print("  jacobi_eigh warm / cold: evals rel err %.2e / %.2e, residual/|A| %.2e / "
+              "%.2e, |X^T X - I|_max %.2e / %.2e; sweeps a matrix warm %d..%d (mean %.2f), "
+              "cold %d..%d (mean %.2f); guard fall-backs %d of %d; per-level launches %d, "
+              "sweep launches %d" % (qual[0][0], qual[1][0], qual[0][1], qual[1][1],
+                                     qual[0][2], qual[1][2], int(sw.min()), int(sw.max()),
+                                     float(sw.mean()), int(sc.min()), int(sc.max()),
+                                     float(sc.mean()), n_bad, bsz, n_lv, n_sw))
+        for q, name in zip(qual, ("warm", "cold")):
+            check(q[0] <= 1e-5 and q[1] < 2e-5 and q[2] < 5e-5,
+                  "%s jacobi_eigh at %s: outside the gates: %s" % (name, tag, q))
+
+        # ---- timing ----
+        warm_ms = timed_ms(torch, lambda: jacobi_eigh(big, precondition=True), reps=3,
+                           inner=1)
+        cold_ms = timed_ms(torch, lambda: jacobi_eigh(big, precondition=False), reps=3,
+                           inner=1)
+        k_ms = timed_ms(torch, lambda: dc_precondition_per_level(panel, levels=levels),
+                        reps=3, inner=1)
+        plain_ms = timed_ms(torch, plain_levels, reps=2, inner=1)
+        n_products = _PRODUCTS_PER_LEVEL * levels
+        out = torch.empty_like(panel)
+
+        def products_as_bmm():
+            for _ in range(n_products):
+                torch.bmm(panel, panel, out=out)
+
+        bmm_ms = timed_ms(torch, products_as_bmm, reps=2, inner=1)
+        dense = float(bsz) * n_products * 2.0 * npad ** 3
+        # a read once, the probe read once, G0 written once
+        k_bound, k_by = bound((2 * bsz * npad * npad + npad * npad) * 4, flops)
+        print("  timing %s [%s], CUDA events after warm-up (median): per-level dc kernel "
+              "%.3f ms a call, %.3f ms a level; plain %.3f ms; bound %.4f ms (%s: %.3f "
+              "TFLOP on this run's segments, %.1f TFLOP/s of it achieved, the kernel at "
+              "%.1fx its bound); the kernel runs its %d products dense, 2 n^3 each a "
+              "matrix: %.3f TFLOP, %.1f TFLOP/s; the same dense products as torch.bmm "
+              "%.3f ms; jacobi_eigh warm %.3f ms, cold %.3f ms; faster: %s"
+              % (tag, card, k_ms, k_ms / levels, plain_ms, k_bound, k_by, flops / 1e12,
+                 flops / k_ms / 1e9, k_ms / k_bound, n_products, dense / 1e12,
+                 dense / k_ms / 1e9, bmm_ms, warm_ms, cold_ms,
+                 "warm" if warm_ms < cold_ms else "cold"))
+        if npad == 768:
+            busy, top = device_busy_ms(torch, lambda: jacobi_eigh(big, precondition=True),
+                                       calls=2, top=5)
+            print("  warm jacobi_eigh at %s: device busy %.3f ms a call, idle share %.0f%%; "
+                  "of which: %s" % (tag, busy, 100 * max(0.0, 1 - busy / warm_ms),
+                                    "; ".join("%s %.3f ms" % (nm[:50], ms) for nm, ms in top)))
+            record.update({"ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
+                           "bound_by": k_by})
+    record.update({"name": "dc_level", "route": "cuda",
+                   "source": "xitorch_tpu_torch/csrc/dc_level.cu",
+                   "replaces": "xitorch_tpu/ops/dc_kernel.py:318",
+                   "max_abs_err": max_abs, "library_ms": None})
+    return record, sweep_launches
+
+
+def sweep_gate_table(torch, device, card, batches=None, sizes=None, hold=True):
+    """The measurement behind ``use_jacobi_for`` and ``use_jacobi_svd_for``:
+    the two sides of ``dense_eigh`` and ``dense_svd`` (the sweep kernels'
+    whole functions, ``jacobi_eigh`` cold on float32 SPD and on complex64
+    hermitian batches and ``jacobi_svd`` on general float32 and complex64
+    ones, against ``library_eigh`` and ``library_svd``, the library calls
+    with the Newton step the gate's library side adds) on the same inputs,
+    over batches ``GATE_BATCHES`` and sizes ``GATE_SIZES``, CUDA events, one
+    timed call a side and cell (every function already ran at smaller
+    shapes).  Prints the table and each gate's choice beside it.  With
+    ``hold``, a cell that contradicts the gate is timed again (the median of
+    five calls after a warm-up, marked ``*``), and the gate is held to the
+    faster side wherever one side is ``GATE_CLEAR`` times faster than the
+    other; without it the table is only measured (``--gate-sizes``)."""
+    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+
+    batches = GATE_BATCHES if batches is None else batches
+    sizes = GATE_SIZES if sizes is None else sizes
+    print("sweep-kernel gate [%s]: ms a call, kernel / library (gate: K kernel, L "
+          "library; *: timed again, median of 5)" % card)
+    print("      n  batch  eigh float32          svd float32           eigh complex64"
+          "        svd complex64")
+    rows, wrong = [], []
+    for n in sizes:
+        for bsz in batches:
+            gen = torch.Generator(device=device).manual_seed(1000 * n + bsz)
+
+            def draw():
+                return torch.randn((bsz, n, n), generator=gen, device=device) / math.sqrt(n)
+
+            a = draw()
+            eye = torch.eye(n, device=device)
+            spd = a @ a.mT + 2.0 * eye
+            z = torch.complex(a, draw()) / math.sqrt(2.0)
+            herm = (z @ z.mH + 2.0 * eye).contiguous()
+            gmat = draw()
+            cgmat = torch.complex(draw(), draw()) / math.sqrt(2.0)
+            cases = (
+                ("eigh", spd, jmod.jacobi_eigh, jmod.library_eigh, jmod.use_jacobi_for),
+                ("svd", gmat, jmod.jacobi_svd, jmod.library_svd, jmod.use_jacobi_svd_for),
+                ("complex", herm, jmod.jacobi_eigh, jmod.library_eigh, jmod.use_jacobi_for),
+                ("complex_svd", cgmat, jmod.jacobi_svd, jmod.library_svd,
+                 jmod.use_jacobi_svd_for))
+            row = {"n": n, "batch": bsz}
+            cells = []
+            for name, x, kern, lib, gate in cases:
+                g = bool(gate(x))
+
+                def against_gate(reps):
+                    k_ms = timed_ms(torch, lambda: kern(x), reps=reps, inner=1,
+                                    warmup=reps > 1)
+                    l_ms = timed_ms(torch, lambda: lib(x), reps=reps, inner=1,
+                                    warmup=reps > 1)
+                    return k_ms, l_ms, hold and ((g and k_ms > GATE_CLEAR * l_ms)
+                                                 or (not g and l_ms > GATE_CLEAR * k_ms))
+
+                k_ms, l_ms, against = against_gate(1)
+                mark = " "
+                if against:
+                    # one call can be an outlier: the median of five decides
+                    k_ms, l_ms, against = against_gate(5)
+                    mark = "*"
+                if against:
+                    wrong.append((name, n, bsz, k_ms, l_ms, g))
+                row[name] = {"kernel_ms": k_ms, "library_ms": l_ms, "gate": "K" if g else "L",
+                             "retimed": mark == "*"}
+                cells.append("%8.3f / %8.3f %s%s" % (k_ms, l_ms, "K" if g else "L", mark))
+            rows.append(row)
+            print("  %5d  %5d  %s" % (n, bsz, "  ".join(cells)))
+    print(json.dumps({"phase": "sweep_gate", "card": card, "rows": rows}))
+    check(not wrong, "the sweep-kernel gate picks the clearly slower side at: %s" % wrong)
+    return rows
 
 
 def config2_complex(torch, np, xt, device, card, shared):
@@ -1075,8 +1371,10 @@ def config2_complex(torch, np, xt, device, card, shared):
     # ---- timing ----
     k_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, max_sweeps, tol,
                                                      complexpair=True), reps=3, inner=3)
+    # the plain sweep (seconds a call) already ran on this panel above
     plain_ms = timed_ms(torch, lambda: jacobi_sweep_plain(panel, max_sweeps, tol,
-                                                          complexpair=True), reps=1, inner=1)
+                                                          complexpair=True), reps=1, inner=1,
+                        warmup=False)
     lib_ms = timed_ms(torch, lambda: torch.linalg.eigh(shifted), reps=2, inner=1)
     je_ms = timed_ms(torch, lambda: jacobi_eigh(herm), reps=3, inner=3)
     sym_ms = timed_ms(torch, lambda: xt.linalg.symeig(A, NEIG, "lowest"), reps=3, inner=3)
@@ -1419,8 +1717,7 @@ def path_a(torch, np, xt, device, card, batched):
                            run(A64, B.double(), "bicgstab", mat64, posdef=True, **kw), gate64)
                     if n == GRID_SIZES[-1]:
                         report(tag + " gmres(100), float64", n,
-                               run(A64, B.double(), "gmres", mat64, restart=100, **kw),
-                               gate64)
+                               run(A64, B.double(), "gmres", mat64, restart=100, **kw), gate64)
                 if n == GRID_SIZES[-1] and (lo, hi) == DENSE_RANGE:
                     # device idle share at n = 700
                     for method, extra in ((("fused_cg", {}), ("cg", {"posdef": None}))
@@ -1520,19 +1817,25 @@ def lap1d(torch, n, device, dtype):
 
 def path_b(torch, np, xt, device, card):
     """Kron operators through ``linalg.solve`` and ``linalg.symeig``.
-    Returns the real sweep kernel's launches on the path (the factor
-    decompositions go through it)."""
+    Returns the real sweep kernel's launches on the path: a factor
+    decomposition goes through it where the gate (``use_jacobi_for``, from
+    ``sweep_gate_table``'s measurement) says it beats ``torch.linalg.eigh``
+    at the factor's batch and size, and through the library elsewhere."""
     import warnings
 
     from xitorch_tpu_torch.linalg.solve import _default_method
-    from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_sweep_cuda, jacobi_sweep_plain
+    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+    from xitorch_tpu_torch.ops.jacobi_eigh import (
+        jacobi_sweep_cuda, jacobi_sweep_plain, use_jacobi_for,
+    )
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(1)
 
-    # ---- the sweep kernel against its plain version at the shapes this path
-    # gives it: one factor a launch, batch 1, the whole panel in one block ----
+    # ---- the sweep kernel against its plain version at the factor shapes:
+    # batch 1, the whole panel in one block (where the gate sends these to
+    # torch.linalg.eigh, this is the measurement behind that) ----
     factor_ms = {}
     for n in sorted({n for dims in KRON_POINTS for n in dims}):
         panel = shifted_panel(torch, lap1d(torch, n, device, f32)[None])
@@ -1561,9 +1864,20 @@ def path_b(torch, np, xt, device, card):
     def once_ms(fn):
         return timed_ms(torch, fn, reps=3, inner=1)
 
+    def forced_ms(fn):
+        # the gate opened at every batch: every factor through the sweep kernel
+        saved = jmod._GATE_MIN_BATCH
+        jmod._GATE_MIN_BATCH = {k: (1,) * len(v) for k, v in saved.items()}
+        try:
+            return once_ms(fn)
+        finally:
+            jmod._GATE_MIN_BATCH = saved
+
     for dims in KRON_POINTS:
         N = math.prod(dims)
         factors = [lap1d(torch, n, device, f32) for n in dims]
+        # one decomposition a factor; the kernel where the gate approves
+        expect = sum(bool(use_jacobi_for(f)) for f in factors)
         A = xt.KronSumOperator(*factors, is_hermitian=True)
         B = torch.as_tensor(rng.standard_normal((N, KRON_NCOLS)), dtype=f32, device=device)
         w = torch.as_tensor(rng.standard_normal((N, KRON_NCOLS)), dtype=f32, device=device)
@@ -1589,17 +1903,20 @@ def path_b(torch, np, xt, device, card):
             if Ev is not None:
                 r, rc = r - x * Ev, rc - xc * Ev
             d_ms = once_ms(lambda: xt.linalg.solve(A, B, E=Ev))
+            k_ms = forced_ms(lambda: xt.linalg.solve(A, B, E=Ev))
             c_ms = once_ms(lambda: xt.linalg.solve(A, B, E=Ev, method="cg", **KRON_CG))
             print("  solve %s: method=None (kron_direct) converged %.0f, backward-error ratio "
-                  "%.3g, max |Ax-b| %.2e, sweep launches %d, %.3f ms; cg converged %.0f after "
+                  "%.3g, max |Ax-b| %.2e, sweep launches %d, %.3f ms (every factor through "
+                  "the sweep kernel: %.3f ms); cg converged %.0f after "
                   "%.0f iterations, max |Ax-b| %.2e, %.3f ms; max |x_direct - x_cg| / max |x| "
                   "%.2e; warnings %s"
                   % (e_name, float(info["converged"]), float(info["resid_rel"]),
-                     float(r.abs().max()), n_sw, d_ms, float(ic["converged"]),
+                     float(r.abs().max()), n_sw, d_ms, k_ms, float(ic["converged"]),
                      float(ic["iterations"]), float(rc.abs().max()), c_ms,
                      float((x - xc).abs().max() / xc.abs().max()),
                      [wi.category.__name__ for wi in caught]))
             rows.append({"point": tag, "case": "solve, " + e_name, "kron_direct_ms": d_ms,
+                         "kron_direct_sweep_kernel_forced_ms": k_ms,
                          "cg_ms": c_ms, "cg_iterations": float(ic["iterations"]),
                          "kron_direct_max_resid": float(r.abs().max()),
                          "cg_max_resid": float(rc.abs().max())})
@@ -1608,8 +1925,8 @@ def path_b(torch, np, xt, device, card):
             check(float(ic["converged"]) == 1.0, "%s %s: cg did not converge" % (tag, e_name))
             check(not any(issubclass(wi.category, ConvergenceWarning) for wi in caught),
                   "%s %s: ConvergenceWarning" % (tag, e_name))
-            check(n_sw == len(dims), "%s %s: %d sweep launches for %d factors"
-                  % (tag, e_name, n_sw, len(dims)))
+            check(n_sw == expect, "%s %s: %d sweep launches, the gate expects %d"
+                  % (tag, e_name, n_sw, expect))
             # cg stops at rtol 1e-5 on a kappa ~ 80 operator
             check(float((x - xc).abs().max() / xc.abs().max()) <= 2e-3,
                   "%s %s: kron_direct and cg disagree" % (tag, e_name))
@@ -1647,7 +1964,8 @@ def path_b(torch, np, xt, device, card):
         # the float32 gates of config 2: residual / |A| and orthonormality
         check(res <= 2e-5 * scale and orth <= 5e-5, "%s symeig: residual %.3e, "
               "orthogonality %.3e" % (tag, res, orth))
-        check(n_sw == len(dims), "%s symeig: %d sweep launches" % (tag, n_sw))
+        check(n_sw == expect, "%s symeig: %d sweep launches, the gate expects %d"
+              % (tag, n_sw, expect))
 
         # ---- gradients to the factors ----
         def solve_grads(dtype, method=None):
@@ -1706,16 +2024,204 @@ def path_b(torch, np, xt, device, card):
                      "grad_rel_l2_kron_direct": rs, "grad_rel_l2_kron_exact": re_})
         check(max(rs) <= 1e-3, "%s: kron_direct gradient off float64: %s" % (tag, rs))
         check(max(re_) <= 1e-3, "%s: kron_exact gradient off float64: %s" % (tag, re_))
-        check(n_sw_g == 2 * len(dims), "%s: gradient through kron_direct made %d sweep "
-              "launches, not %d" % (tag, n_sw_g, 2 * len(dims)))
-    check(sweeps >= 1, "path B did not launch the sweep kernel")
+        check(n_sw_g == 2 * expect, "%s: gradient through kron_direct made %d sweep "
+              "launches, not %d" % (tag, n_sw_g, 2 * expect))
     print(json.dumps({"phase": "path_b", "card": card, "sweep_launches": sweeps,
                       "factor_sweep_kernel_ms_and_eigh_ms": factor_ms, "points": rows}))
     return sweeps
 
 
-def main() -> int:
+def config1(torch, np, xt, device, card):
+    """BASELINE config 1 through ``optimize``: the README's 2 x 2 tanh root
+    with first- and second-order implicit gradients against a float64
+    oracle that differentiates through unrolled Newton iterations, then
+    ``benchmarks/bench_optimize.py``'s forward workload (512 systems
+    ``y = tanh(A y + b)``, n = 32, float32) as one joint system, the batch
+    semantics of the torch xitorch: rootfinder (broyden1), equilibrium
+    (anderson_acc) and minimize (lbfgs, on its least-squares recipe),
+    forward and the gradient of ``sum(y^2)`` against the float64 run of the
+    same route, with times and the device's idle share.  Config 1 launches
+    no kernel of this package (the Jacobian operator is matrix-free, so the
+    adjoint solve takes a Python-loop method); the counters must read 0."""
+    from xitorch_tpu_torch.ops import (
+        fused_cg_cuda, jacobi_sweep_cuda, structured_cg_cuda, thomas_cuda,
+    )
+    from xitorch_tpu_torch.ops.dc_kernel import dc_precondition_cuda
+    from xitorch_tpu_torch.ops.dc_level import dc_level_cuda
+
+    kernels = (structured_cg_cuda, thomas_cuda, fused_cg_cuda, jacobi_sweep_cuda,
+               dc_precondition_cuda, dc_level_cuda)
+    for k in kernels:
+        k.launches = 0
+    jacobi_sweep_cuda.launches_complex = 0
+    opt = xt.optimize
+    f32, f64 = torch.float32, torch.float64
+    rows = {}
+    # host seconds of each part of this phase, checks and profiling included
+    spent, t_part = {}, time.perf_counter()
+
+    # ---- the README example ----
+    def readme_f(y, A):
+        return torch.tanh(A @ y + 0.1) + y / 2.0
+
+    A_r = torch.tensor([[1.1, 0.4], [0.3, 0.8]], dtype=f64, device=device)
+    y0_r = torch.zeros((2, 1), dtype=f64, device=device)
+
+    def readme_loss(A):
+        y = opt.rootfinder(readme_f, y0_r, params=(A,), f_tol=1e-13, maxiter=10000)
+        return (y ** 2).sum()
+
+    def oracle_loss(A):
+        # Newton's iteration unrolled, autograd through every step: the
+        # implicit derivatives at convergence, independent of the port
+        y = torch.zeros((2,), dtype=f64, device=device)
+        for _ in range(12):
+            J = torch.autograd.functional.jacobian(
+                lambda yy: readme_f(yy[:, None], A)[:, 0], y, create_graph=True)
+            y = y - torch.linalg.solve(J, readme_f(y[:, None], A)[:, 0])
+        return (y ** 2).sum()
+
+    y_r = opt.rootfinder(readme_f, y0_r, params=(A_r,), f_tol=1e-12)
+    Ag = A_r.clone().requires_grad_()
+    (g_p,) = torch.autograd.grad(readme_loss(Ag), Ag)
+    (g_o,) = torch.autograd.grad(oracle_loss(Ag), Ag)
+    H_p = torch.autograd.functional.hessian(readme_loss, A_r)
+    H_o = torch.autograd.functional.hessian(oracle_loss, A_r)
+    e_val = float((y_r.cpu() - torch.tensor([[-0.04593078], [-0.06633125]],
+                                            dtype=f64)).abs().max())
+    e_g = float((g_p - g_o).abs().max() / g_o.abs().max())
+    e_h = float((H_p - H_o).abs().max() / H_o.abs().max())
+    fwd_r_ms = timed_ms(torch, lambda: opt.rootfinder(readme_f, y0_r, params=(A_r,),
+                                                      f_tol=1e-12), reps=3, inner=3)
+    grad_r_ms = timed_ms(torch, lambda: torch.autograd.grad(readme_loss(Ag), Ag), reps=3,
+                         inner=3)
+    hess_r_ms = timed_ms(torch, lambda: torch.autograd.functional.hessian(readme_loss, A_r),
+                         reps=3, inner=1)
+    print("config 1, the README example (float64) [%s]: y %s (README value within "
+          "%.1e); gradient of sum(y^2) rel to the unrolled-Newton oracle %.2e, Hessian "
+          "%.2e; forward %.3f ms, forward + gradient %.3f ms, Hessian %.3f ms"
+          % (card, [round(float(v), 8) for v in y_r.flatten()], e_val, e_g, e_h,
+             fwd_r_ms, grad_r_ms, hess_r_ms))
+    check(e_val <= 1e-4, "README example: the root is off the README value")
+    # the BASELINE target for config 1's gradients
+    check(e_g <= 1e-6 and e_h <= 1e-6, "README example: gradients off the oracle: %.3e, "
+          "%.3e" % (e_g, e_h))
+    rows["readme"] = {"fwd_ms": fwd_r_ms, "grad_ms": grad_r_ms, "hessian_ms": hess_r_ms,
+                      "grad_rel": e_g, "hessian_rel": e_h}
+    spent["readme"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # ---- bench_optimize.py's forward workload, one joint system ----
+    B, n = OPT_SHAPE
+    rng = np.random.default_rng(7)
+    w = rng.standard_normal((B, n, n))
+    a_np = 0.45 * w / np.abs(w).sum(-1, keepdims=True).clip(min=1e-12)
+    b_np = 0.3 * rng.standard_normal((B, n))
+    rng = np.random.default_rng(13)
+    am_np = np.eye(n) + 0.5 * rng.standard_normal((B, n, n)) / math.sqrt(n)
+    bm_np = rng.standard_normal((B, n))
+
+    def mv(a, y):
+        return (a @ y[..., None])[..., 0]
+
+    def fcn_root(y, a, b):
+        return torch.tanh(mv(a, y) + b) - y
+
+    def fcn_fix(y, a, b):
+        return torch.tanh(mv(a, y) + b)
+
+    def fcn_min(y, a, b):
+        r = mv(a, y) - b
+        return (r * r).sum()
+
+    # the benchmark's per-system tolerance, on the joint norm of B systems
+    joint = OPT_TOL * math.sqrt(B)
+    suites = {
+        "rootfinder broyden1": (
+            lambda a, b, tol: opt.rootfinder(fcn_root, torch.zeros_like(b), params=(a, b),
+                                             method="broyden1", f_tol=tol, x_tol=tol,
+                                             maxiter=200, return_info=True),
+            (a_np, b_np), 5e-5 * math.sqrt(n)),
+        "equilibrium anderson_acc": (
+            lambda a, b, tol: opt.equilibrium(fcn_fix, torch.zeros_like(b), params=(a, b),
+                                              method="anderson_acc", f_tol=tol, x_tol=tol,
+                                              maxiter=200, return_info=True),
+            (a_np, b_np), 5e-5 * math.sqrt(n)),
+        "minimize lbfgs": (
+            lambda a, b, tol: opt.minimize(fcn_min, torch.zeros_like(b), params=(a, b),
+                                           method="lbfgs", gtol=tol, maxiter=200,
+                                           return_info=True),
+            (am_np, bm_np), 1e-4 * math.sqrt(n)),
+    }
+    for name, (run, (an, bn), gate) in suites.items():
+        a32, b32 = (torch.as_tensor(x, dtype=f32, device=device) for x in (an, bn))
+        y, info = run(a32, b32, joint)
+        y64 = y.double().cpu().numpy()
+        ay = np.einsum("bij,bj->bi", an, y64)
+        if name.startswith("minimize"):
+            resid = np.abs(2.0 * np.einsum("bji,bj->bi", an, ay - bn))
+        else:
+            resid = np.abs(np.tanh(ay + bn) - y64)
+        worst = float(resid.max())
+
+        def grads(dtype, tol):
+            a_, b_ = (torch.as_tensor(x, dtype=dtype, device=device).requires_grad_()
+                      for x in (an, bn))
+            y_, _ = run(a_, b_, tol)
+            return torch.autograd.grad((y_ ** 2).sum(), (a_, b_))
+
+        g32 = grads(f32, joint)
+        g64 = grads(f64, 1e-10 * math.sqrt(B))
+        num = math.sqrt(sum(float(((x.double() - r) ** 2).sum()) for x, r in zip(g32, g64)))
+        den = math.sqrt(sum(float((r ** 2).sum()) for r in g64))
+        rel = num / den
+        fwd_ms = timed_ms(torch, lambda: run(a32, b32, joint), reps=3, inner=1)
+        grad_ms = timed_ms(torch, lambda: grads(f32, joint), reps=3, inner=1)
+        if name == PROFILED_OPT:
+            # the routes share one loop shape (a Python step, one host sync):
+            # one profiled route stands for all, the others stay unprofiled
+            fwd_busy = device_busy_ms(torch, lambda: run(a32, b32, joint), calls=1)
+            grad_busy = device_busy_ms(torch, lambda: grads(f32, joint), calls=1)
+            busy_txt = ("device busy %.3f ms, idle share %.0f%%; forward + gradient device "
+                        "busy %.3f ms, idle share %.0f%%"
+                        % (fwd_busy, 100 * max(0.0, 1 - fwd_busy / fwd_ms), grad_busy,
+                           100 * max(0.0, 1 - grad_busy / grad_ms)))
+        else:
+            fwd_busy = grad_busy = None
+            busy_txt = "idle share not measured (profiled: %s)" % PROFILED_OPT
+        print("config 1, %s (%d systems of n = %d as one joint system, float32) [%s]: "
+              "converged %.0f after %.0f iterations; worst per-system residual %.2e (gate "
+              "%.2e); gradient of sum(y^2) to (A, b) rel L2 to the float64 run %.2e; forward "
+              "%.3f ms (%.1f systems/s), forward + gradient %.3f ms; %s"
+              % (name, B, n, card, float(info["converged"]), float(info["iterations"]),
+                 worst, gate, rel, fwd_ms, B / fwd_ms * 1e3, grad_ms, busy_txt))
+        check(bool(torch.isfinite(y).all()) and worst < gate,
+              "config 1 %s: residual %.3e above the gate %.3e" % (name, worst, gate))
+        # the benchmark's gradient gate against a float64 reference
+        check(rel < 2e-2, "config 1 %s: gradient off the float64 run by %.3e" % (name, rel))
+        rows[name] = {"converged": float(info["converged"]),
+                      "iterations": float(info["iterations"]), "worst_residual": worst,
+                      "grad_rel_l2_vs_f64": rel, "fwd_ms": fwd_ms, "grad_ms": grad_ms,
+                      "fwd_busy_ms": fwd_busy, "grad_busy_ms": grad_busy}
+        spent[name], t_part = time.perf_counter() - t_part, time.perf_counter()
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels}
+    launched["jacobi_sweep_cuda (complex)"] = jacobi_sweep_cuda.launches_complex
+    print("config 1: kernel launches %s (none is expected: no kernel of this package is on "
+          "this path)" % launched)
+    check(not any(launched.values()), "config 1 launched a kernel: %s" % launched)
+    print("config 1: host seconds by part %s" % {k: round(v, 1) for k, v in spent.items()})
+    print(json.dumps({"phase": "config1", "card": card, "rows": rows}))
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
+    parser.add_argument("--gate-sizes", default=None,
+                        help="comma-separated n: only measure the sweep gate's table there")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1744,11 +2250,25 @@ def main() -> int:
     # ---- 1. build ----
     t_start = t0 = time.perf_counter()
     libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
-                         "jacobi_sweep_complex", "fused_cg"])
+                         "jacobi_sweep_complex", "fused_cg", "dc_level"])
     print("build: %.1f s; %s" % (time.perf_counter() - t0,
                                  ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
+    if args.gate_sizes:
+        # the table times one call a cell: a small table first loads every
+        # library and kernel on the card
+        sweep_gate_table(torch, device, card, hold=False, sizes=(64,), batches=(1, 2))
+        sweep_gate_table(torch, device, card, hold=False,
+                         sizes=tuple(int(v) for v in args.gate_sizes.split(",")))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        return 0
 
     rng = np.random.default_rng(SEED)
+    last = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print("phase %s: %.1f s" % (phase, now - last[0]))
+        last[0] = now
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
@@ -1926,7 +2446,8 @@ def main() -> int:
     cg_ms = timed_ms(torch, lambda: structured_cg_cuda(*cg_args, **cg_kw))
     cg_plain_ms = timed_ms(torch, lambda: structured_cg_plain(*cg_args, **cg_kw))
     th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
-    th_plain_ms = timed_ms(torch, lambda: thomas_plain(*th_args))
+    # the plain Thomas loop takes ~120 ms a call: fewer calls
+    th_plain_ms = timed_ms(torch, lambda: thomas_plain(*th_args), reps=3, inner=1)
     fwd_ms = timed_ms(torch, lambda: xt.linalg.solve(A, bT, method="structured_cg",
                                                      rtol=RTOL, atol=ATOL))
     fwd_plain_ms = timed_ms(torch, lambda: xt.linalg.solve(
@@ -1966,28 +2487,57 @@ def main() -> int:
     print("  bounds: structured_cg %.4f ms (%s), thomas %.4f ms (%s) [%s]"
           % (cg_bound, cg_by, th_bound, th_by, card))
 
+    lap("config 3")
+
     # ---- 7. BASELINE config 2: the Jacobi sweep kernel, symeig and svd ----
     jacobi_record, shared = config2(torch, np, xt, device, card)
 
+    lap("config 2")
+
     # ---- 8. the default routing outside the sweep kernel's window ----
     routing_outside_window(torch, np, xt, device, card)
+
+    lap("routing outside the window")
 
     # ---- 9. config 2 with the warm start: the DC kernel ----
     dc_record, warm_sweeps = config2_warm(torch, np, xt, device, card, shared)
     jacobi_record["launches"] += warm_sweeps
 
-    # ---- 10. config 2 with complex input: the complex sweep kernel ----
+    lap("warm start")
+
+    # ---- 10. the per-level DC kernel on the warm path past a padded n of 448 ----
+    level_record, level_sweeps = per_level_warm(torch, np, xt, device, card)
+    jacobi_record["launches"] += level_sweeps
+
+    lap("per-level warm start")
+
+    # ---- 11. config 2 with complex input: the complex sweep kernel ----
     complex_record = config2_complex(torch, np, xt, device, card, shared)
 
-    # ---- 11. dense operators: the fused dense CG kernel and path A ----
+    lap("complex")
+
+    # ---- 12. the sweep kernels against the library by batch: the gate ----
+    sweep_gate_table(torch, device, card)
+
+    lap("gate table")
+
+    # ---- 13. dense operators: the fused dense CG kernel and path A ----
     fused_record, batched = fused_cg_kernel_phase(torch, np, xt, device, card)
     fused_record["launches"] = path_a(torch, np, xt, device, card, batched)
     check(fused_record["launches"] >= 1, "path A did not launch the fused_cg kernel")
     del batched
 
-    # ---- 12. Kron operators: path B (the factor decompositions go through
-    # the real sweep kernel) ----
+    lap("path A")
+
+    # ---- 14. Kron operators: path B (the factor decompositions go through
+    # the real sweep kernel where the gate approves) ----
     jacobi_record["launches"] += path_b(torch, np, xt, device, card)
+
+    lap("path B")
+
+    # ---- 15. BASELINE config 1: optimize (no kernel on this path) ----
+    config1(torch, np, xt, device, card)
+    lap("config 1")
 
     print(json.dumps({"kernels": [
         {"name": "structured_cg", "route": "cuda",
@@ -2002,7 +2552,7 @@ def main() -> int:
          "launches": launches["thomas"], "max_abs_err": th_abs,
          "ms": th_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
          "bound_by": th_by, "library_ms": th_lib_ms},
-        jacobi_record, dc_record, complex_record, fused_record,
+        jacobi_record, dc_record, complex_record, fused_record, level_record,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(card_line())

@@ -221,8 +221,10 @@ def test_window_and_rejections():
     assert not fits_dc_kernel(64, 256, 8, torch.float64)
     assert not fits_dc_kernel(4096, 1024, 10, torch.float32)   # workspace budget
     a = torch.eye(16)[None]
-    with pytest.raises(NotImplementedError, match="per-level"):
-        dc_precondition(a, per_level=True)
+    # per_level=True takes the per-level path (tests/test_torch_dc_level.py),
+    # which returns G0 only
+    with pytest.raises(ValueError, match="per-level path returns G0 only"):
+        dc_precondition(a, per_level=True, return_t=True)
     with pytest.raises(RuntimeError):
         dc_precondition_cuda(a)                                # not a CUDA tensor
     with pytest.raises(RuntimeError):

@@ -11,8 +11,10 @@ need not have; this file imports no JAX.)
 (``python3 chip_smoke.py`` covers the BASELINE config-3 and config-2
 shapes; these cases cover odd sizes, several bands, other ranks, float64
 Thomas, the real and the complex Jacobi sweep kernel on both of their
-memory paths, the divide-and-conquer kernel with its exports, and the fused
-dense CG kernel over odd sizes, every group size, float64 and a broadcast A.)
+memory paths, the divide-and-conquer kernel with its exports, the per-level
+divide-and-conquer kernel one level at a time, the sweep gate by batch, and
+the fused dense CG kernel over odd sizes, every group size, float64 and a
+broadcast A.)
 """
 import importlib.util
 import os
@@ -332,8 +334,12 @@ def test_dc_kernel_rejects_what_it_cannot_take(cuda):
         dc_precondition_cuda(A, levels=40)
     with pytest.raises(ValueError):
         dc_precondition_cuda(A, om=torch.zeros(8, 8))
-    with pytest.raises(NotImplementedError):
-        dc_precondition(A, per_level=True)
+    # the per-level path takes this batch and returns G0 only
+    for kw in ({"return_t": True}, {"return_seg": True}, {"refine": 1}):
+        with pytest.raises(ValueError):
+            dc_precondition(A, per_level=True, **kw)
+    with pytest.raises(ValueError, match="768"):
+        dc_precondition(torch.zeros(1, 776, 776, device=cuda), per_level=True)
 
 
 @pytest.mark.cuda
@@ -352,6 +358,77 @@ def test_warm_jacobi_eigh_on_card(cuda, n):
     assert float((Vw.mT @ Vw - torch.eye(n, device=cuda)).abs().max()) < 5e-6
     warm = ~iw["guard_bad"]
     assert bool((iw["sweeps"][warm] < ic["sweeps"][warm]).all())
+
+
+# ------------------------------------------------------------------
+# the per-level DC kernel (one level a launch) and the sweep-kernel gate
+# ------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n, levels", [
+    (2, 96, 5),      # down to frozen segments
+    (3, 200, 4),     # n not a multiple of the product tile
+    (2, 640, 3),     # the per-level window
+])
+def test_dc_level_kernel_level_by_level(cuda, B, n, levels):
+    from xitorch_tpu_torch.ops.dc_level import dc_level_cuda, dc_precondition_per_level
+
+    A = _spd(n, B, n, cuda)
+    # chip_smoke.py's check, one level a launch from the kernel's own state
+    (gl, _, sl), _, rows = _chip_smoke().dc_level_by_level(torch, A, levels, 2,
+                                                           per_level=True)
+    assert len(rows) == levels
+    assert bool((sl[:, 1:] >= sl[:, :-1]).all())   # non-decreasing along the index
+    dc_level_cuda.launches = 0
+    g = dc_precondition_per_level(A, levels=levels)
+    torch.cuda.synchronize()
+    assert dc_level_cuda.launches == levels
+    assert float((g - gl).abs().max()) == 0.0
+    # the dispatcher: per_level=True takes the level kernel, one launch a level
+    assert torch.equal(dc_precondition(A, levels=levels, per_level=True), g)
+    assert dc_level_cuda.launches == 2 * levels
+
+
+@pytest.mark.cuda
+def test_per_level_warm_jacobi_eigh_on_card(cuda):
+    from xitorch_tpu_torch.ops.dc_level import dc_level_cuda
+
+    n = 500   # padded to 512 on this path: 9 levels
+    A = _spd(n, 2, n, cuda)
+    jacobi_sweep_cuda.launches = dc_level_cuda.launches = dc_precondition_cuda.launches = 0
+    lw, Vw, _ = jacobi_eigh(A, precondition=True, return_info=True)
+    torch.cuda.synchronize()
+    assert dc_level_cuda.launches == 9 and dc_precondition_cuda.launches == 0
+    assert jacobi_sweep_cuda.launches >= 1
+    l0 = torch.linalg.eigvalsh(A.double())
+    # config 2's float32 gates
+    assert float(((lw.double() - l0).abs() / l0[:, -1:]).max()) <= 1e-5
+    assert float((Vw.mT @ Vw - torch.eye(n, device=cuda)).abs().max()) < 5e-5
+
+
+@pytest.mark.cuda
+def test_sweep_gate_by_batch_on_card(cuda):
+    from xitorch_tpu_torch.ops.jacobi_eigh import use_jacobi_for, use_jacobi_svd_for
+
+    # the measured table: one 128 x 128 matrix goes to the library, 64 to the kernel
+    assert not use_jacobi_for(torch.zeros(1, 128, 128, device=cuda))
+    assert use_jacobi_for(torch.zeros(64, 128, 128, device=cuda))
+    assert not use_jacobi_svd_for(torch.zeros(1, 128, 300, device=cuda))
+    assert use_jacobi_svd_for(torch.zeros(64, 128, 300, device=cuda))
+    assert not use_jacobi_for(torch.zeros(64, 512, 512, dtype=torch.complex64, device=cuda))
+    # the library side of the gate meets the kernel side's orthogonality: a
+    # 128-point Laplacian (gaps ~2e-3 at its bottom) through degen_eigh
+    from xitorch_tpu_torch._impls.linalg.symeig import degen_eigh
+
+    n = 128
+    lap = (2.05 * torch.eye(n, device=cuda) - torch.diag(torch.ones(n - 1, device=cuda), 1)
+           - torch.diag(torch.ones(n - 1, device=cuda), -1))[None]
+    jacobi_sweep_cuda.launches = 0
+    lam, V = degen_eigh(lap)
+    torch.cuda.synchronize()
+    assert jacobi_sweep_cuda.launches == 0
+    assert float((V.mT @ V - torch.eye(n, device=cuda)).abs().max()) < 5e-6
+    assert float((lap @ V - V * lam[:, None, :]).abs().max()) < 5e-5
 
 
 # ------------------------------------------------------------------

@@ -113,7 +113,12 @@ def test_cpu_run_launches_no_kernel():
 def test_port_imports_no_jax():
     code = ("import sys; import xitorch_tpu_torch, xitorch_tpu_torch.convert, "
             "xitorch_tpu_torch.ops.jacobi_eigh, xitorch_tpu_torch.linalg.symeig, "
-            "xitorch_tpu_torch.ops.dc_kernel, xitorch_tpu_torch.ops.spectral_dc; "
+            "xitorch_tpu_torch.ops.dc_kernel, xitorch_tpu_torch.ops.spectral_dc, "
+            "xitorch_tpu_torch.ops.dc_level, xitorch_tpu_torch.optimize, "
+            "xitorch_tpu_torch.grad, xitorch_tpu_torch._impls.optimize.rootsolver, "
+            "xitorch_tpu_torch._impls.optimize.equilibrium, "
+            "xitorch_tpu_torch._impls.optimize.minimizer, "
+            "xitorch_tpu_torch.utils.assertfuncs, xitorch_tpu_torch._docstr; "
             "print(any(m.split('.')[0] in ('jax', 'jaxlib', 'xitorch_tpu') "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=ROOT)

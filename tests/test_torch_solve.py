@@ -184,10 +184,16 @@ def test_default_routing_pure_tridiag_takes_thomas(monkeypatch):
 
 @pytest.mark.parametrize("method", ["broyden1"])
 def test_unported_method_raises(method):
+    # the last method that was not ported, broyden1, now is: the Broyden
+    # rootfinder on the residual, one joint system, against the reference's
     d, c, V, b = _tridiag_np()
-    _, At = _ops(d, c, V)
-    with pytest.raises(RuntimeError, match="slice 3"):
-        tsolve(At, torch.as_tensor(b), method=method)
+    Aj, At = _ops(d, c, V)
+    kw = dict(f_tol=1e-10, maxiter=2000)
+    xt_ = tsolve(At, torch.as_tensor(b), method=method, **kw)
+    xj = jsolve(Aj, jnp.asarray(b), method=method, **kw)
+    assert xt_.shape == (3, N, 2)
+    np.testing.assert_allclose(xt_.numpy(), np.asarray(xj), atol=1e-8)
+    np.testing.assert_allclose((At.mm(xt_) - torch.as_tensor(b)).numpy(), 0.0, atol=1e-9)
 
 
 def test_non_hermitian_default_routes_to_bicgstab_and_agrees_with_jax():

@@ -317,9 +317,16 @@ def test_scipy_gmres_rejects_what_the_bridge_cannot_do():
 
 
 def test_broyden1_names_the_slice_that_brings_it():
-    a, _ = _herm(seed=13, batch=())
-    with pytest.raises(RuntimeError, match="slice 3"):
-        tsolve(_pair(a, True)[1], torch.ones(N, 1, dtype=torch.float64), method="broyden1")
+    # broyden1 is ported: with a shift E it solves (A - E) X = B column by
+    # column as one joint system, as the reference does
+    a, rng = _herm(seed=13, batch=(), lo=2.0, hi=10.0)
+    b = rng.standard_normal((N, 2))
+    e = np.array([0.5, -0.25])
+    Aj, At = _pair(a, True)
+    kw = dict(f_tol=1e-10, maxiter=2000)
+    xjv, xtv = _both(Aj, At, b, "broyden1", E=e, **kw)
+    np.testing.assert_allclose(xtv, xjv, atol=1e-8)
+    np.testing.assert_allclose(a @ xtv - xtv * e, b, atol=1e-9)
 
 
 class _Roll(xt.LinearOperator):

@@ -12,16 +12,20 @@ Ported so far (see ROADMAP.md for the rest):
 * ``TridiagLowRankOperator``, ``BandedLowRankOperator``, ``KronOperator``,
   ``KronSumOperator``
 * ``linalg.solve`` with cg / cg_ir / fused_cg / structured_cg / kron_direct /
-  minres / bicgstab / gmres / exactsolve / scipy_gmres
+  minres / bicgstab / gmres / exactsolve / scipy_gmres / broyden1
+* ``optimize.rootfinder`` / ``equilibrium`` / ``minimize`` (broyden1/2,
+  newton, linearmixing, anderson_acc, gd, adam, lbfgs) with implicit
+  gradients of any order, and ``grad.jac`` / ``hess`` as matrix-free
+  operators
 * ``linalg.symeig`` / ``lsymeig`` / ``usymeig`` / ``svd`` with exacteig /
   kron_exact / davidson / chebfsi, forward and (implicit) gradient, real and
   complex
 * ``ops``: the structured CG kernel, the fused dense CG kernel, the Thomas
   kernel, the one-sided
   Jacobi sweep kernels for real and for complex input (``jacobi_eigh``,
-  ``jacobi_svd``) and the spectral divide-and-conquer warm start
-  (``dc_kernel``, ``spectral_dc``), each kernel with its plain PyTorch
-  version
+  ``jacobi_svd``) and the spectral divide-and-conquer warm start, single
+  shot and one level a launch (``dc_kernel``, ``dc_level``,
+  ``spectral_dc``), each kernel with its plain PyTorch version
 """
 from xitorch_tpu_torch._core.linop import (  # noqa: F401
     LinearOperator, MatrixLinearOperator, checklinop,
@@ -39,4 +43,4 @@ from xitorch_tpu_torch.utils.exceptions import (  # noqa: F401
 from xitorch_tpu_torch.utils.convergence import assert_converged  # noqa: F401
 from xitorch_tpu_torch.version import __version__  # noqa: F401
 
-from xitorch_tpu_torch import linalg, ops, debug, utils  # noqa: F401,E402
+from xitorch_tpu_torch import linalg, ops, debug, utils, grad, optimize  # noqa: F401,E402

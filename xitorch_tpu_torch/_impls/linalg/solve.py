@@ -723,13 +723,26 @@ def scipy_gmres(A: LinearOperator, B: torch.Tensor, E=None, M=None,
 
 
 def broyden1_solve(A: LinearOperator, B: torch.Tensor, E=None, M=None, **options):
-    """Solve the linear system with the Broyden rootfinder on the residual.
-    The rootfinder comes with ``optimize`` (slice 3 of the port, ROADMAP.md
-    queue 1)."""
-    raise RuntimeError(
-        "solve method 'broyden1' is not ported to xitorch_tpu_torch yet: it "
-        "needs the Broyden rootfinder of optimize, slice 3 of the port "
-        "(ROADMAP.md, queue 1)")
+    """Solve the linear system with the Broyden rootfinder on the residual
+    ``A X - M X E - B`` of the flattened unknowns (one joint system over the
+    batch and the columns).  ``options`` go to
+    ``_impls.optimize.rootsolver.broyden1``."""
+    from xitorch_tpu_torch._impls.optimize.rootsolver import broyden1
+
+    nr, ncols = A.shape[-1], B.shape[-1]
+    batchdims = get_batchdims(A, B, E, M)
+
+    def fcn_rootfinder(xi):
+        x = xi.reshape(*xi.shape[:-1], nr, ncols)
+        y = A.mm(x) - B
+        if E is not None:
+            MX = M.mm(x) if M is not None else x
+            y = y - MX * E[..., None, :]
+        return y.reshape(*xi.shape[:-1], nr * ncols)
+
+    x0 = torch.zeros((*batchdims, nr * ncols), dtype=A.dtype, device=B.device)
+    x = broyden1(fcn_rootfinder, x0, **options)
+    return x.reshape(*x.shape[:-1], nr, ncols)
 
 
 # ------------------------------------------------------------------

@@ -47,15 +47,13 @@ def take_eigpairs(eival: torch.Tensor, eivec: torch.Tensor, neig: int, mode: str
 
 
 def _rr_eigh(T: torch.Tensor):
-    """Solver-internal Rayleigh-Ritz/subspace eigh: float32 and complex64
-    matrices on the card inside the sweep kernels' window go to them,
+    """Solver-internal Rayleigh-Ritz/subspace eigh: ``dense_eigh``, so the
+    sweep kernel takes a batch where its measured gate says it wins, and
     everything else (the 16-32 wide matrices of the usual block sizes among
-    it) to ``torch.linalg.eigh``.  Gradients never pass through this."""
-    from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, use_jacobi_for
+    it) goes to ``torch.linalg.eigh``.  Gradients never pass through this."""
+    from xitorch_tpu_torch.ops.jacobi_eigh import dense_eigh
 
-    if use_jacobi_for(T):
-        return jacobi_eigh(T)
-    return torch.linalg.eigh(T)
+    return dense_eigh(T)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -138,11 +136,8 @@ def _svd_tangents(u, s, v, dA):
 class _DegenEigh(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A):
-        from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, use_jacobi_for
-        if use_jacobi_for(A):
-            evals, evecs = jacobi_eigh(A)
-        else:
-            evals, evecs = torch.linalg.eigh(A)
+        from xitorch_tpu_torch.ops.jacobi_eigh import dense_eigh
+        evals, evecs = dense_eigh(A)
         ctx.save_for_backward(evals, evecs)
         return evals, evecs
 
@@ -156,12 +151,8 @@ class _DegenEigh(torch.autograd.Function):
 class _DegenSvd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A):
-        from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_svd, use_jacobi_svd_for
-        if use_jacobi_svd_for(A):
-            u, s, v = jacobi_svd(A)
-        else:
-            uu, ss, vh = torch.linalg.svd(A, full_matrices=False)
-            u, s, v = uu.flip(-1), ss.flip(-1), vh.mH.flip(-1)
+        from xitorch_tpu_torch.ops.jacobi_eigh import dense_svd
+        u, s, v = dense_svd(A)
         ctx.save_for_backward(A, u, s, v)
         return u, s, v
 
@@ -179,10 +170,12 @@ def degen_eigh(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     up for degenerate eigenvalues; the contribution of (near-)degenerate
     pairs (|lam_j - lam_i| <= eps**0.6) is dropped, which is valid
     whenever the loss is invariant under rotations within the degenerate
-    subspace.  On a CUDA float32 or complex64 tensor with 64 <= n <= 1024
-    the decomposition runs the Jacobi sweep kernels (``ops/jacobi_eigh.py``);
-    set ``xitorch_tpu_torch.ops.jacobi_eigh.ENABLED = False`` to force
-    ``torch.linalg.eigh``."""
+    subspace.  The decomposition is ``ops/jacobi_eigh.py::dense_eigh``: on
+    a CUDA float32 or complex64 tensor with 64 <= n <= 1024 the Jacobi sweep
+    kernels run where the measured gate says they beat the library, and
+    ``torch.linalg.eigh`` (with one Newton orthonormalisation step there)
+    elsewhere; set ``xitorch_tpu_torch.ops.jacobi_eigh.ENABLED = False`` to
+    close the gate."""
     return _DegenEigh.apply(A)
 
 
@@ -191,10 +184,11 @@ def degen_svd(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor
     **ascending** singular values (the package-wide ordering).  Returns
     ``(U, s, V)``.
 
-    On a CUDA float32 or complex64 tensor inside the kernels' window the
-    decomposition runs the Hestenes one-sided Jacobi sweep kernel on the
-    columns of A (complex input on packed planes; no Gram matrix, so
-    singular values keep ~eps*kappa(A) relative error); elsewhere it is
+    The decomposition is ``ops/jacobi_eigh.py::dense_svd``: on a CUDA
+    float32 or complex64 tensor inside the kernels' window, where the
+    measured gate says it wins, the Hestenes one-sided Jacobi sweep kernel
+    on the columns of A (complex input on packed planes; no Gram matrix, so
+    singular values keep ~eps*kappa(A) relative error); elsewhere
     ``torch.linalg.svd`` flipped to ascending."""
     return _DegenSvd.apply(A)
 

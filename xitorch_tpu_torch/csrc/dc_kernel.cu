@@ -40,7 +40,8 @@
 // comparison loops.  Masks are predicates in the epilogue of a product,
 // never planes.  One persistent launch, one block of 256 threads a matrix,
 // which runs the whole level loop; the products are a device function
-// (128 x 128 output tile, 8-deep k tiles staged through registers, 8 x 8
+// (csrc/dc_common.cuh, shared with the per-level kernel csrc/dc_level.cu:
+// 128 x 128 output tile, 8-deep k tiles staged through registers, 8 x 8
 // outputs a thread, C = op(A) B with op = identity or transpose, fused
 // epilogues), with __syncthreads() between steps.  All accumulation is
 // IEEE float32 multiply-adds (no TF32), so that the rounded ranks and slot
@@ -50,19 +51,13 @@
 // It would fill all 132 SMs where this fills B of them, but it pays ~600
 // launches and as many host-side elementwise passes for the bookkeeping
 // between products, and splits the algorithm between host and device.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "dc_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 1024;  // length of the bookkeeping vectors
 constexpr int kPlanes = 6;   // workspace planes a matrix: T and five scratch
-constexpr int BM = 128, BN = 128, BK = 8;
-constexpr int kPad = 4;      // As row padding: conflict-free transposed stores
 
-constexpr float kQa = 3.4445f, kQb = -4.7750f, kQc = 2.0315f;
 constexpr float kBeta = 0.002f;  // rank-safety probe blend
 constexpr int kQuinticSign = 8, kCubicSign = 3;
 constexpr int kQuinticPolar = 10, kCubicPolar = 5, kCubicRefine = 3;
@@ -74,16 +69,9 @@ struct Shared {
   int start[kMaxN];  // first position of its segment
   int low[kMaxN];    // rank inside the segment, later the low-slot flag
   float v0[kMaxN], v1[kMaxN], v2[kMaxN], v3[kMaxN];
-  alignas(16) float As[BK][BM + kPad];  // read back as float4
-  alignas(16) float Bs[BK][BN];
+  Tiles t;
   int min_seg;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // 1 inside a live segment's diagonal block, else 0
 __device__ __forceinline__ float live_mask(const Shared& s, int i, int j) {
@@ -94,18 +82,6 @@ __device__ __forceinline__ bool frozen(const Shared& s, int i) {
   return s.size[i] <= s.min_seg;
 }
 
-// ---- epilogues: value stored at (i, j) for the accumulated product ----
-struct EpiStore {
-  __device__ float operator()(int, int, float acc) const { return acc; }
-};
-// qa I + qb X2 + qc (X2 X2)
-struct EpiQuinticW {
-  const float* X2;
-  int n;
-  __device__ float operator()(int i, int j, float acc) const {
-    return (i == j ? kQa : 0.0f) + kQb * X2[(size_t)i * n + j] + kQc * acc;
-  }
-};
 // (X W) masked to the live segments
 struct EpiMask {
   const Shared* s;
@@ -113,101 +89,25 @@ struct EpiMask {
     return acc * live_mask(*s, i, j);
   }
 };
-// 1.5 X - 0.5 (X X2), masked to the live segments when s is given
-struct EpiCubic {
+// 1.5 X - 0.5 (X X2) masked to the live segments
+struct EpiCubicLive {
   const float* X;
   int n;
   const Shared* s;
   __device__ float operator()(int i, int j, float acc) const {
-    const float v = 1.5f * X[(size_t)i * n + j] - 0.5f * acc;
-    return s ? v * live_mask(*s, i, j) : v;
+    return (1.5f * X[(size_t)i * n + j] - 0.5f * acc) * live_mask(*s, i, j);
   }
 };
 
 // C = op(A) B on row-major (n, n) planes in device memory, op = transpose
-// when TA.  C is neither A nor B.  Every thread of the block calls it; it
-// ends on a barrier, so C is visible to the block on return.
+// when TA, one output tile after the other (csrc/dc_common.cuh).  C is
+// neither A nor B.  Every thread of the block calls it; it ends on a
+// barrier, so C is visible to the block on return.
 template <bool TA, class Epi>
 __device__ void gemm(const float* A, const float* B, float* C, int n, Epi epi,
                      Shared& s) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  // global -> register staging: this thread's four A and four B values
-  const int la_k = TA ? (tid >> 5) : ((tid & 1) << 2);
-  const int la_i = TA ? ((tid & 31) << 2) : (tid >> 1);
-  const int lb_k = tid >> 5, lb_j = (tid & 31) << 2;
-
-  for (int bm = 0; bm < n; bm += BM) {
-    for (int bn = 0; bn < n; bn += BN) {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-      float ra[4], rb[4];
-
-      auto fetch = [&](int k0) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (TA) {
-            const int k = k0 + la_k, i = bm + la_i + q;
-            ra[q] = (k < n && i < n) ? A[(size_t)k * n + i] : 0.0f;
-          } else {
-            const int i = bm + la_i, k = k0 + la_k + q;
-            ra[q] = (i < n && k < n) ? A[(size_t)i * n + k] : 0.0f;
-          }
-          const int k = k0 + lb_k, j = bn + lb_j + q;
-          rb[q] = (k < n && j < n) ? B[(size_t)k * n + j] : 0.0f;
-        }
-      };
-      auto stage = [&]() {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (TA)
-            s.As[la_k][la_i + q] = ra[q];
-          else
-            s.As[la_k + q][la_i] = ra[q];
-          s.Bs[lb_k][lb_j + q] = rb[q];
-        }
-      };
-
-      fetch(0);
-      stage();
-      __syncthreads();
-      for (int k0 = 0; k0 < n; k0 += BK) {
-        const bool more = k0 + BK < n;
-        if (more) fetch(k0 + BK);
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-          const float4 a0 = *reinterpret_cast<const float4*>(&s.As[k][ty * 4]);
-          const float4 a1 = *reinterpret_cast<const float4*>(&s.As[k][64 + ty * 4]);
-          const float4 b0 = *reinterpret_cast<const float4*>(&s.Bs[k][tx * 4]);
-          const float4 b1 = *reinterpret_cast<const float4*>(&s.Bs[k][64 + tx * 4]);
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();  // every thread is done with this k tile
-        if (more) {
-          stage();
-          __syncthreads();
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int row = bm + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-        if (row >= n) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = bn + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-          if (col < n) C[(size_t)row * n + col] = epi(row, col, acc[i][j]);
-        }
-      }
-    }
-  }
+  for (int bm = 0; bm < n; bm += BM)
+    for (int bn = 0; bn < n; bn += BN) gemm_tile<TA>(A, B, C, n, bm, bn, epi, s.t);
   __syncthreads();
 }
 
@@ -263,7 +163,7 @@ __device__ __forceinline__ void polar_cubic(float*& Q, float*& Qn, float* Gm, in
                                             int steps, Shared& s) {
   for (int it = 0; it < steps; ++it) {
     gemm<true>(Q, Q, Gm, n, EpiStore{}, s);
-    gemm<false>(Q, Gm, Qn, n, EpiCubic{Q, n, nullptr}, s);
+    gemm<false>(Q, Gm, Qn, n, EpiCubic{Q, n}, s);
     float* t = Q;
     Q = Qn;
     Qn = t;
@@ -361,7 +261,7 @@ dc_kernel(const float* __restrict__ a_g, const float* __restrict__ om, float* g_
     }
     for (int it = 0; it < kCubicSign; ++it) {
       gemm<false>(X, X, S1, n, EpiStore{}, s);
-      gemm<false>(X, S1, Xn, n, EpiCubic{X, n, &s}, s);
+      gemm<false>(X, S1, Xn, n, EpiCubicLive{X, n, &s}, s);
       float* t = X;
       X = Xn;
       Xn = t;

@@ -273,8 +273,8 @@ def solve(A: LinearOperator, B: torch.Tensor,
     ``A (*BA, na, na)``, ``B (*BB, na, ncols)``, ``E (*BE, ncols)`` or None,
     ``M (*BM, na, na)`` hermitian or None.  ``method`` is a registry string
     ("cg", "cg_ir", "fused_cg", "structured_cg", "kron_direct", "minres",
-    "bicgstab", "gmres", "exactsolve", "custom_exactsolve", "scipy_gmres";
-    "broyden1" is not ported yet) or a custom callable.  None picks
+    "bicgstab", "gmres", "exactsolve", "custom_exactsolve", "scipy_gmres",
+    "broyden1") or a custom callable.  None picks
     structured_cg for structured operators (minres when they are E-shifted
     and not purely tridiagonal), kron_direct for hermitian Kron operators
     without M (matrix-free cg, minres or bicgstab otherwise), exactsolve for explicit or small

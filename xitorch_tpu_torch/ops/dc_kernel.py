@@ -23,8 +23,8 @@ accumulated level by level instead of a total ``Q``.
 Output: ``G0 = Q_tot^T a``, the warm-start row panel of the sweep (rows
 are ``q_i^T a``, so the sweep's eigenvector extraction is unchanged).
 
-The per-level variant of the reference (one launch per level for large n,
-``per_level=True``) is not ported yet and raises ``NotImplementedError``.
+For padded n above 448 :func:`dc_precondition` runs the per-level variant
+of ``ops/dc_level.py`` instead (one launch a level, ``per_level``).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from xitorch_tpu_torch.ops import _build
+from xitorch_tpu_torch.ops import _build, dc_level
 from xitorch_tpu_torch.ops.spectral_dc import _QUINTIC, _RANK_SAFE_BETA, as_probe
 from xitorch_tpu_torch.ops.tridiag import use_kernel
 from xitorch_tpu_torch.utils.tensor import dot_hi
@@ -58,10 +58,6 @@ _N_MAX = 1024
 _LEVELS_MAX = 24
 _WORK_PLANES = 6
 _WORK_BUDGET = 8 << 30
-
-_NEXT_SLICE = ("a later slice of the port (the per-level DC kernel, "
-               "xitorch_tpu/ops/dc_kernel.py::_dc_level_kernel; see ROADMAP.md, "
-               "queue 2 row 7)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -276,11 +272,30 @@ def dc_precondition(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
     ordered ``(g, [t], [seg])``.  ``om``: the (n, n) probe, a tensor or a
     numpy array; ``None`` draws ``spectral_dc.default_probe`` (seed 1803,
     on the CPU, moved to ``a``'s device), so kernel and plain version see
-    the same probe.  ``per_level`` (``None`` means no) is not ported yet.
+    the same probe.
+
+    ``per_level`` (``None``: n > 448, as in the reference) runs one level a
+    launch (``ops/dc_level.py``), up to n = 768, and returns ``G0`` only:
+    ``return_t``, ``return_seg`` and ``refine`` raise ``ValueError`` there,
+    and so does a larger n (run the cold sweep for it).
     """
+    n = a.shape[-1]
+    if per_level is None:
+        per_level = n > dc_level._PER_LEVEL_MIN_N
     if per_level:
-        raise NotImplementedError(
-            "dc_precondition: per_level=True comes with " + _NEXT_SLICE)
+        if return_t or return_seg or refine:
+            raise ValueError(
+                "dc_precondition: return_t, return_seg and refine are only supported "
+                "by the single-shot path (per_level=False; the default for n <= %d); "
+                "the per-level path returns G0 only" % dc_level._PER_LEVEL_MIN_N)
+        if n > dc_level._PER_LEVEL_MAX_N:
+            raise ValueError(
+                "dc_precondition: the per-level path supports n <= %d, got n = %d "
+                "(jacobi_eigh pads n to a multiple of 128 on this path first); run "
+                "jacobi_eigh with precondition=False for larger matrices"
+                % (dc_level._PER_LEVEL_MAX_N, n))
+        return dc_level.dc_precondition_per_level(a, levels=levels, min_seg=min_seg,
+                                                  om=om)
     kw = dict(levels=levels, min_seg=min_seg, return_t=return_t,
               return_seg=return_seg, refine=refine, om=om)
     if use_kernel(a):

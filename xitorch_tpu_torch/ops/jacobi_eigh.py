@@ -58,11 +58,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from xitorch_tpu_torch.ops import _build
+from xitorch_tpu_torch.ops import _build, dc_level
 from xitorch_tpu_torch.ops.tridiag import use_kernel
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["jacobi_eigh", "jacobi_svd", "use_jacobi_for", "use_jacobi_svd_for",
+           "dense_eigh", "dense_svd",
            "jacobi_sweep", "jacobi_sweep_cuda", "jacobi_sweep_plain",
            "fits_jacobi_sweep", "in_jacobi_window"]
 
@@ -91,6 +92,7 @@ _NEXT_SLICE = ("the last slice of the port (the deflated path of the "
 # sweep.  Healthy panels sit at ~eps*sqrt(n); the rank-deficiency failure
 # this guards against breaks the identity by 1e-5..1e-3.
 _GUARD_RTOL = 5e-6
+_PER_LEVEL_ALIGN = 128  # padding of the per-level warm start's n
 _ROT_EMAX = 0.1  # |E_ij| clip of the first-order rotational correction
 
 _P = ctypes.c_void_p
@@ -344,11 +346,18 @@ def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float,
 # host side
 # ------------------------------------------------------------------
 
-def _padded_n(n: int) -> int:
+def _padded_n(n: int, precondition: bool = False) -> int:
     """Working size for an (n, n) input: a multiple of 16, as the
-    reference's sweep kernel takes (padding eigenvalues are placed above
-    the spectrum and sliced off after the sort)."""
-    return max(16, -(-n // 16) * 16)
+    reference's sweep kernel takes; on the preconditioned path past the
+    single-shot warm start's window (a 16-multiple above 448) a multiple of
+    128, as the reference pads for its per-level kernel, so that both run
+    the same size and the same number of levels (n = 700 works at 768, 10
+    levels).  Padding eigenvalues are placed above the spectrum and sliced
+    off after the sort."""
+    npad = max(16, -(-n // 16) * 16)
+    if precondition and npad > dc_level._PER_LEVEL_MIN_N:
+        npad = -(-n // _PER_LEVEL_ALIGN) * _PER_LEVEL_ALIGN
+    return npad
 
 
 def _newton_orthonormalize(V: torch.Tensor) -> torch.Tensor:
@@ -418,6 +427,31 @@ def _rot_correct(g0: torch.Tensor, passes: int = 2,
     return g0
 
 
+def _shift_pad(a: torch.Tensor, npad: int) -> torch.Tensor:
+    """The matrix the sweep works on for a (B, n, n) hermitian ``a``: shifted
+    positive definite by its one-sided Gershgorin bound plus 1% of its
+    Frobenius norm (the eigenvector extraction divides by the shifted
+    eigenvalues), and padded to (B, npad, npad) with a diagonal above every
+    shifted eigenvalue."""
+    n = a.shape[-1]
+    dt = a.real.dtype if a.is_complex() else a.dtype
+    absa = a.abs()
+    diag = torch.diagonal(a, dim1=-2, dim2=-1).real
+    offsum = absa.sum(-1) - torch.diagonal(absa, dim1=-2, dim2=-1)
+    lower = (diag - offsum).amin(-1)
+    frob = torch.sqrt((absa * absa).sum(dim=(-2, -1)))
+    sigma = torch.clamp(-lower, min=0.0) + 0.01 * frob + 1e-30
+    if npad != n:
+        # upper spectral bound of the shifted matrix, for the padding diagonal
+        top = torch.clamp((diag + offsum).amax(-1), min=0.0) + sigma
+        pad = npad - n
+        a = F.pad(a, (0, pad, 0, pad))
+        pdiag = torch.zeros(npad, dtype=dt, device=a.device)
+        pdiag[n:] = 2.0
+        a = a + torch.diag_embed(pdiag)[None] * top[:, None, None]
+    return a + sigma[:, None, None] * torch.eye(npad, dtype=dt, device=a.device)
+
+
 def _resolve_precondition(precondition: Optional[bool], A: torch.Tensor) -> bool:
     # None is the cold sweep at every size: on the H100 the warm start is
     # slower wherever it was measured (see jacobi_eigh's docstring)
@@ -441,29 +475,34 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     ``A``: (*B, n, n) real symmetric or complex hermitian.  Returns
     ascending (real) eigenvalues (*B, n) and column eigenvectors
     (*B, n, n).  Raw entry without derivatives; ``degen_eigh`` wraps it with
-    the degeneracy-safe gradient.  Pads n to a multiple of 16 internally.
+    the degeneracy-safe gradient.  Pads n to a multiple of 16 internally
+    (of 128 on the per-level warm start, see :func:`_padded_n`).
 
     ``precondition=True`` (real input only) runs the spectral
-    divide-and-conquer sort first (``ops/dc_kernel.py``, split down to
-    pairs) and hands the sweep ``G0 = Q^T A_shift`` instead of ``A_shift``,
-    after :func:`_rot_correct` and behind :func:`_guard_warm_start`.  The
-    sweep's G-invariant makes this transparent: extraction, polish and
-    sorting are unchanged, and a bad preconditioner costs sweeps, never
-    correctness.  ``precondition=None`` means ``False``: on the card the
-    warm start does not pay yet.  On an NVIDIA H100 80GB HBM3 (700 W), 64
-    matrices of 256 x 256 (printed by ``chip_smoke.py``, figures rounded):
-    the warm start lowers the sweeps from 8.8 to 2.5 a matrix, but
-    ``jacobi_eigh`` takes about 145 ms warm against 24 ms cold.  The DC
-    kernel alone takes about 121 ms, which is slower than its own plain
-    PyTorch version (54 ms) and than its 592 products as ``torch.bmm``
-    (29 ms): it fills 64 of the 132 multiprocessors with one block each.
-    And the sweeps left still take 22 ms: every matrix is its own block
-    and all run at once, so the call lasts as long as its slowest matrix,
-    and the guard sent 4 of the 64 back to the cold start.  At 8 matrices of
-    512 x 512 it is about 1.1 s against 0.13 s; 700 x 700 is outside the
-    useful window of this kernel altogether: 3.5 s against 0.3 s, and the
-    guard threw the warm start of 7 of the 8 away.  Until the kernel is made
-    faster, ``precondition=True`` pays that for fewer sweeps and no time.
+    divide-and-conquer sort first (split down to pairs: in one launch,
+    ``ops/dc_kernel.py``, up to a padded n of 448, one launch a level,
+    ``ops/dc_level.py``, above) and hands the sweep ``G0 = Q^T A_shift``
+    instead of ``A_shift``, after :func:`_rot_correct` and behind
+    :func:`_guard_warm_start`.  The sweep's G-invariant makes this
+    transparent: extraction, polish and sorting are unchanged, and a bad
+    preconditioner costs sweeps, never correctness.  ``precondition=None``
+    means ``False``: on the card the warm start does not pay yet.  On an
+    NVIDIA H100 80GB HBM3 (700 W), printed by ``chip_smoke.py``, figures
+    rounded: at 64 matrices of 256 x 256 the warm start lowers the sweeps
+    from 8.8 to 2.5 a matrix, but ``jacobi_eigh`` takes about 144 ms warm
+    against 23 ms cold.  The single-shot DC kernel alone takes about 119
+    ms, slower than its own plain PyTorch version (54 ms) and than its 592
+    products as ``torch.bmm`` (29 ms): it fills 64 of the 132
+    multiprocessors with one block each.  And the sweeps left still take
+    22 ms: every matrix is its own block and all run at once, so the call
+    lasts as long as its slowest matrix, and the guard sent 4 of the 64
+    back to the cold start.  At 8 matrices of 512 x 512 (9 levels) the
+    per-level kernel takes about 67 ms and the warm call 204 ms against
+    134 ms cold; at 700 x 700 (768 padded, 10 levels) 289 ms and 651 ms
+    against 298 ms.  At both sizes the guard sent all 8 back to the cold
+    start (the rotational correction breaks these panels' G-invariant).  Until the
+    kernels are made faster, ``precondition=True`` pays that for fewer
+    sweeps and no time.
 
     ``return_info`` also returns a dictionary with each matrix's executed
     sweep count (``sweeps``, (Bflat,) int32) and, on the warm path, the
@@ -488,33 +527,9 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
         tol = float(torch.finfo(dt).eps) * 4.0 * math.sqrt(n)
     Bflat = math.prod(batch) if batch else 1
     a0 = A.reshape(Bflat, n, n)
-    a = a0
-
-    # PSD shift: sigma >= -lambda_min via the one-sided Gershgorin bound,
-    # plus a 1% ||A||_F margin that floors the smallest shifted eigenvalue
-    # (the eigenvector extraction divides by lambda'_i = |g_i|)
-    absa = a.abs()
-    diag = torch.diagonal(a, dim1=-2, dim2=-1).real
-    offsum = absa.sum(-1) - torch.diagonal(absa, dim1=-2, dim2=-1)
-    lower = (diag - offsum).amin(-1)
-    frob = torch.sqrt((absa * absa).sum(dim=(-2, -1)))
-    sigma = torch.clamp(-lower, min=0.0) + 0.01 * frob + 1e-30
-    # upper spectral bound of the shifted matrix, for the padding diagonal
-    upper = (diag + offsum).amax(-1)
-    top = torch.clamp(upper, min=0.0) + sigma
-
-    # a multiple of 16 on every path: the reference pads the preconditioned
-    # path of large n further, for its per-level kernel's copies, which has
-    # no counterpart here
-    npad = _padded_n(n)
-    if npad != n:
-        pad = npad - n
-        a = F.pad(a, (0, pad, 0, pad))
-        # padding block: diagonal above every true (shifted) eigenvalue
-        pdiag = torch.zeros(npad, dtype=dt, device=A.device)
-        pdiag[n:] = 2.0
-        a = a + torch.diag_embed(pdiag)[None] * top[:, None, None]
-    a = a + sigma[:, None, None] * torch.eye(npad, dtype=dt, device=A.device)
+    # a multiple of 16; 128 on the per-level warm start (see _padded_n)
+    npad = _padded_n(n, precondition)
+    a = _shift_pad(a0, npad)
 
     info = {}
     if iscomplex:
@@ -526,7 +541,8 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     elif precondition:
         from xitorch_tpu_torch.ops.dc_kernel import dc_precondition
         # depth: split every segment down to pairs; a 2-block is solved
-        # exactly by its first tournament rotation
+        # exactly by its first tournament rotation.  Past a padded n of 448
+        # dc_precondition runs one level a launch (ops/dc_level.py)
         levels = max(3, math.ceil(math.log2(npad)))
         g0 = dc_precondition(a, levels=levels, min_seg=2)
         # kills the well-gapped leftover couplings (the rank-safety blend's
@@ -697,25 +713,105 @@ def in_jacobi_window(n: int, dtype) -> bool:
     return fits_jacobi_sweep(npad, kind[1] * npad, kind[0], kind[1] == 2)
 
 
+# Where the sweep kernels beat the library on the card, by batch: for each
+# tabulated n (rows of the panel), the smallest batch at which the kernel's
+# whole function (jacobi_eigh cold, jacobi_svd) was faster than the gate's
+# library side (library_eigh / library_svd) of the same batch, None where it
+# lost at every batch measured (1 to 32).  The kernel runs one block a
+# matrix, so below the crossover it leaves most of the 132 multiprocessors
+# idle.  Measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's
+# sweep_gate_table: n = 64 to 512 in every run of the script (at batch 1
+# and n = 128, for instance, 4.6 ms against 2.9; at batch 32, 5.5 against
+# 61.0), n = 768 and 1024 by ``chip_smoke.py --gate-sizes 768,1024`` (one
+# call a cell; there torch.linalg.eigh costs 8-12 ms a matrix against the
+# kernel's 370-1120 ms a launch, and only the svd kinds cross by batch 32).
+# An n between rows takes the next larger row.
+_GATE_N = (64, 128, 256, 512, 768, 1024)
+_GATE_MIN_BATCH = {
+    "eigh": (4, 4, 8, 16, None, None),          # float32 symmetric
+    "complex": (4, 4, 32, None, None, None),    # complex64 hermitian
+    "svd": (4, 4, 8, 16, 16, 32),               # float32 general, by its small side
+    "complex_svd": (4, 4, 8, 16, 32, None),     # complex64 general, by its small side
+}
+
+
+def _gate_min_batch(kind: str, n: int) -> Optional[int]:
+    row = next((i for i, gn in enumerate(_GATE_N) if n <= gn), len(_GATE_N) - 1)
+    return _GATE_MIN_BATCH[kind][row]
+
+
+def _kernel_wins(kind: str, batch_shape, n: int) -> bool:
+    need = _gate_min_batch(kind, n)
+    return need is not None and math.prod(batch_shape) >= need
+
+
 def use_jacobi_svd_for(A: torch.Tensor) -> bool:
     """Dispatch gate used by ``degen_svd``: a float32 or complex64 CUDA
-    tensor whose small side is at least 64 and whose panel (small side
-    padded to 16 rows, long side wide, twice as wide when packed complex)
-    lies in the kernels' window."""
-    if not (ENABLED and A.is_cuda and A.dim() >= 2):
+    tensor whose small side is at least 64, whose panel (small side padded
+    to 16 rows, long side wide, twice as wide when packed complex) lies in
+    the kernels' window, and whose batch is at least the measured crossover
+    for its type and small side (``_GATE_MIN_BATCH``)."""
+    if not (ENABLED and _in_svd_window(A)):
         return False
+    kind = "complex_svd" if A.is_complex() else "svd"
+    return _kernel_wins(kind, A.shape[:-2], _padded_n(min(A.shape[-2:])))
+
+
+def _in_svd_window(A: torch.Tensor) -> bool:
+    """A float32 or complex64 CUDA tensor whose small side is at least 64
+    and whose panel lies in the sweep kernels' window."""
     kind = _sweep_dtype(A.dtype)
-    if kind is None:
+    if not (A.is_cuda and A.dim() >= 2) or kind is None:
         return False
-    r = min(A.shape[-1], A.shape[-2])
-    w = max(A.shape[-1], A.shape[-2])
+    r, w = min(A.shape[-2:]), max(A.shape[-2:])
     return bool(64 <= r and fits_jacobi_sweep(_padded_n(r), kind[1] * w, kind[0],
                                               kind[1] == 2))
 
 
 def use_jacobi_for(A: torch.Tensor) -> bool:
     """Dispatch gate used by ``degen_eigh``: a CUDA tensor (*B, n, n) inside
-    :func:`in_jacobi_window`."""
-    return bool(ENABLED and A.is_cuda and A.dim() >= 2
-                and A.shape[-1] == A.shape[-2]
-                and in_jacobi_window(A.shape[-1], A.dtype))
+    :func:`in_jacobi_window` whose batch is at least the measured crossover
+    for its type and padded n (``_GATE_MIN_BATCH``)."""
+    if not (ENABLED and A.is_cuda and A.dim() >= 2 and A.shape[-1] == A.shape[-2]
+            and in_jacobi_window(A.shape[-1], A.dtype)):
+        return False
+    kind = "complex" if A.is_complex() else "eigh"
+    return _kernel_wins(kind, A.shape[:-2], _padded_n(A.shape[-1]))
+
+
+def library_eigh(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The library side of :func:`dense_eigh`: ``torch.linalg.eigh``, and on
+    a CUDA matrix inside :func:`in_jacobi_window` (a batch the gate kept
+    from the kernel) the kernel route's last step, one Newton
+    orthonormalisation: float32 library vectors drift from orthonormal by
+    ~n eps / gap, and both sides of the gate meet the same orthogonality."""
+    evals, evecs = torch.linalg.eigh(A)
+    if A.is_cuda and in_jacobi_window(A.shape[-1], A.dtype):
+        evecs = _newton_orthonormalize(evecs)
+    return evals, evecs
+
+
+def library_svd(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The library side of :func:`dense_svd`: ``torch.linalg.svd`` in
+    :func:`jacobi_svd`'s contract (``(U, s, V)``, ascending), with the same
+    Newton step on U and V for a CUDA matrix inside the kernels' window."""
+    uu, ss, vh = torch.linalg.svd(A, full_matrices=False)
+    u, s, v = uu.flip(-1), ss.flip(-1), vh.mH.flip(-1)
+    if _in_svd_window(A):
+        u, v = _newton_orthonormalize(u), _newton_orthonormalize(v)
+    return u, s, v
+
+
+def dense_eigh(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecomposition of a dense (*B, n, n) matrix on the side the gate
+    picks: :func:`jacobi_eigh` (cold) where :func:`use_jacobi_for` says the
+    sweep kernel wins, else :func:`library_eigh`.  ``degen_eigh`` and the
+    solvers' Rayleigh-Ritz steps call this."""
+    return jacobi_eigh(A) if use_jacobi_for(A) else library_eigh(A)
+
+
+def dense_svd(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Economy SVD ``(U, s, V)``, ascending, on the side the gate picks:
+    :func:`jacobi_svd` where :func:`use_jacobi_svd_for` says the sweep
+    kernel wins, else :func:`library_svd`."""
+    return jacobi_svd(A) if use_jacobi_svd_for(A) else library_svd(A)
