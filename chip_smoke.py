@@ -83,6 +83,12 @@ exits non-zero and prints no result.  Without a CUDA device it exits 2.
 
 only builds the kernels and measures the gate's table at those sizes (the
 gate's rows above 512 come from this), without holding the gate to it.
+
+    python3 chip_smoke.py --only dc_level
+
+builds the kernels and runs only the per-level warm start's phase, with the
+same last lines: a development switch for work on that kernel.  The default
+run is the full script.
 """
 from __future__ import annotations
 
@@ -115,6 +121,7 @@ DAVIDSON_OPTS = {"min_eps": 2e-3, "max_niter": 800}
 # bandwidth and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 
 # a shape outside the sweep kernels' window, where the default routing's
 # gate is measured; and the sizes beyond config 2 where the warm start is
@@ -173,6 +180,15 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def print_device(torch) -> None:
+    """The last two lines of a run that passed: the card's name and power
+    limit, then the result line."""
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -198,12 +214,11 @@ def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = Tru
     return statistics.median(ts)
 
 
-def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0):
-    """Summed device time of the kernels ``fn()`` launches, per call, from
-    ``torch.profiler`` over ``calls`` calls after one warm-up call.  Only
-    events on the card count (the profiler also files module loading under
-    device time).  With ``top``, also the ``top`` largest entries as
-    ``(name, ms per call)``."""
+def device_ms_by_name(torch, fn, calls: int = REPS) -> dict:
+    """Device time of each kernel ``fn()`` launches, ms per call by name,
+    from ``torch.profiler`` over ``calls`` calls after one warm-up call.
+    Only events on the card count (the profiler also files module loading
+    under device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,22 +228,48 @@ def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
-    check(busy_us > 0, "the profiler saw no device time")
+    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0):
+    """Summed device time of the kernels ``fn()`` launches, per call (see
+    :func:`device_ms_by_name`).  With ``top``, also the ``top`` largest
+    entries as ``(name, ms per call)``."""
+    by_name = device_ms_by_name(torch, fn, calls)
+    busy = sum(by_name.values())
+    check(busy > 0, "the profiler saw no device time")
     if not top:
-        return busy_us / calls / 1e3
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return busy_us / calls / 1e3, [(e.key, e.self_device_time_total / calls / 1e3)
-                                   for e in events[:top]]
+        return busy
+    return busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and operations over the float32 rate, and which it is."""
+    memory rate and operations over their peak rates (``flops`` IEEE float32,
+    ``tf32_flops`` on the TF32 tensor cores), and which it is."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def level_tile_operations(torch, seg):
+    """Operations one product of a per-level DC level runs on its tiles,
+    summed over the (B, n, 1) ids ``seg`` the level starts from: each
+    128 x 128 output tile multiplies over the k-range that
+    ``ops/dc_level.py::band_ranges`` gives it (``csrc/dc_level.cu``'s rule).
+    Returns ``(block-diagonal product, G0 <- Q^T G0)``."""
+    from xitorch_tpu_torch.ops.dc_level import _TILE, band_ranges
+
+    n = seg.shape[1]
+    lo, hi = (v.double() for v in band_ranges(seg, _TILE))
+    h = torch.tensor([float(min(_TILE, n - r)) for r in range(0, n, _TILE)],
+                     dtype=torch.float64, device=lo.device)
+    k = (torch.minimum(hi[:, :, None], hi[:, None, :])
+         - torch.maximum(lo[:, :, None], lo[:, None, :])).clamp(min=0)
+    diag = 2.0 * float((h[:, None] * h[None, :] * k).sum())
+    rows = 2.0 * float((h * n * (hi - lo)).sum())
+    return diag, rows
 
 
 def config3_arrays(np, rng):
@@ -980,9 +1021,11 @@ def per_level_warm(torch, np, xt, device, card):
     launches on these warm paths."""
     from xitorch_tpu_torch.ops import jacobi_eigh as jmod
     from xitorch_tpu_torch.ops.dc_level import (
-        _PRODUCTS_PER_LEVEL, dc_level_cuda, dc_level_plain, dc_precondition_per_level,
+        _PRODUCTS_PER_LEVEL, _TF32_PRODUCTS, dc_level_cuda, dc_level_plain,
+        dc_precondition_per_level,
     )
     from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, jacobi_sweep_cuda
+    from xitorch_tpu_torch.ops.spectral_dc import default_probe
 
     bsz = 8
     sweep_launches, record, max_abs = 0, None, 0.0
@@ -1016,18 +1059,26 @@ def per_level_warm(torch, np, xt, device, card):
         # are block-diagonal over the segments the level starts from, so 71
         # of a level's products need 2 m^3 a segment of m rows and
         # G0 <- Q^T G0 needs 2 m^2 n: per matrix, summed over rows,
-        # 142 sum(m^2) + 2 n sum(m).  The kernel's own segments at each
-        # level are counted (its extra launches here precede the counted
-        # run); frozen segments, at most 2 wide, are counted as live
+        # 142 sum(m^2) + 2 n sum(m); 61 of the 71 are the reference's
+        # default-precision products (TF32 here).  And the operations the
+        # kernel's tiles run, from the band ranges (level_tile_operations).
+        # The kernel's own segments at each level are counted (its extra
+        # launches here precede the counted run); frozen segments, at most 2
+        # wide, are counted as live
         s_, t_, g_ = torch.zeros_like(panel[..., :1], dtype=torch.int32), \
             0.5 * (panel + panel.mT), panel
-        flops = 0.0
+        need_tf32 = need_ieee = run_tf32 = run_ieee = 0.0
         for _ in range(levels):
             m = (s_ == s_.mT).sum(-1).double()
-            flops += float((_PRODUCTS_PER_LEVEL - 1) * 2.0 * (m * m).sum()
-                           + 2.0 * npad * m.sum())
+            need_tf32 += _TF32_PRODUCTS * 2.0 * float((m * m).sum())
+            need_ieee += ((_PRODUCTS_PER_LEVEL - 1 - _TF32_PRODUCTS) * 2.0 * float((m * m).sum())
+                          + 2.0 * npad * float(m.sum()))
+            diag, rows = level_tile_operations(torch, s_)
+            run_tf32 += _TF32_PRODUCTS * diag
+            run_ieee += (_PRODUCTS_PER_LEVEL - 1 - _TF32_PRODUCTS) * diag + rows
             s_, t_, g_ = dc_level_cuda(s_, t_, g_, min_seg=2)
         del s_, t_, g_
+        flops = need_tf32 + need_ieee
         a64 = panel.double()
         a2 = a64 @ a64
         off2 = a2 - torch.diag_embed(torch.diagonal(a2, dim1=-2, dim2=-1))
@@ -1111,8 +1162,13 @@ def per_level_warm(torch, np, xt, device, card):
                            inner=1)
         cold_ms = timed_ms(torch, lambda: jacobi_eigh(big, precondition=False), reps=3,
                            inner=1)
-        k_ms = timed_ms(torch, lambda: dc_precondition_per_level(panel, levels=levels),
+        # the kernel with its probe made once, and the call as jacobi_eigh makes
+        # it, which draws the probe on the host every time
+        om = default_probe(npad, torch.float32, device)
+        k_ms = timed_ms(torch, lambda: dc_precondition_per_level(panel, levels=levels, om=om),
                         reps=3, inner=1)
+        call_ms = timed_ms(torch, lambda: dc_precondition_per_level(panel, levels=levels),
+                           reps=3, inner=1)
         plain_ms = timed_ms(torch, plain_levels, reps=2, inner=1)
         n_products = _PRODUCTS_PER_LEVEL * levels
         out = torch.empty_like(panel)
@@ -1123,18 +1179,34 @@ def per_level_warm(torch, np, xt, device, card):
 
         bmm_ms = timed_ms(torch, products_as_bmm, reps=2, inner=1)
         dense = float(bsz) * n_products * 2.0 * npad ** 3
-        # a read once, the probe read once, G0 written once
-        k_bound, k_by = bound((2 * bsz * npad * npad + npad * npad) * 4, flops)
+        # a read once, the probe read once, G0 written once; the operations
+        # as IEEE float32 throughout, and under the schedule (61 products a
+        # level on the TF32 tensor cores)
+        nbytes = (2 * bsz * npad * npad + npad * npad) * 4
+        f32_bound, f32_by = bound(nbytes, flops)
+        k_bound, k_by = bound(nbytes, need_ieee, tf32_flops=need_tf32)
+        by_name = device_ms_by_name(
+            torch, lambda: dc_precondition_per_level(panel, levels=levels, om=om), calls=2)
+        prod_ms = sum(ms for nm, ms in by_name.items() if "level_gemm" in nm)
+        pass_ms = sum(by_name.values()) - prod_ms
         print("  timing %s [%s], CUDA events after warm-up (median): per-level dc kernel "
-              "%.3f ms a call, %.3f ms a level; plain %.3f ms; bound %.4f ms (%s: %.3f "
-              "TFLOP on this run's segments, %.1f TFLOP/s of it achieved, the kernel at "
-              "%.1fx its bound); the kernel runs its %d products dense, 2 n^3 each a "
-              "matrix: %.3f TFLOP, %.1f TFLOP/s; the same dense products as torch.bmm "
-              "%.3f ms; jacobi_eigh warm %.3f ms, cold %.3f ms; faster: %s"
-              % (tag, card, k_ms, k_ms / levels, plain_ms, k_bound, k_by, flops / 1e12,
-                 flops / k_ms / 1e9, k_ms / k_bound, n_products, dense / 1e12,
-                 dense / k_ms / 1e9, bmm_ms, warm_ms, cold_ms,
-                 "warm" if warm_ms < cold_ms else "cold"))
+              "%.3f ms a call, %.3f ms a level (%.3f ms a call with the probe drawn on the "
+              "host, as jacobi_eigh calls it); plain %.3f ms; device time by name "
+              "(profiler): products %.3f ms a call, passes and bookkeeping %.3f ms"
+              % (tag, card, k_ms, k_ms / levels, call_ms, plain_ms, prod_ms, pass_ms))
+        print("  operations %s [%s]: needed by this run's segments %.4f TFLOP (%.4f on the "
+              "%d TF32 products a level, %.4f IEEE); run by the tiles (band ranges) %.4f "
+              "(%.4f TF32, %.4f IEEE); all %d products dense %.3f TFLOP; bound as IEEE "
+              "float32 %.4f ms (%s; the kernel %.1fx it, %.1f TFLOP/s of the needed "
+              "work), under the schedule %.4f ms (%s; the kernel %.1fx it); the same dense "
+              "products as torch.bmm %.3f ms"
+              % (tag, card, flops / 1e12, need_tf32 / 1e12, _TF32_PRODUCTS,
+                 need_ieee / 1e12, (run_tf32 + run_ieee) / 1e12, run_tf32 / 1e12,
+                 run_ieee / 1e12, n_products, dense / 1e12, f32_bound, f32_by,
+                 k_ms / f32_bound, flops / k_ms / 1e9, k_bound, k_by, k_ms / k_bound,
+                 bmm_ms))
+        print("  jacobi_eigh %s [%s]: warm %.3f ms, cold %.3f ms; faster: %s"
+              % (tag, card, warm_ms, cold_ms, "warm" if warm_ms < cold_ms else "cold"))
         if npad == 768:
             busy, top = device_busy_ms(torch, lambda: jacobi_eigh(big, precondition=True),
                                        calls=2, top=5)
@@ -2221,6 +2293,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
+    parser.add_argument("--only", choices=("dc_level",), default=None,
+                        help="dc_level: build, then run only the per-level warm start's "
+                             "phase (per_level_warm); a development switch")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2260,6 +2335,12 @@ def main(argv=None) -> int:
         sweep_gate_table(torch, device, card, hold=False,
                          sizes=tuple(int(v) for v in args.gate_sizes.split(",")))
         print("total: %.1f s" % (time.perf_counter() - t_start))
+        return 0
+    if args.only == "dc_level":
+        level_record, _ = per_level_warm(torch, np, xt, device, card)
+        print(json.dumps({"kernels": [level_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
         return 0
 
     rng = np.random.default_rng(SEED)
@@ -2555,10 +2636,7 @@ def main(argv=None) -> int:
         jacobi_record, dc_record, complex_record, fused_record, level_record,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print_device(torch)
     return 0
 
 

@@ -25,7 +25,7 @@ from xitorch_tpu_torch.ops import dc_level as dlmod
 from xitorch_tpu_torch.ops import jacobi_eigh as jmod
 from xitorch_tpu_torch.ops.dc_kernel import dc_precondition
 from xitorch_tpu_torch.ops.dc_level import (
-    dc_level_cuda, dc_level_plain, dc_precondition_per_level,
+    band_ranges, dc_level_cuda, dc_level_plain, dc_precondition_per_level,
 )
 
 torch.set_num_threads(1)
@@ -144,11 +144,7 @@ def test_level_by_level_check_of_the_card_run(monkeypatch):
     # level at a time from the kernel's own state; with the plain version
     # standing in for the kernel every difference is 0 and the check passes,
     # and a kernel with a wrong level (G0 rotated at level 2) fails it
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     a = torch.as_tensor(_spd(32, 2, 48))
     monkeypatch.setattr(dlmod, "dc_level_cuda", dc_level_plain)
     (g, t, s), max_abs, rows = smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
@@ -164,6 +160,73 @@ def test_level_by_level_check_of_the_card_run(monkeypatch):
     monkeypatch.setattr(dlmod, "dc_level_cuda", wrong)
     with pytest.raises(AssertionError, match="after level 2"):
         smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
+
+
+# ------------------------------------------------------------------
+# the kernel's zero-block rule: each product tile runs k only over the
+# band ranges of the level's ids
+# ------------------------------------------------------------------
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_band_ranges_by_hand():
+    # segments [0, 3), [3, 5), [5, 9), [9, 10); bands of 4 rows
+    seg = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2, 2, 3], dtype=torch.int32)[None, :, None]
+    lo, hi = band_ranges(seg, 4)
+    assert lo.tolist() == [[0, 3, 5]] and hi.tolist() == [[5, 9, 10]]
+    # one segment: every band spans all of n; singletons: each band its own rows
+    lo, hi = band_ranges(torch.zeros((1, 10, 1), dtype=torch.int32), 4)
+    assert lo.tolist() == [[0, 0, 0]] and hi.tolist() == [[10, 10, 10]]
+    lo, hi = band_ranges(torch.arange(10, dtype=torch.int32)[None, :, None], 4)
+    assert lo.tolist() == [[0, 4, 8]] and hi.tolist() == [[4, 8, 10]]
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 1e-6)])
+@pytest.mark.parametrize("n, tile, levels", [(64, 16, 6), (200, 32, 4), (256, 128, 3)])
+def test_banded_products_give_the_dense_level(n, tile, levels, dtype, tol):
+    # one plain level whose products run only the kernel's k-ranges gives
+    # the dense level's ids, T and G0, level after level from one state: the
+    # first level from one segment, the later ones from a T that is
+    # block-diagonal over the parent ids only, down to frozen segments
+    a = torch.as_tensor(_spd(n + tile, 2, n, np.float64)).to(dtype)
+    s, t, g = torch.zeros((2, n, 1), dtype=torch.int32), 0.5 * (a + a.mT), a
+    parent_only = frozen = False
+    for _ in range(levels):
+        parent_only |= bool((t[s != s.mT] != 0).any())
+        frozen |= bool(((s == s.mT).sum(-1) <= 2).any())
+        sd, td, gd = dc_level_plain(s, t, g)
+        sb, tb, gb = dc_level_plain(s, t, g, tile=tile)
+        assert torch.equal(sb, sd)
+        for x, y in ((tb, td), (gb, gd)):
+            assert float((x - y).abs().max()) <= tol * float(y.abs().max())
+        s, t, g = sd, td, gd
+    assert parent_only
+    assert frozen or levels < 6
+
+
+def test_tile_operations_follow_the_band_ranges():
+    # chip_smoke.py counts the operations the kernel's tiles run from the
+    # band ranges: all of n for one segment, 2 m^3 a segment where the
+    # segments fill the bands, and never less than the segments need
+    smoke = _smoke()
+    n = 384
+    diag, rows = smoke.level_tile_operations(torch, torch.zeros((2, n, 1), dtype=torch.int32))
+    assert diag == rows == 2 * 2.0 * n ** 3
+    seg = (torch.arange(n) // 128).to(torch.int32)[None, :, None]
+    diag, rows = smoke.level_tile_operations(torch, seg)
+    assert diag == 3 * 2.0 * 128 ** 3 and rows == 3 * 2.0 * 128 * n * 128
+    seg = torch.as_tensor(np.sort(np.random.default_rng(0).integers(0, 9, n)),
+                          dtype=torch.int32)[None, :, None]
+    m = (seg == seg.mT).sum(-1).double()
+    diag, rows = smoke.level_tile_operations(torch, seg)
+    assert diag >= 2.0 * float((m * m).sum()) and rows >= 2.0 * n * float(m.sum())
 
 
 # ------------------------------------------------------------------

@@ -50,7 +50,9 @@ struct EpiCubic {
 };
 
 // The (bm, bn) output tile, BM x BN, of C = op(A) B on row-major (n, n)
-// planes in device memory, op = transpose when TA; C is neither A nor B.
+// planes in device memory, op = transpose when TA; C is neither A nor B;
+// the sum runs over k in [k_lo, k_hi) (0 <= k_lo < k_hi <= n), so a caller
+// whose operands are zero outside that range skips the rest exactly.
 // 256 threads, 8 x 8 outputs a thread, 8-deep k tiles staged through
 // registers, every accumulation an IEEE float32 multiply-add (no TF32).
 // Every thread of the block calls it; the shared tiles are free again on
@@ -58,7 +60,8 @@ struct EpiCubic {
 // the other threads of the block.
 template <bool TA, class Epi>
 __device__ __forceinline__ void gemm_tile(const float* A, const float* B, float* C,
-                                          int n, int bm, int bn, Epi epi, Tiles& s) {
+                                          int n, int bm, int bn, Epi epi, Tiles& s,
+                                          int k_lo, int k_hi) {
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   // global -> register staging: this thread's four A and four B values
@@ -78,13 +81,13 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* B, float*
     for (int q = 0; q < 4; ++q) {
       if (TA) {
         const int k = k0 + la_k, i = bm + la_i + q;
-        ra[q] = (k < n && i < n) ? A[(size_t)k * n + i] : 0.0f;
+        ra[q] = (k < k_hi && i < n) ? A[(size_t)k * n + i] : 0.0f;
       } else {
         const int i = bm + la_i, k = k0 + la_k + q;
-        ra[q] = (i < n && k < n) ? A[(size_t)i * n + k] : 0.0f;
+        ra[q] = (i < n && k < k_hi) ? A[(size_t)i * n + k] : 0.0f;
       }
       const int k = k0 + lb_k, j = bn + lb_j + q;
-      rb[q] = (k < n && j < n) ? B[(size_t)k * n + j] : 0.0f;
+      rb[q] = (k < k_hi && j < n) ? B[(size_t)k * n + j] : 0.0f;
     }
   };
   auto stage = [&]() {
@@ -98,11 +101,11 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* B, float*
     }
   };
 
-  fetch(0);
+  fetch(k_lo);
   stage();
   __syncthreads();
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    const bool more = k0 + BK < n;
+  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+    const bool more = k0 + BK < k_hi;
     if (more) fetch(k0 + BK);
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
@@ -133,6 +136,13 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* B, float*
       if (col < n) C[(size_t)row * n + col] = epi(row, col, acc[i][j]);
     }
   }
+}
+
+// the dense product: k over all of n
+template <bool TA, class Epi>
+__device__ __forceinline__ void gemm_tile(const float* A, const float* B, float* C,
+                                          int n, int bm, int bn, Epi epi, Tiles& s) {
+  gemm_tile<TA>(A, B, C, n, bm, bn, epi, s, 0, n);
 }
 
 }  // namespace

@@ -37,8 +37,10 @@
 // level).  The work the level needs is less: after level l its operands are
 // block-diagonal over the segments, so 71 products need 2 m^3 a segment of
 // m rows and G0 <- Q^T G0 2 m^2 n, about 7x fewer operations over 10 levels
-// (chip_smoke.py counts them from the segments of its run).  Skipping the
-// zero blocks is left for later.
+// (chip_smoke.py counts them from the segments of its run).  So each
+// product tile runs k only over the band ranges of the level's ids (the
+// product kernel below), and a tile whose range is empty stores its
+// epilogue of zero.
 //
 // Design.  The host runs the levels (ops/dc_level.py), one call of
 // dc_level_f32 a level, which puts a fixed sequence of kernels on the
@@ -63,14 +65,17 @@ constexpr int kMaxN = 1024;       // length of the bookkeeping vectors
 constexpr int kVecThreads = 1024; // one block a matrix for the bookkeeping
 constexpr int kColThreads = 128;  // column reductions: a thread a column
 constexpr int kPlanes = 4;        // workspace planes a matrix
-constexpr int kIvec = 3;          // int vectors a matrix: size, start, low
+constexpr int kIvec = 5;          // int vectors a matrix: size, start, low, lo, hi
 constexpr int kFvec = 5;          // float vectors: sigma, col, bound, rsum, scale
 
 constexpr float kBeta = 0.02f;    // rank-safety probe blend (per-level)
 constexpr int kCubicSign = 14;
 constexpr int kQuinticPolar = 10, kCubicPolar = 5;
 
-enum { kSize = 0, kStart = 1, kLow = 2 };
+// kLo, kHi: per BM-row band, the k-range of the band's segments (the first
+// entry of the segment of its first row, one past the end of that of its
+// last row), the first (n + BM - 1) / BM entries of their vectors
+enum { kSize = 0, kStart = 1, kLow = 2, kLo = 3, kHi = 4 };
 enum { kSigma = 0, kCol = 1, kBound = 2, kRsum = 3, kScale = 4 };
 
 struct Level {
@@ -86,20 +91,60 @@ struct Level {
 // ---------------------------------------------------------------------------
 // the batched product: C[b] = op(A[b]) B[b] for every matrix b, one output
 // tile a block; aux[b] is the plane the epilogue reads (kMode 1: qa I +
-// qb aux + qc acc; kMode 2: 1.5 aux - 0.5 acc; kMode 0: acc)
+// qb aux + qc acc; kMode 2: 1.5 aux - 0.5 acc; kMode 0: acc).  The k-range
+// of a tile comes from the band ranges (kBlockDiag: both operands
+// block-diagonal, k over the overlap of the row and column bands' ranges;
+// kRowBand: op(A) block-diagonal, B dense, k over the row band's range).  A
+// tile whose range is empty stores epi(i, j, 0) and returns: the planes
+// rotate, so no tile may keep a stale value.
 // ---------------------------------------------------------------------------
-template <bool TA, int kMode>
-__global__ void __launch_bounds__(kThreads)
-level_gemm(const float* A, const float* B, float* C, const float* aux, int n) {
-  __shared__ Tiles tiles;
-  const size_t off = (size_t)blockIdx.z * n * n;
+enum { kBlockDiag = 0, kRowBand = 1 };
+
+__device__ __forceinline__ void band_k(const Level& L, int b, int bi, int bj, int kRange,
+                                       int& k_lo, int& k_hi) {
+  const int* lo = L.iv(b, kLo);
+  const int* hi = L.iv(b, kHi);
+  k_lo = lo[bi];
+  k_hi = hi[bi];
+  if (kRange == kBlockDiag) {
+    k_lo = max(k_lo, lo[bj]);
+    k_hi = min(k_hi, hi[bj]);
+  }
+}
+
+template <class Epi>
+__device__ __forceinline__ void store_empty_tile(float* C, int n, int bm, int bn, Epi epi) {
+  for (int e = threadIdx.x; e < BM * BN; e += blockDim.x) {
+    const int i = bm + e / BN, j = bn + e % BN;
+    if (i < n && j < n) C[(size_t)i * n + j] = epi(i, j, 0.0f);
+  }
+}
+
+template <bool TA, class Epi>
+__device__ __forceinline__ void ieee_tile(const Level& L, int kRange, const float* A,
+                                          const float* B, float* C, Epi epi, Tiles& tiles) {
+  const int b = blockIdx.z, n = L.n;
   const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
-  if (kMode == 1)
-    gemm_tile<TA>(A + off, B + off, C + off, n, bm, bn, EpiQuinticW{aux + off, n}, tiles);
-  else if (kMode == 2)
-    gemm_tile<TA>(A + off, B + off, C + off, n, bm, bn, EpiCubic{aux + off, n}, tiles);
+  int k_lo, k_hi;
+  band_k(L, b, blockIdx.y, blockIdx.x, kRange, k_lo, k_hi);
+  if (k_lo >= k_hi)
+    store_empty_tile(C, n, bm, bn, epi);
   else
-    gemm_tile<TA>(A + off, B + off, C + off, n, bm, bn, EpiStore{}, tiles);
+    gemm_tile<TA>(A, B, C, n, bm, bn, epi, tiles, k_lo, k_hi);
+}
+
+template <bool TA, int kMode, int kRange>
+__global__ void __launch_bounds__(kThreads)
+level_gemm(Level L, const float* A, const float* B, float* C, const float* aux) {
+  __shared__ Tiles tiles;
+  const int n = L.n;
+  const size_t off = (size_t)blockIdx.z * n * n;
+  if (kMode == 1)
+    ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiQuinticW{aux + off, n}, tiles);
+  else if (kMode == 2)
+    ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiCubic{aux + off, n}, tiles);
+  else
+    ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiStore{}, tiles);
 }
 
 // ---------------------------------------------------------------------------
@@ -111,6 +156,7 @@ __global__ void __launch_bounds__(kVecThreads)
 level_stats(Level L, const float* T_g) {
   __shared__ int seg[kMaxN];
   __shared__ int size[kMaxN];
+  __shared__ int start[kMaxN];
   __shared__ int rank[kMaxN];
   __shared__ float d[kMaxN];
   const int b = blockIdx.x, n = L.n, tid = threadIdx.x;
@@ -128,6 +174,7 @@ level_stats(Level L, const float* T_g) {
       st += seg[j] < si;
     }
     size[i] = sz;
+    start[i] = st;
     L.iv(b, kSize)[i] = sz;
     L.iv(b, kStart)[i] = st;
   }
@@ -142,6 +189,12 @@ level_stats(Level L, const float* T_g) {
     rank[j] = r;
   }
   __syncthreads();
+  // the band ranges the products read (segments are contiguous runs)
+  for (int t = tid; t * BM < n; t += kVecThreads) {
+    const int last = min(n, (t + 1) * BM) - 1;
+    L.iv(b, kLo)[t] = start[t * BM];
+    L.iv(b, kHi)[t] = start[last] + size[last];
+  }
   // median: mean of the two middle ranks
   for (int i = tid; i < n; i += kVecThreads) {
     const int lo_t = (size[i] - 1) / 2, hi_t = size[i] / 2;
@@ -336,11 +389,12 @@ struct Launcher {
     if (err == cudaSuccess) err = cudaGetLastError();
     return err == cudaSuccess;
   }
-  template <bool TA, int kMode>
-  void gemm(const float* A, const float* Bm, float* C, const float* aux = nullptr) {
+  template <bool TA, int kMode, int kRange = kBlockDiag>
+  void gemm(const Level& L, const float* A, const float* Bm, float* C,
+            const float* aux = nullptr) {
     if (err != cudaSuccess) return;
     const dim3 grid((n + BN - 1) / BN, (n + BM - 1) / BM, B);
-    level_gemm<TA, kMode><<<grid, kThreads, 0, stream>>>(A, Bm, C, aux, n);
+    level_gemm<TA, kMode, kRange><<<grid, kThreads, 0, stream>>>(L, A, Bm, C, aux);
     ok();
   }
   template <int kStep>
@@ -394,8 +448,8 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
 
   // ---- E ~ sign(X): cubic steps only ----
   for (int it = 0; it < kCubicSign; ++it) {
-    run.gemm<false, 0>(X, X, S);
-    run.gemm<false, 2>(X, S, Xn, X);
+    run.gemm<false, 0>(L, X, X, S);
+    run.gemm<false, 2>(L, X, S, Xn, X);
     float* t = X;
     X = Xn;
     Xn = t;
@@ -410,7 +464,7 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // ---- probe, blended slot columns, scaling ----
   float *Y = S, *POm = Xn;
   run.elementwise<kProbe>(L, Y, Y, om);
-  run.gemm<false, 0>(P, Y, POm);
+  run.gemm<false, 0>(L, P, Y, POm);
   run.elementwise<kBlend>(L, Y, POm);
   run.col_reduce<kColNorm2>(L, Y, kCol);
   run.elementwise<kDivColn>(L, Y, Y);
@@ -429,26 +483,30 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // ---- Q = polar factor ----
   float *Q = Y, *Gm = POm, *W = P, *Qn = p[3];
   for (int it = 0; it < kQuinticPolar; ++it) {
-    run.gemm<true, 0>(Q, Q, Gm);
-    run.gemm<false, 1>(Gm, Gm, W, Gm);
-    run.gemm<false, 0>(Q, W, Qn);
+    run.gemm<true, 0>(L, Q, Q, Gm);
+    run.gemm<false, 1>(L, Gm, Gm, W, Gm);
+    run.gemm<false, 0>(L, Q, W, Qn);
     float* t = Q;
     Q = Qn;
     Qn = t;
   }
   for (int it = 0; it < kCubicPolar; ++it) {
-    run.gemm<true, 0>(Q, Q, Gm);
-    run.gemm<false, 2>(Q, Gm, Qn, Q);
+    run.gemm<true, 0>(L, Q, Q, Gm);
+    run.gemm<false, 2>(L, Q, Gm, Qn, Q);
     float* t = Q;
     Q = Qn;
     Qn = t;
   }
 
   // ---- T <- sym(Q^T T Q) on the blocks, G0 <- Q^T G0, split the ids ----
-  run.gemm<false, 0>(t_in, Q, Gm);
-  run.gemm<true, 0>(Q, Gm, W);
+  // T is block-diagonal over the parent ids only, so the band ranges of the
+  // level's ids leave T Q short outside the level's diagonal blocks; but
+  // Q^T (T Q) on those blocks reads T Q only inside them, where the range
+  // holds every nonzero term, and kSymMask keeps only them
+  run.gemm<false, 0>(L, t_in, Q, Gm);
+  run.gemm<true, 0>(L, Q, Gm, W);
   run.elementwise<kSymMask>(L, t_out, W);
-  run.gemm<true, 0>(Q, g_in, g_out);
+  run.gemm<true, 0, kRowBand>(L, Q, g_in, g_out);
   if (run.err == cudaSuccess) {
     level_split<<<B, kVecThreads, 0, run.stream>>>(L, seg_out);
     run.ok();

@@ -34,6 +34,7 @@ Segment ids are (B, n, 1) int32, non-decreasing along the index.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -43,7 +44,8 @@ from xitorch_tpu_torch.ops.spectral_dc import _QUINTIC, as_probe
 from xitorch_tpu_torch.ops.tridiag import use_kernel
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
-__all__ = ["dc_level_cuda", "dc_level_plain", "dc_precondition_per_level", "fits_dc_level"]
+__all__ = ["band_ranges", "dc_level_cuda", "dc_level_plain", "dc_precondition_per_level",
+           "fits_dc_level"]
 
 # above this padded n the warm start runs one level a launch (the
 # reference's threshold: its single-shot kernel's working set stops fitting
@@ -54,16 +56,24 @@ _PER_LEVEL_MIN_N = 448
 # the cold sweep
 _PER_LEVEL_MAX_N = 768
 _RANK_SAFE_BETA_LEAN = 0.02
-_N_CUBIC_SIGN = 14
+# the reference's schedule: 12 + 2 cubic sign steps, 10 quintic and 3 + 2
+# cubic polar steps
+_N_CUBIC_SIGN, _N_CUBIC_SIGN_HI = 12, 2
 _N_QUINTIC_POLAR = 10
-_N_CUBIC_POLAR = 5
-_PRODUCTS_PER_LEVEL = 2 * _N_CUBIC_SIGN + 1 + 3 * _N_QUINTIC_POLAR + 2 * _N_CUBIC_POLAR + 3
+_N_CUBIC_POLAR, _N_CUBIC_POLAR_HI = 3, 2
+_PRODUCTS_PER_LEVEL = (2 * (_N_CUBIC_SIGN + _N_CUBIC_SIGN_HI) + 1 + 3 * _N_QUINTIC_POLAR
+                       + 2 * (_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI) + 3)
+# the products the reference runs at default precision (TF32 on this card):
+# 12 sign steps, the probe, the 10 quintic and 3 cubic polar steps
+_TF32_PRODUCTS = 2 * _N_CUBIC_SIGN + 1 + 3 * _N_QUINTIC_POLAR + 2 * _N_CUBIC_POLAR
+# rows of an output tile of the kernel's products: the width of a band
+_TILE = 128
 
 # window of the kernel: the bookkeeping vectors are kMaxN = 1024 long in
 # shared memory; workspace four (n, n) float32 planes a matrix
 _N_MAX = 1024
 _WORK_PLANES = 4
-_IVEC, _FVEC = 3, 5
+_IVEC, _FVEC = 5, 5
 _WORK_BUDGET = 8 << 30
 
 _P = ctypes.c_void_p
@@ -95,14 +105,76 @@ def _seg_max(v: torch.Tensor, seg_eq_b: torch.Tensor) -> torch.Tensor:
     return torch.where(seg_eq_b, v[:, None, :], v.new_zeros(())).amax(-1)
 
 
+def band_ranges(seg: torch.Tensor, tile: int = _TILE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k-ranges of the kernel's row bands: for each ``tile``-row band of
+    each matrix, ``lo`` is the first index of the segment that holds the
+    band's first row and ``hi`` one past the end of the segment that holds
+    its last row.  ``seg``: (B, n, 1) ids, non-decreasing along the index
+    (every segment a contiguous run).  Returns two (B, ceil(n / tile))
+    int64 tensors."""
+    B = seg.shape[0]
+    seg = seg.reshape(B, -1).to(torch.int64)
+    n = seg.shape[1]
+    starts = (seg[:, None, :] < seg[:, :, None]).sum(-1)
+    ends = starts + (seg[:, None, :] == seg[:, :, None]).sum(-1)
+    first = torch.arange(0, n, tile, device=seg.device)
+    last = torch.clamp(first + tile, max=n) - 1
+    return starts[:, first], ends[:, last]
+
+
+def _k_range(lo, hi, m: int, bi: int, bj: int, rows: bool) -> Tuple[int, int]:
+    """The k-range of output tile (bi, bj) of matrix m: the overlap of the
+    two bands' ranges when both operands are block-diagonal, the row band's
+    when only op(A) is (``rows``)."""
+    if rows:
+        return lo[m][bi], hi[m][bi]
+    return max(lo[m][bi], lo[m][bj]), min(hi[m][bi], hi[m][bj])
+
+
+def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
+    """``op(a) @ b`` as the kernel's tiles run it: each ``tile`` x ``tile``
+    output block sums k over its range only (:func:`_k_range`), and is zero
+    where the range is empty."""
+    B, n, _ = b.shape
+    lo, hi = lo.tolist(), hi.tolist()
+    out = b.new_zeros((B, n, n))
+    for m in range(B):
+        for bi in range(len(lo[m])):
+            r = slice(bi * tile, min(n, (bi + 1) * tile))
+            for bj in range(len(lo[m])):
+                k0, k1 = _k_range(lo, hi, m, bi, bj, rows)
+                if k0 >= k1:
+                    continue
+                c = slice(bj * tile, min(n, (bj + 1) * tile))
+                ak = a[m, k0:k1, r].mT if ta else a[m, r, k0:k1]
+                out[m, r, c] = dot_hi(ak, b[m, k0:k1, c])
+    return out
+
+
+def _product(a, b, *, ta: bool = False, rows: bool = False, bands=None) -> torch.Tensor:
+    """One of the level's 72 products, ``op(a) @ b`` (op = transpose when
+    ``ta``) in IEEE arithmetic: dense, or with ``bands = (lo, hi, tile)``
+    only over the k-ranges the kernel's tiles run (``rows``: b is dense, the
+    row band's range)."""
+    if bands is None:
+        return dot_hi(a.mT if ta else a, b)
+    return _banded(a, b, *bands, ta, rows)
+
+
 def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
-                   om=None, min_seg: int = 2
+                   om=None, min_seg: int = 2, tile=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of one level of the kernel, in its order of
     steps: ``(seg, T, G0)`` before the level to ``(seg, T, G0)`` after it.
-    ``om``: the (n, n) probe (None draws ``spectral_dc.default_probe``)."""
+    ``om``: the (n, n) probe (None draws ``spectral_dc.default_probe``).
+    ``tile``: None runs every product dense; a width runs each product only
+    over the k-ranges that the kernel's tiles of that width run
+    (:func:`band_ranges`), which gives the dense result on every entry the
+    level reads."""
     _check_state(seg, T, G0, "dc_level_plain")
     B, n, _ = T.shape
+    bands = None if tile is None else (*band_ranges(seg, tile), tile)
+    mm = functools.partial(_product, bands=bands)
     dt, dev = T.dtype, T.device
     om = as_probe(om, n, dt, dev)
     qa, qb, qc = _QUINTIC
@@ -135,9 +207,9 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     bound = _seg_max(C.abs().sum(-2), seg_eq_b)
     X = C * live / (1.01 * bound[:, :, None] + 1e-30)
     # cubic-only sign: no identity term, so the masked zeros stay zero
-    for _ in range(_N_CUBIC_SIGN):
-        X2 = dot_hi(X, X)
-        X = 1.5 * X - 0.5 * dot_hi(X, X2)
+    for _ in range(_N_CUBIC_SIGN + _N_CUBIC_SIGN_HI):
+        X2 = mm(X, X)
+        X = 1.5 * X - 0.5 * mm(X, X2)
     P = 0.5 * (eye - X) * live
 
     tr = (seg_eq * torch.diagonal(P, dim1=-2, dim2=-1)[:, None, :]).sum(-1)
@@ -146,7 +218,7 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     low = ((iot[None, :] - starts) < r) & ~froz
 
     omb = (fro_any * eye + (1.0 - fro_any) * om) * seg_eq
-    POm = dot_hi(P, omb)
+    POm = mm(P, omb)
     Y = (1.0 - beta) * torch.where(low[:, None, :], POm, omb - POm) + beta * omb
     Y = Y / (torch.sqrt((Y * Y).sum(-2, keepdim=True)) + 1e-20)
     rmax = _seg_max(Y.abs().sum(-1), seg_eq_b)
@@ -154,15 +226,17 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     Q = Y / (1.01 * torch.sqrt(rmax * cmax) + 1e-30)[:, None, :]
 
     for _ in range(_N_QUINTIC_POLAR):
-        Gm = dot_hi(Q.mT, Q)
-        Q = dot_hi(Q, qa * eye + qb * Gm + qc * dot_hi(Gm, Gm))
-    for _ in range(_N_CUBIC_POLAR):
-        Gm = dot_hi(Q.mT, Q)
-        Q = 1.5 * Q - 0.5 * dot_hi(Q, Gm)
+        Gm = mm(Q, Q, ta=True)
+        Q = mm(Q, qa * eye + qb * Gm + qc * mm(Gm, Gm))
+    for _ in range(_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI):
+        Gm = mm(Q, Q, ta=True)
+        Q = 1.5 * Q - 0.5 * mm(Q, Gm)
 
-    Tn = dot_hi(Q.mT, dot_hi(T, Q))
+    # T is block-diagonal over the parent ids only: with bands, T Q is short
+    # outside the level's blocks, which Q^T (T Q) on the blocks never reads
+    Tn = mm(Q, mm(T, Q), ta=True)
     Tn = 0.5 * (Tn + Tn.mT) * seg_eq
-    Gn = dot_hi(Q.mT, G0)
+    Gn = mm(Q, G0, ta=True, rows=True)
     seg = seg * 2 + torch.where(low | froz, 0, 1)
     return seg.to(torch.int32)[..., None], Tn, Gn
 
