@@ -686,7 +686,8 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
     """Hold the DC kernel against its plain version one level at a time, from
     the kernel's own state, on the (B, n, n) float32 CUDA batch ``a``; with
     ``per_level`` the per-level kernel (``dc_level_cuda``, one launch a
-    level) against ``dc_level_plain``.
+    level) against ``dc_level_plain``, whose float32 run then follows the
+    kernel's precision schedule (``fast="tf32"``).
 
     The sort is chaotic over its levels: a level whose projector is soft, or
     whose probe block has a tiny singular value, amplifies rounding (on
@@ -739,7 +740,10 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
             t_prev, s_prev = state if state is not None else (
                 0.5 * (a + a.mT), torch.zeros_like(a[..., :1], dtype=torch.int32))
             sk, tk, gk = dc_level_cuda(s_prev, t_prev, g_prev, min_seg=min_seg)
-            sp, tp, gp = dc_level_plain(s_prev, t_prev, g_prev, min_seg=min_seg)
+            # the kernel's precision schedule: its 7 TF32 products with TF32
+            # operands (float64 ignores it)
+            sp, tp, gp = dc_level_plain(s_prev, t_prev, g_prev, min_seg=min_seg,
+                                        fast="tf32")
             _, t6, g6 = dc_level_plain(s_prev, t_prev.double(), g_prev.double(), om=om64,
                                        min_seg=min_seg)
         else:
@@ -1050,7 +1054,7 @@ def per_level_warm(torch, np, xt, device, card):
             s_, t_, g_ = torch.zeros_like(panel[..., :1], dtype=torch.int32), \
                 0.5 * (panel + panel.mT), panel
             for _ in range(levels):
-                s_, t_, g_ = dc_level_plain(s_, t_, g_)
+                s_, t_, g_ = dc_level_plain(s_, t_, g_, fast="tf32")
             return g_
 
         gp = plain_levels()
@@ -1059,9 +1063,9 @@ def per_level_warm(torch, np, xt, device, card):
         # are block-diagonal over the segments the level starts from, so 71
         # of a level's products need 2 m^3 a segment of m rows and
         # G0 <- Q^T G0 needs 2 m^2 n: per matrix, summed over rows,
-        # 142 sum(m^2) + 2 n sum(m); 61 of the 71 are the reference's
-        # default-precision products (TF32 here).  And the operations the
-        # kernel's tiles run, from the band ranges (level_tile_operations).
+        # 142 sum(m^2) + 2 n sum(m); 7 of the 71 run on TF32 (the probe and
+        # 3 cubic polar steps).  And the operations the kernel's tiles run,
+        # from the band ranges (level_tile_operations).
         # The kernel's own segments at each level are counted (its extra
         # launches here precede the counted run); frozen segments, at most 2
         # wide, are counted as live
@@ -1180,8 +1184,8 @@ def per_level_warm(torch, np, xt, device, card):
         bmm_ms = timed_ms(torch, products_as_bmm, reps=2, inner=1)
         dense = float(bsz) * n_products * 2.0 * npad ** 3
         # a read once, the probe read once, G0 written once; the operations
-        # as IEEE float32 throughout, and under the schedule (61 products a
-        # level on the TF32 tensor cores)
+        # as IEEE float32 throughout, and under the kernel's schedule (7
+        # products a level on the TF32 tensor cores)
         nbytes = (2 * bsz * npad * npad + npad * npad) * 4
         f32_bound, f32_by = bound(nbytes, flops)
         k_bound, k_by = bound(nbytes, need_ieee, tf32_flops=need_tf32)

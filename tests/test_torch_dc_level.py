@@ -1,9 +1,13 @@
 """The per-level divide-and-conquer warm start of the port (one level a
 launch, ``ops/dc_level.py``) against the JAX package's per-level Pallas
 kernel in interpret mode, on the same numpy inputs with the reference's own
-probe carried across; the routing and padding of ``jacobi_eigh`` on that
-path; and the sweep-kernel gate of ``ops/jacobi_eigh.py``, which the card's
-measured table makes a function of batch and n.  On the CPU the plain
+probe carried across; the kernel's zero-block rule (products over the band
+ranges of the level's segments give the dense level) and its precision
+schedule (TF32 operands, rounded as ``cvt.rna`` does, on the 7 products it
+runs on the tensor cores) through the plain version; the routing and
+padding of ``jacobi_eigh`` on that path; and the sweep-kernel gate of
+``ops/jacobi_eigh.py``, which the card's measured table makes a function of
+batch and n.  On the CPU the plain
 versions run and no kernel launches; the CUDA kernel is held against its
 plain version in chip_smoke.py and tests/test_torch_kernels_cuda.py."""
 import importlib
@@ -25,7 +29,7 @@ from xitorch_tpu_torch.ops import dc_level as dlmod
 from xitorch_tpu_torch.ops import jacobi_eigh as jmod
 from xitorch_tpu_torch.ops.dc_kernel import dc_precondition
 from xitorch_tpu_torch.ops.dc_level import (
-    band_ranges, dc_level_cuda, dc_level_plain, dc_precondition_per_level,
+    band_ranges, dc_level_cuda, dc_level_plain, dc_precondition_per_level, tf32_round,
 )
 
 torch.set_num_threads(1)
@@ -140,25 +144,32 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 
 
 def test_level_by_level_check_of_the_card_run(monkeypatch):
-    # chip_smoke.py holds the per-level kernel against dc_level_plain one
-    # level at a time from the kernel's own state; with the plain version
-    # standing in for the kernel every difference is 0 and the check passes,
-    # and a kernel with a wrong level (G0 rotated at level 2) fails it
+    # chip_smoke.py holds the per-level kernel against dc_level_plain (with
+    # the kernel's TF32 schedule) one level at a time from the kernel's own
+    # state; with that plain version standing in for the kernel every
+    # difference is 0 and the check passes, and a kernel with a wrong level
+    # (G0 rotated at level 2) fails it
     smoke = _smoke()
     a = torch.as_tensor(_spd(32, 2, 48))
-    monkeypatch.setattr(dlmod, "dc_level_cuda", dc_level_plain)
+    monkeypatch.setattr(dlmod, "dc_level_cuda",
+                        lambda *x, **k: dc_level_plain(*x, fast="tf32", **k))
     (g, t, s), max_abs, rows = smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
-    assert torch.equal(g, dc_precondition_per_level(a, levels=4))
+    s_, t_, g_ = torch.zeros((2, 48, 1), dtype=torch.int32), 0.5 * (a + a.mT), a
+    for _ in range(4):
+        s_, t_, g_ = dc_level_plain(s_, t_, g_, fast="tf32")
+    assert torch.equal(g, g_) and torch.equal(s, s_)
     assert max_abs == 0.0 and len(rows) == 4
     depth = []
 
     def wrong(seg, T, G0, **kw):
-        s_, t_, g_ = dc_level_plain(seg, T, G0, **kw)
+        s_, t_, g_ = dc_level_plain(seg, T, G0, fast="tf32", **kw)
         depth.append(1)
         return s_, t_, (g_ + 1e-3 * g_.roll(1, -2)) if len(depth) == 2 else g_
 
     monkeypatch.setattr(dlmod, "dc_level_cuda", wrong)
-    with pytest.raises(AssertionError, match="after level 2"):
+    # under TF32 plain's own float32-to-float64 distance is ~1e-3, so the
+    # G-invariant check is the one that catches this rotation, at level 2
+    with pytest.raises(AssertionError, match="level 2 loses the G-invariant"):
         smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
 
 
@@ -209,6 +220,82 @@ def test_banded_products_give_the_dense_level(n, tile, levels, dtype, tol):
         s, t, g = sd, td, gd
     assert parent_only
     assert frozen or levels < 6
+
+
+# ------------------------------------------------------------------
+# the kernel's precision schedule: 7 products on TF32 (the probe and the
+# first 3 cubic polar steps), 65 in IEEE float32
+# ------------------------------------------------------------------
+
+def _f32(bits):
+    return np.array(bits, dtype=np.uint32).view(np.float32)
+
+
+def test_tf32_round_as_cvt_rna():
+    # cvt.rna.tf32.f32: to nearest, ties away from zero, 10 mantissa bits
+    cases = [
+        (0x3F800000, 0x3F800000),   # 1.0: exact
+        (0x3F801000, 0x3F802000),   # 1 + 2^-11, a tie: away (to even would stay at 1)
+        (0xBF801000, 0xBF802000),   # its negative: away from zero too
+        (0x3F800FFF, 0x3F800000),   # just below the tie: down
+        (0x3F801001, 0x3F802000),   # just above: up
+        (0x3F803000, 0x3F804000),   # a tie above an odd TF32 mantissa
+        (0x3FFFF000, 0x40000000),   # the carry runs into the exponent
+        (0x4B7FFFFF, 0x4B800000),   # 2^24 - 1 rounds up to 2^24
+        (0x00000000, 0x00000000),   # +0
+        (0x80000000, 0x80000000),   # -0
+        (0x7F800000, 0x7F800000),   # inf
+        (0xFF800000, 0xFF800000),   # -inf
+    ]
+    x = torch.as_tensor(_f32([c[0] for c in cases]))
+    got = tf32_round(x).numpy().view(np.uint32).tolist()
+    assert got == [c[1] for c in cases]
+    assert bool(torch.isnan(tf32_round(torch.tensor([float("nan")]))).all())
+    # every result has its low 13 bits clear and lies within half a TF32 ulp
+    y = torch.as_tensor(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    r = tf32_round(y)
+    assert not bool((r.view(torch.int32) & 0x1FFF).any())
+    assert bool(((r - y).abs() <= y.abs() * 2.0 ** -11 * (1 + 1e-6)).all())
+
+
+@pytest.mark.parametrize("dtype, fast, n_tf32", [
+    (torch.float32, "tf32", 7), (torch.float32, "ieee", 0), (torch.float64, "tf32", 0)])
+def test_tf32_touches_only_the_kernels_tf32_products(monkeypatch, dtype, fast, n_tf32):
+    # the order of a level's 72 products and which of them take TF32
+    # operands: 14 IEEE sign steps, the TF32 probe, 10 IEEE quintic polar
+    # steps, 3 TF32 + 2 IEEE cubic polar steps, then T Q, Q^T (T Q), Q^T G0
+    flags = []
+    product = dlmod._product
+
+    def record(a, b, **kw):
+        flags.append(kw.get("tf32", False))
+        return product(a, b, **kw)
+
+    monkeypatch.setattr(dlmod, "_product", record)
+    a = torch.as_tensor(_spd(7, 2, 48)).to(dtype)
+    dc_level_plain(torch.zeros((2, 48, 1), dtype=torch.int32), 0.5 * (a + a.mT), a,
+                   fast=fast)
+    on = n_tf32 > 0
+    want = [False] * 28 + [on] + [False] * 30 + [on] * 6 + [False] * 4 + [False] * 3
+    assert len(flags) == dlmod._PRODUCTS_PER_LEVEL == 72
+    assert flags == want and sum(flags) == n_tf32
+    assert dlmod._TF32_PRODUCTS == 7
+
+
+def test_tf32_level_rounds_and_stays_close():
+    # "tf32" changes the level by TF32 rounding, not more: ids equal, the
+    # G-invariant kept by the two IEEE polar steps; "ieee" is the default
+    a = torch.as_tensor(_spd(9, 2, 64))
+    seg = torch.zeros((2, 64, 1), dtype=torch.int32)
+    s0, t0, g0 = dc_level_plain(seg, 0.5 * (a + a.mT), a)
+    s1, t1, g1 = dc_level_plain(seg, 0.5 * (a + a.mT), a, fast="tf32")
+    assert torch.equal(s0, s1)
+    assert 0 < float((g1 - g0).abs().max()) < 1e-2 * float(g0.abs().max())
+    a2 = (a @ a).double()
+    assert float((g1.double().mT @ g1.double() - a2).abs().max() / a2.abs().max()) < 1e-5
+    assert torch.equal(dc_level_plain(seg, 0.5 * (a + a.mT), a, fast="ieee")[2], g0)
+    with pytest.raises(ValueError, match="tf32"):
+        dc_level_plain(seg, a, a, fast="bf16")
 
 
 def test_tile_operations_follow_the_band_ranges():

@@ -26,38 +26,66 @@
 //   * T <- sym(Q^T T Q) * [same segment], G0 <- Q^T G0, and the ids split:
 //     id <- 2 id + (0 if low or frozen else 1).
 // That is 72 (n, n) products a level: 28 sign, 1 probe, 30 quintic and 10
-// cubic polar, 2 for Q^T T Q and 1 for G0.  The reference's 12 default-
-// precision and 2 exact sign steps are one schedule of 14 here, and its
-// 3 + 2 cubic polar steps one of 5: every product on this card is IEEE
-// float32.
-//
-// What bounds it on the H100: operations.  This kernel runs its 72 products
-// dense, 72 * 2 n^3 float32 operations a matrix and level (8 x 768^2 and 10
-// levels: 5.2 TFLOP) against T and G0 read and written once (~40 MB a
-// level).  The work the level needs is less: after level l its operands are
-// block-diagonal over the segments, so 71 products need 2 m^3 a segment of
-// m rows and G0 <- Q^T G0 2 m^2 n, about 7x fewer operations over 10 levels
-// (chip_smoke.py counts them from the segments of its run).  So each
-// product tile runs k only over the band ranges of the level's ids (the
-// product kernel below), and a tile whose range is empty stores its
-// epilogue of zero.
+// cubic polar, 2 for Q^T T Q and 1 for G0.  The reference runs 61 of them at
+// default precision (12 of the 14 sign steps, the probe, the 10 quintic and
+// 3 of the 5 cubic polar steps) and 11 at HIGHEST.  This card runs 7 on the
+// TF32 tensor cores, the probe and the first 3 cubic polar steps, and the
+// other 65 in IEEE float32: with the sign or the quintic polar steps on
+// TF32 the kernel's level and the plain version's emulation of its TF32
+// rounding (ops/dc_level.py) part, at the levels where the sort amplifies
+// rounding, by far more than the float64 distance of either (PERF.md,
+// PR 8: of 41 random batches at 8 x 512^2 to 8 x 768^2, 17 fail the
+// level-by-level check with the quintic steps back on IEEE, 1 with both
+// groups back, 0 with all 72).  The schedule is fixed here; there is no
+// other.
 //
 // Design.  The host runs the levels (ops/dc_level.py), one call of
 // dc_level_f32 a level, which puts a fixed sequence of kernels on the
-// stream: one batched tiled-product kernel (grid = output tiles x matrices,
-// the 128 x 128 tile of csrc/dc_common.cuh, the elementwise step that
-// follows a product fused into its epilogue where it reads only the same
-// entry), a handful of plane-wide elementwise and column/row reduction
-// kernels spread over many blocks a matrix, and the segment bookkeeping
-// (sizes, medians, ranks, slot split, segmented maxima) as small kernels of
-// one 1024-thread block a matrix over length-n vectors.  A launch boundary
-// is a barrier across the whole grid, so every product of a level is spread
-// over all its output tiles: 288 blocks at 8 x 768^2, where the single-shot
-// kernel (csrc/dc_kernel.cu), one block a matrix, would fill 8 of the 132
-// SMs.  The planes (four a matrix) live in a workspace in device memory;
-// no TPU reason for the reference's shape (scoped VMEM, hand-made DMA,
-// 128-lane slices) carries over.
+// stream: the segment bookkeeping (sizes, starts, medians, ranks, slot
+// split, segmented maxima, and the band ranges below) as small kernels of
+// one 1024-thread block a matrix over length-n vectors; a handful of
+// plane-wide elementwise and column/row reduction kernels over many blocks
+// a matrix; and the products, each one batched kernel of grid = 128 x 128
+// output tiles x matrices (288 blocks at 8 x 768^2), with the elementwise
+// step that follows a product fused into its epilogue where it reads only
+// the same entry.  A launch boundary is a barrier across the whole grid, so
+// every product is spread over all its output tiles.  The planes (four a
+// matrix) live in a workspace in device memory; no TPU reason for the
+// reference's shape (scoped VMEM, hand-made DMA, 128-lane slices) carries
+// over.
+//
+// Zero blocks.  The ids are non-decreasing along the index, so each
+// segment is a contiguous run and after level l the operands of the sign,
+// probe and polar products are block-diagonal over the level's 2^l
+// segments.  level_stats writes, for each 128-row band, the k-range of its
+// segments (lo: the first index of the segment of the band's first row, hi:
+// one past the end of that of its last row).  Output tile (bi, bj) of a
+// block-diagonal product sums k over [max(lo_bi, lo_bj), min(hi_bi, hi_bj))
+// only; G0 <- Q^T G0, whose B is dense, over [lo_bi, hi_bi).  Outside these
+// ranges every term is an exact zero, so the result is the dense one; a tile
+// whose range is empty stores epi(i, j, 0) and exits (the planes rotate and
+// must not keep stale values).  T is block-diagonal over the parent ids
+// only, so T Q is short outside the level's diagonal blocks, which nothing
+// reads: Q^T (T Q) reads T Q inside them only, and T is masked to them.
+// Every level takes the same 128-wide tile.
+//
+// Tiles.  The TF32 products run on csrc/dc_tf32.cuh: mma.sync m16n8k8 with
+// operands rounded by cvt.rna, float32 accumulation, 32-deep k stages in a
+// three-stage cp.async ring.  The IEEE products run on the SIMT tile of
+// csrc/dc_common.cuh (8 x 8 float32 multiply-adds a thread), which the
+// single-shot kernel (csrc/dc_kernel.cu) shares.
+//
+// What bounds it on the H100: operations.  The segments of a run need
+// 142 sum(m^2) + 2 n sum(m) operations a matrix and level (m: each row's
+// segment size), 14 sum(m^2) of it on the TF32 products; at 8 x 768^2 and
+// 10 levels 0.766 TFLOP, 10.5 ms under this schedule (TF32 at 495 TFLOP/s,
+// IEEE float32 at 67) against T and G0 read and written once (~40 MB a
+// level).  The tiles run more than the segments need (a band's range covers
+// whole segments: ~1.0 TFLOP there), and at deep levels only the tiles near
+// the diagonal have work.  chip_smoke.py prints the operations needed and
+// run, the bounds and the split between products and passes.
 #include "dc_common.cuh"
+#include "dc_tf32.cuh"
 
 namespace {
 
@@ -69,8 +97,11 @@ constexpr int kIvec = 5;          // int vectors a matrix: size, start, low, lo,
 constexpr int kFvec = 5;          // float vectors: sigma, col, bound, rsum, scale
 
 constexpr float kBeta = 0.02f;    // rank-safety probe blend (per-level)
+// Newton-Schulz steps; the first kCubicPolar cubic polar steps take TF32
+// products, the rest IEEE
 constexpr int kCubicSign = 14;
-constexpr int kQuinticPolar = 10, kCubicPolar = 5;
+constexpr int kQuinticPolar = 10;
+constexpr int kCubicPolar = 3, kCubicPolarHi = 2;
 
 // kLo, kHi: per BM-row band, the k-range of the band's segments (the first
 // entry of the segment of its first row, one past the end of that of its
@@ -99,6 +130,8 @@ struct Level {
 // rotate, so no tile may keep a stale value.
 // ---------------------------------------------------------------------------
 enum { kBlockDiag = 0, kRowBand = 1 };
+// the precision of a product (the reference's default and HIGHEST)
+enum { kTf32 = 0, kIeee = 1 };
 
 __device__ __forceinline__ void band_k(const Level& L, int b, int bi, int bj, int kRange,
                                        int& k_lo, int& k_hi) {
@@ -145,6 +178,36 @@ level_gemm(Level L, const float* A, const float* B, float* C, const float* aux) 
     ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiCubic{aux + off, n}, tiles);
   else
     ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiStore{}, tiles);
+}
+
+// the same product on the TF32 tensor cores (csrc/dc_tf32.cuh), for the
+// block-diagonal products the reference runs at default precision
+template <bool TA, bool V16, class Epi>
+__device__ __forceinline__ void tf32_level_tile(const Level& L, const float* A,
+                                                const float* B, float* C, Epi epi,
+                                                float* smem) {
+  const int b = blockIdx.z, n = L.n;
+  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
+  int k_lo, k_hi;
+  band_k(L, b, blockIdx.y, blockIdx.x, kBlockDiag, k_lo, k_hi);
+  if (k_lo >= k_hi)
+    store_empty_tile(C, n, bm, bn, epi);
+  else
+    tf32_tile<TA, V16>(A, B, C, n, bm, bn, epi, smem, k_lo, k_hi);
+}
+
+template <bool TA, int kMode, bool V16>
+__global__ void __launch_bounds__(kThreads, 2)
+level_gemm_tf32(Level L, const float* A, const float* B, float* C, const float* aux) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = L.n;
+  const size_t off = (size_t)blockIdx.z * n * n;
+  if (kMode == 1)
+    tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiQuinticW{aux + off, n}, smem);
+  else if (kMode == 2)
+    tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiCubic{aux + off, n}, smem);
+  else
+    tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiStore{}, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -389,12 +452,32 @@ struct Launcher {
     if (err == cudaSuccess) err = cudaGetLastError();
     return err == cudaSuccess;
   }
-  template <bool TA, int kMode, int kRange = kBlockDiag>
+  // one product of the schedule: kTf32 on the tensor cores (block-diagonal
+  // operands only), kIeee on the IEEE float32 tile
+  template <int kPrec, bool TA, int kMode, int kRange = kBlockDiag>
   void gemm(const Level& L, const float* A, const float* Bm, float* C,
             const float* aux = nullptr) {
+    static_assert(kPrec == kIeee || kRange == kBlockDiag, "TF32 products are block-diagonal");
     if (err != cudaSuccess) return;
     const dim3 grid((n + BN - 1) / BN, (n + BM - 1) / BM, B);
-    level_gemm<TA, kMode, kRange><<<grid, kThreads, 0, stream>>>(L, A, Bm, C, aux);
+    if constexpr (kPrec == kTf32) {
+      if (n % 4 == 0)
+        tf32<TA, kMode, true>(grid, L, A, Bm, C, aux);
+      else
+        tf32<TA, kMode, false>(grid, L, A, Bm, C, aux);
+    } else {
+      level_gemm<TA, kMode, kRange><<<grid, kThreads, 0, stream>>>(L, A, Bm, C, aux);
+      ok();
+    }
+  }
+  template <bool TA, int kMode, bool V16>
+  void tf32(dim3 grid, const Level& L, const float* A, const float* Bm, float* C,
+            const float* aux) {
+    // above 48 KB, dynamic shared memory must be asked for (per device)
+    err = cudaFuncSetAttribute(level_gemm_tf32<TA, kMode, V16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTf32Smem);
+    if (err != cudaSuccess) return;
+    level_gemm_tf32<TA, kMode, V16><<<grid, kThreads, kTf32Smem, stream>>>(L, A, Bm, C, aux);
     ok();
   }
   template <int kStep>
@@ -446,10 +529,10 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   float *X = p[0], *S = p[1], *Xn = p[2];
   run.elementwise<kSignInit>(L, X, t_in);
 
-  // ---- E ~ sign(X): cubic steps only ----
+  // ---- E ~ sign(X): cubic steps only, IEEE ----
   for (int it = 0; it < kCubicSign; ++it) {
-    run.gemm<false, 0>(L, X, X, S);
-    run.gemm<false, 2>(L, X, S, Xn, X);
+    run.gemm<kIeee, false, 0>(L, X, X, S);
+    run.gemm<kIeee, false, 2>(L, X, S, Xn, X);
     float* t = X;
     X = Xn;
     Xn = t;
@@ -464,7 +547,7 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // ---- probe, blended slot columns, scaling ----
   float *Y = S, *POm = Xn;
   run.elementwise<kProbe>(L, Y, Y, om);
-  run.gemm<false, 0>(L, P, Y, POm);
+  run.gemm<kTf32, false, 0>(L, P, Y, POm);
   run.elementwise<kBlend>(L, Y, POm);
   run.col_reduce<kColNorm2>(L, Y, kCol);
   run.elementwise<kDivColn>(L, Y, Y);
@@ -480,19 +563,24 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   }
   run.elementwise<kDivScale>(L, Y, Y);
 
-  // ---- Q = polar factor ----
+  // ---- Q = polar factor: 10 quintic IEEE, 3 cubic TF32, 2 cubic IEEE ----
   float *Q = Y, *Gm = POm, *W = P, *Qn = p[3];
   for (int it = 0; it < kQuinticPolar; ++it) {
-    run.gemm<true, 0>(L, Q, Q, Gm);
-    run.gemm<false, 1>(L, Gm, Gm, W, Gm);
-    run.gemm<false, 0>(L, Q, W, Qn);
+    run.gemm<kIeee, true, 0>(L, Q, Q, Gm);
+    run.gemm<kIeee, false, 1>(L, Gm, Gm, W, Gm);
+    run.gemm<kIeee, false, 0>(L, Q, W, Qn);
     float* t = Q;
     Q = Qn;
     Qn = t;
   }
-  for (int it = 0; it < kCubicPolar; ++it) {
-    run.gemm<true, 0>(L, Q, Q, Gm);
-    run.gemm<false, 2>(L, Q, Gm, Qn, Q);
+  for (int it = 0; it < kCubicPolar + kCubicPolarHi; ++it) {
+    if (it < kCubicPolar) {
+      run.gemm<kTf32, true, 0>(L, Q, Q, Gm);
+      run.gemm<kTf32, false, 2>(L, Q, Gm, Qn, Q);
+    } else {
+      run.gemm<kIeee, true, 0>(L, Q, Q, Gm);
+      run.gemm<kIeee, false, 2>(L, Q, Gm, Qn, Q);
+    }
     float* t = Q;
     Q = Qn;
     Qn = t;
@@ -503,10 +591,10 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // level's ids leave T Q short outside the level's diagonal blocks; but
   // Q^T (T Q) on those blocks reads T Q only inside them, where the range
   // holds every nonzero term, and kSymMask keeps only them
-  run.gemm<false, 0>(L, t_in, Q, Gm);
-  run.gemm<true, 0>(L, Q, Gm, W);
+  run.gemm<kIeee, false, 0>(L, t_in, Q, Gm);
+  run.gemm<kIeee, true, 0>(L, Q, Gm, W);
   run.elementwise<kSymMask>(L, t_out, W);
-  run.gemm<true, 0, kRowBand>(L, Q, g_in, g_out);
+  run.gemm<kIeee, true, 0, kRowBand>(L, Q, g_in, g_out);
   if (run.err == cudaSuccess) {
     level_split<<<B, kVecThreads, 0, run.stream>>>(L, seg_out);
     run.ok();

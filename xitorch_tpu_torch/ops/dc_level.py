@@ -16,18 +16,32 @@ arithmetic that this module keeps:
   rounds projector ranks wrongly often enough that the hard slot split
   loses rank;
 
-and ``T`` is masked to the level's blocks after ``T <- sym(Q^T T Q)``.  The
-reference's 12 default-precision and 2 exact sign steps are one schedule of
-14 here, and its 3 + 2 cubic polar steps one of 5: every product on this
-card is IEEE float32 (the single-shot port does the same).
+and ``T`` is masked to the level's blocks after ``T <- sym(Q^T T Q)``.
+
+Of a level's 72 products the reference runs 61 at default precision (12 of
+the 14 sign steps, the probe, the 10 quintic and 3 of the 5 cubic polar
+steps) and 11 at HIGHEST (the last 2 sign and 2 polar steps, ``T Q``,
+``Q^T (T Q)``, ``Q^T G0``).  The kernel runs 7 on the TF32 tensor cores,
+the probe and the first 3 cubic polar steps, and 65 in IEEE float32: with
+the sign or the quintic polar steps on TF32, its level and this module's
+emulation of its rounding part at the levels where the sort amplifies
+rounding, by far more than the float64 distance of either, on 17 of 41
+random batches (``PERF.md``, PR 8).  And it runs each product only over the
+k-ranges of the level's segments (:func:`band_ranges`), which gives the
+dense result on every entry the level reads.
 
 * :func:`dc_level_cuda` launches one level of the hand-written kernel
   sequence ``csrc/dc_level.cu`` on CUDA tensors and counts one launch;
 * :func:`dc_level_plain` is the same level, step by step, in batched
-  PyTorch;
+  PyTorch: every product in IEEE arithmetic (``fast="ieee"``, as JAX on the
+  CPU computes default-precision products), or with the operands of the
+  kernel's 7 TF32 products rounded to TF32 first as its ``cvt.rna`` does
+  (``fast="tf32"``, float32 only), and dense or over the kernel's k-ranges
+  (``tile``);
 * :func:`dc_precondition_per_level` runs ``levels`` levels from
   ``T = sym(a)``, ``G0 = a``, ids 0, and returns ``G0``: the kernel for a
-  CUDA tensor (or an error), the plain version for a CPU tensor.
+  CUDA tensor (or an error), the plain version (``fast="ieee"``) for a CPU
+  tensor.
 
 Segment ids are (B, n, 1) int32, non-decreasing along the index.
 """
@@ -45,7 +59,7 @@ from xitorch_tpu_torch.ops.tridiag import use_kernel
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["band_ranges", "dc_level_cuda", "dc_level_plain", "dc_precondition_per_level",
-           "fits_dc_level"]
+           "fits_dc_level", "tf32_round"]
 
 # above this padded n the warm start runs one level a launch (the
 # reference's threshold: its single-shot kernel's working set stops fitting
@@ -56,16 +70,15 @@ _PER_LEVEL_MIN_N = 448
 # the cold sweep
 _PER_LEVEL_MAX_N = 768
 _RANK_SAFE_BETA_LEAN = 0.02
-# the reference's schedule: 12 + 2 cubic sign steps, 10 quintic and 3 + 2
-# cubic polar steps
-_N_CUBIC_SIGN, _N_CUBIC_SIGN_HI = 12, 2
+# the steps: 14 cubic sign, 10 quintic polar, 3 + 2 cubic polar (the first 3
+# on TF32 products)
+_N_CUBIC_SIGN = 14
 _N_QUINTIC_POLAR = 10
 _N_CUBIC_POLAR, _N_CUBIC_POLAR_HI = 3, 2
-_PRODUCTS_PER_LEVEL = (2 * (_N_CUBIC_SIGN + _N_CUBIC_SIGN_HI) + 1 + 3 * _N_QUINTIC_POLAR
+_PRODUCTS_PER_LEVEL = (2 * _N_CUBIC_SIGN + 1 + 3 * _N_QUINTIC_POLAR
                        + 2 * (_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI) + 3)
-# the products the reference runs at default precision (TF32 on this card):
-# 12 sign steps, the probe, the 10 quintic and 3 cubic polar steps
-_TF32_PRODUCTS = 2 * _N_CUBIC_SIGN + 1 + 3 * _N_QUINTIC_POLAR + 2 * _N_CUBIC_POLAR
+# the kernel's TF32 products: the probe and the first 3 cubic polar steps
+_TF32_PRODUCTS = 1 + 2 * _N_CUBIC_POLAR
 # rows of an output tile of the kernel's products: the width of a band
 _TILE = 128
 
@@ -151,18 +164,33 @@ def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
     return out
 
 
-def _product(a, b, *, ta: bool = False, rows: bool = False, bands=None) -> torch.Tensor:
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest with ties away from zero, to 10 mantissa bits (the low 13 bits
+    of the float32 word cleared); infinities and NaNs pass unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    # on the magnitude bits, + half a TF32 ulp then truncation rounds half
+    # away from zero; a carry into the exponent is the correct rounding up
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def _product(a, b, *, ta: bool = False, rows: bool = False, tf32: bool = False,
+             bands=None) -> torch.Tensor:
     """One of the level's 72 products, ``op(a) @ b`` (op = transpose when
-    ``ta``) in IEEE arithmetic: dense, or with ``bands = (lo, hi, tile)``
-    only over the k-ranges the kernel's tiles run (``rows``: b is dense, the
-    row band's range)."""
+    ``ta``) in IEEE arithmetic, of operands rounded to TF32 first when
+    ``tf32``: dense, or with ``bands = (lo, hi, tile)`` only over the
+    k-ranges the kernel's tiles run (``rows``: b is dense, the row band's
+    range)."""
+    if tf32:
+        a, b = tf32_round(a), tf32_round(b)
     if bands is None:
         return dot_hi(a.mT if ta else a, b)
     return _banded(a, b, *bands, ta, rows)
 
 
 def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
-                   om=None, min_seg: int = 2, tile=None
+                   om=None, min_seg: int = 2, tile=None, fast: str = "ieee"
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of one level of the kernel, in its order of
     steps: ``(seg, T, G0)`` before the level to ``(seg, T, G0)`` after it.
@@ -170,11 +198,17 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     ``tile``: None runs every product dense; a width runs each product only
     over the k-ranges that the kernel's tiles of that width run
     (:func:`band_ranges`), which gives the dense result on every entry the
-    level reads."""
+    level reads.  ``fast``: ``"ieee"`` runs every product in IEEE
+    arithmetic; ``"tf32"`` rounds the operands of the kernel's TF32
+    products to TF32 (:func:`tf32_round`), as the kernel does, and is
+    ignored in float64."""
     _check_state(seg, T, G0, "dc_level_plain")
+    if fast not in ("ieee", "tf32"):
+        raise ValueError('fast must be "ieee" or "tf32", got %r' % (fast,))
     B, n, _ = T.shape
     bands = None if tile is None else (*band_ranges(seg, tile), tile)
     mm = functools.partial(_product, bands=bands)
+    tf32 = fast == "tf32" and T.dtype == torch.float32
     dt, dev = T.dtype, T.device
     om = as_probe(om, n, dt, dev)
     qa, qb, qc = _QUINTIC
@@ -207,7 +241,7 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     bound = _seg_max(C.abs().sum(-2), seg_eq_b)
     X = C * live / (1.01 * bound[:, :, None] + 1e-30)
     # cubic-only sign: no identity term, so the masked zeros stay zero
-    for _ in range(_N_CUBIC_SIGN + _N_CUBIC_SIGN_HI):
+    for _ in range(_N_CUBIC_SIGN):
         X2 = mm(X, X)
         X = 1.5 * X - 0.5 * mm(X, X2)
     P = 0.5 * (eye - X) * live
@@ -218,7 +252,7 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     low = ((iot[None, :] - starts) < r) & ~froz
 
     omb = (fro_any * eye + (1.0 - fro_any) * om) * seg_eq
-    POm = mm(P, omb)
+    POm = mm(P, omb, tf32=tf32)
     Y = (1.0 - beta) * torch.where(low[:, None, :], POm, omb - POm) + beta * omb
     Y = Y / (torch.sqrt((Y * Y).sum(-2, keepdim=True)) + 1e-20)
     rmax = _seg_max(Y.abs().sum(-1), seg_eq_b)
@@ -228,9 +262,10 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     for _ in range(_N_QUINTIC_POLAR):
         Gm = mm(Q, Q, ta=True)
         Q = mm(Q, qa * eye + qb * Gm + qc * mm(Gm, Gm))
-    for _ in range(_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI):
-        Gm = mm(Q, Q, ta=True)
-        Q = 1.5 * Q - 0.5 * mm(Q, Gm)
+    for it in range(_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI):
+        f = tf32 and it < _N_CUBIC_POLAR
+        Gm = mm(Q, Q, ta=True, tf32=f)
+        Q = 1.5 * Q - 0.5 * mm(Q, Gm, tf32=f)
 
     # T is block-diagonal over the parent ids only: with bands, T Q is short
     # outside the level's blocks, which Q^T (T Q) on the blocks never reads
