@@ -298,6 +298,35 @@ def test_tf32_level_rounds_and_stays_close():
         dc_level_plain(seg, a, a, fast="bf16")
 
 
+@pytest.mark.parametrize("groups, n_tf32_lines", [
+    (("probe", "cubic"), 3), ((), 0), (("sign", "probe", "quintic", "cubic"), 8),
+    (("quintic", "sign"), 5)])
+def test_schedule_variants_of_the_kernel_source(groups, n_tf32_lines):
+    # chip_smoke.py --level-schedules builds csrc/dc_level.cu with the named
+    # step groups on TF32 (the kernel's own schedule is the source itself)
+    # and holds it to a plain version whose products take TF32 operands by
+    # the same groups
+    smoke = _smoke()
+    with open(os.path.join(os.path.dirname(dlmod.__file__), os.pardir, "csrc",
+                           "dc_level.cu")) as f:
+        src = f.read()
+    out = smoke.level_schedule_source(src, groups)
+    assert out.count("run.gemm<kTf32") == n_tf32_lines
+    assert out.count("run.gemm<") == src.count("run.gemm<") + 2 * ("sign" in groups)
+    assert (out == src) == (set(groups) == set(smoke.LEVEL_TF32))
+    flags = []
+    stand_in = smoke.level_schedule_plain(
+        torch, lambda x, y, **kw: flags.append(kw["tf32"]), groups)
+    for dtype in (torch.float32, torch.float64):
+        for _ in range(72):
+            stand_in(torch.zeros(1, dtype=dtype), None)
+    want = ([("sign" in groups)] * 24 + [False] * 4 + [("probe" in groups)]
+            + [("quintic" in groups)] * 30 + [("cubic" in groups)] * 6 + [False] * 7)
+    assert flags == want + [False] * 72
+    if set(groups) == set(smoke.LEVEL_TF32):
+        assert sum(want) == dlmod._TF32_PRODUCTS
+
+
 def test_tile_operations_follow_the_band_ranges():
     # chip_smoke.py counts the operations the kernel's tiles run from the
     # band ranges: all of n for one segment, 2 m^3 a segment where the

@@ -33,11 +33,11 @@
 // other 65 in IEEE float32: with the sign or the quintic polar steps on
 // TF32 the kernel's level and the plain version's emulation of its TF32
 // rounding (ops/dc_level.py) part, at the levels where the sort amplifies
-// rounding, by far more than the float64 distance of either (PERF.md,
-// PR 8: of 41 random batches at 8 x 512^2 to 8 x 768^2, 17 fail the
-// level-by-level check with the quintic steps back on IEEE, 1 with both
-// groups back, 0 with all 72).  The schedule is fixed here; there is no
-// other.
+// rounding, by far more than the level-by-level check allows (of 41 random
+// batches at 8 x 512^2 to 8 x 768^2: 22 fail it with the reference's 61 on
+// TF32, 17 with the quintic steps back on IEEE, 1 with the sign steps back
+// too, 0 with all 72 IEEE; chip_smoke.py --level-schedules, PERF.md,
+// PR 8).  The schedule is fixed here; there is no other.
 //
 // Design.  The host runs the levels (ops/dc_level.py), one call of
 // dc_level_f32 a level, which puts a fixed sequence of kernels on the

@@ -24,11 +24,13 @@ steps) and 11 at HIGHEST (the last 2 sign and 2 polar steps, ``T Q``,
 ``Q^T (T Q)``, ``Q^T G0``).  The kernel runs 7 on the TF32 tensor cores,
 the probe and the first 3 cubic polar steps, and 65 in IEEE float32: with
 the sign or the quintic polar steps on TF32, its level and this module's
-emulation of its rounding part at the levels where the sort amplifies
-rounding, by far more than the float64 distance of either, on 17 of 41
-random batches (``PERF.md``, PR 8).  And it runs each product only over the
-k-ranges of the level's segments (:func:`band_ranges`), which gives the
-dense result on every entry the level reads.
+emulation of its rounding part, at the levels where the sort amplifies
+rounding, by far more than the level-by-level check allows (all 61 on
+TF32: 22 of 41 random batches fail it, the quintic steps back on IEEE: 17,
+the sign steps back too: 1; ``chip_smoke.py --level-schedules``,
+``PERF.md``, PR 8).  And it runs each product only over the k-ranges of the
+level's segments (:func:`band_ranges`), which gives the dense result on
+every entry the level reads.
 
 * :func:`dc_level_cuda` launches one level of the hand-written kernel
   sequence ``csrc/dc_level.cu`` on CUDA tensors and counts one launch;
