@@ -137,19 +137,11 @@ def band_ranges(seg: torch.Tensor, tile: int = _TILE) -> Tuple[torch.Tensor, tor
     return starts[:, first], ends[:, last]
 
 
-def _k_range(lo, hi, m: int, bi: int, bj: int, rows: bool) -> Tuple[int, int]:
-    """The k-range of output tile (bi, bj) of matrix m: the overlap of the
-    two bands' ranges when both operands are block-diagonal, the row band's
-    when only op(A) is (``rows``)."""
-    if rows:
-        return lo[m][bi], hi[m][bi]
-    return max(lo[m][bi], lo[m][bj]), min(hi[m][bi], hi[m][bj])
-
-
 def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
-    """``op(a) @ b`` as the kernel's tiles run it: each ``tile`` x ``tile``
-    output block sums k over its range only (:func:`_k_range`), and is zero
-    where the range is empty."""
+    """``op(a) @ b`` as the kernel's tiles run it: output block (bi, bj)
+    sums k over the overlap of the two bands' ranges when both operands are
+    block-diagonal, over the row band's when only op(A) is (``rows``), and
+    is zero where that range is empty."""
     B, n, _ = b.shape
     lo, hi = lo.tolist(), hi.tolist()
     out = b.new_zeros((B, n, n))
@@ -157,7 +149,9 @@ def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
         for bi in range(len(lo[m])):
             r = slice(bi * tile, min(n, (bi + 1) * tile))
             for bj in range(len(lo[m])):
-                k0, k1 = _k_range(lo, hi, m, bi, bj, rows)
+                k0, k1 = lo[m][bi], hi[m][bi]
+                if not rows:
+                    k0, k1 = max(k0, lo[m][bj]), min(k1, hi[m][bj])
                 if k0 >= k1:
                     continue
                 c = slice(bj * tile, min(n, (bj + 1) * tile))
