@@ -88,16 +88,7 @@ gate's rows above 512 come from this), without holding the gate to it.
 
 builds the kernels and runs only the per-level warm start's phase, with the
 same last lines: a development switch for work on that kernel.  The default
-run is the full script.  Two more switches measure that kernel's design:
-
-    python3 chip_smoke.py --level-schedules probe+cubic,quintic+sign+probe+cubic \
-        --level-seeds 700:0,700:1,512:0
-    python3 chip_smoke.py --level-turns parent,.
-
-hold variants of ``csrc/dc_level.cu`` with the named step groups on TF32 to
-the level-by-level check over random batches (n:seed), and time the
-per-level kernel of the package under each directory (a checkout, or one
-unpacked by ``git archive``) in turns.
+run is the full script.
 """
 from __future__ import annotations
 
@@ -695,8 +686,11 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
     """Hold the DC kernel against its plain version one level at a time, from
     the kernel's own state, on the (B, n, n) float32 CUDA batch ``a``; with
     ``per_level`` the per-level kernel (``dc_level_cuda``, one launch a
-    level) against ``dc_level_plain``, whose float32 run then follows the
-    kernel's precision schedule (``fast="tf32"``).
+    level) against ``dc_level_plain``, whose float32 and float64 runs then
+    both follow the kernel's precision schedule (``fast="tf32"``: the
+    operands of the same products rounded to TF32), so that the float64
+    run's distance measures accumulation rounding and its amplification,
+    not the TF32 rounding itself.
 
     The sort is chaotic over its levels: a level whose projector is soft, or
     whose probe block has a tiny singular value, amplifies rounding (on
@@ -749,12 +743,12 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
             t_prev, s_prev = state if state is not None else (
                 0.5 * (a + a.mT), torch.zeros_like(a[..., :1], dtype=torch.int32))
             sk, tk, gk = dc_level_cuda(s_prev, t_prev, g_prev, min_seg=min_seg)
-            # the kernel's precision schedule: its 7 TF32 products with TF32
-            # operands (float64 ignores it)
+            # the kernel's precision schedule in both runs: its 6 TF32
+            # products with TF32 operands, summed in float32 and in float64
             sp, tp, gp = dc_level_plain(s_prev, t_prev, g_prev, min_seg=min_seg,
                                         fast="tf32")
             _, t6, g6 = dc_level_plain(s_prev, t_prev.double(), g_prev.double(), om=om64,
-                                       min_seg=min_seg)
+                                       min_seg=min_seg, fast="tf32")
         else:
             gk, tk, sk = dc_precondition_cuda(a, levels=level, **kw)
             gp, tp, sp = dc_precondition_plain(g_prev, levels=1, state=state, **kw)
@@ -1072,8 +1066,8 @@ def per_level_warm(torch, np, xt, device, card):
         # are block-diagonal over the segments the level starts from, so 71
         # of a level's products need 2 m^3 a segment of m rows and
         # G0 <- Q^T G0 needs 2 m^2 n: per matrix, summed over rows,
-        # 142 sum(m^2) + 2 n sum(m); 7 of the 71 run on TF32 (the probe and
-        # 3 cubic polar steps).  And the operations the kernel's tiles run,
+        # 142 sum(m^2) + 2 n sum(m); 6 of the 71 run on TF32 (3 cubic polar
+        # steps).  And the operations the kernel's tiles run,
         # from the band ranges (level_tile_operations).
         # The kernel's own segments at each level are counted (its extra
         # launches here precede the counted run); frozen segments, at most 2
@@ -1193,7 +1187,7 @@ def per_level_warm(torch, np, xt, device, card):
         bmm_ms = timed_ms(torch, products_as_bmm, reps=2, inner=1)
         dense = float(bsz) * n_products * 2.0 * npad ** 3
         # a read once, the probe read once, G0 written once; the operations
-        # as IEEE float32 throughout, and under the kernel's schedule (7
+        # as IEEE float32 throughout, and under the kernel's schedule (6
         # products a level on the TF32 tensor cores)
         nbytes = (2 * bsz * npad * npad + npad * npad) * 4
         f32_bound, f32_by = bound(nbytes, flops)
@@ -1235,189 +1229,6 @@ def per_level_warm(torch, np, xt, device, card):
                    "replaces": "xitorch_tpu/ops/dc_kernel.py:318",
                    "max_abs_err": max_abs, "library_ms": None})
     return record, sweep_launches
-
-
-# the step groups of a per-level DC level whose products may run on TF32,
-# in the order of the level's 72 products (level_schedule_plain), and the
-# groups the kernel runs on TF32
-LEVEL_GROUPS = ("sign", "probe", "quintic", "cubic")
-LEVEL_TF32 = ("probe", "cubic")
-
-
-def level_schedule_source(src: str, tf32: tuple) -> str:
-    """``csrc/dc_level.cu`` with the named step groups' products on TF32
-    and the others on IEEE float32, as the reference would put them: sign
-    steps 1-12 of 14, the probe, the 10 quintic polar steps, cubic polar
-    steps 1-3 of 5.  ``LEVEL_TF32`` gives the source unchanged."""
-    def swap(text, a, b):
-        check(text.count(a) == 1, "level_schedule_source: the source has changed")
-        return text.replace(a, b)
-
-    sign = ("    run.gemm<kIeee, false, 0>(L, X, X, S);\n"
-            "    run.gemm<kIeee, false, 2>(L, X, S, Xn, X);\n")
-    probe = "  run.gemm<kTf32, false, 0>(L, P, Y, POm);\n"
-    quintic = ("    run.gemm<kIeee, true, 0>(L, Q, Q, Gm);\n"
-               "    run.gemm<kIeee, false, 1>(L, Gm, Gm, W, Gm);\n"
-               "    run.gemm<kIeee, false, 0>(L, Q, W, Qn);\n")
-    cubic = ("      run.gemm<kTf32, true, 0>(L, Q, Q, Gm);\n"
-             "      run.gemm<kTf32, false, 2>(L, Q, Gm, Qn, Q);\n")
-    out = src
-    if "sign" in tf32:
-        out = swap(out, sign, "    if (it < 12) {\n" + sign.replace("kIeee", "kTf32")
-                   .replace("    run", "      run") + "    } else {\n"
-                   + sign.replace("    run", "      run") + "    }\n")
-    if "probe" not in tf32:
-        out = swap(out, probe, probe.replace("kTf32", "kIeee"))
-    if "quintic" in tf32:
-        out = swap(out, quintic, quintic.replace("kIeee", "kTf32"))
-    if "cubic" not in tf32:
-        out = swap(out, cubic, cubic.replace("kTf32", "kIeee"))
-    return out
-
-
-def level_schedule_plain(torch, product, tf32: tuple):
-    """A stand-in for ``ops/dc_level.py::_product`` (``product``) that gives
-    float32 products TF32 operands by the step group of each of a level's
-    72 products (the schedule of :func:`level_schedule_source`)."""
-    order = (["sign"] * 24 + ["-"] * 4 + ["probe"] + ["quintic"] * 30 + ["cubic"] * 6
-             + ["-"] * 7)
-    count = [0]
-
-    def scheduled(a, b, **kw):
-        group = order[count[0] % len(order)]
-        count[0] += 1
-        kw["tf32"] = group in tf32 and a.dtype == torch.float32
-        return product(a, b, **kw)
-
-    return scheduled
-
-
-def level_schedules(torch, specs, seeds, card):
-    """The level-by-level check (dc_level_by_level, unchanged) of per-level
-    DC kernels whose step groups run on TF32 as ``specs`` say (each a
-    '+'-joined subset of LEVEL_GROUPS, or "none"), against the plain
-    version with the same schedule, on random batches of 8 SPD matrices
-    (config 2's recipe) for each ``n:seed`` of ``seeds``.  Each variant of
-    ``csrc/dc_level.cu`` is built into ``xitorch_tpu_torch/_build/``; the
-    check's failures are counted, not raised.  A development tool: it
-    measures which step groups can run on TF32."""
-    import ctypes
-
-    from xitorch_tpu_torch.ops import _build
-    from xitorch_tpu_torch.ops import dc_level as dl
-    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
-    from xitorch_tpu_torch.ops.spectral_dc import default_probe
-
-    global check
-    strict = check
-    csrc = os.path.join(HERE, "xitorch_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "dc_level.cu")) as f:
-        src = f.read()
-    groups = {spec: () if spec == "none" else tuple(spec.split("+")) for spec in specs}
-    jobs = {}
-    for spec, tf32 in groups.items():
-        for g in tf32:
-            strict(g in LEVEL_GROUPS, "unknown step group %r" % g)
-        out = os.path.join(HERE, "xitorch_tpu_torch", "_build", "schedule-" + spec)
-        os.makedirs(out, exist_ok=True)
-        for name in os.listdir(csrc):
-            if name.endswith(".cuh"):
-                with open(os.path.join(csrc, name)) as f, \
-                        open(os.path.join(out, name), "w") as g_:
-                    g_.write(f.read())
-        with open(os.path.join(out, "dc_level.cu"), "w") as f:
-            f.write(level_schedule_source(src, tf32))
-        lib = os.path.join(out, "dc_level.so")
-        jobs[spec] = (lib, subprocess.Popen([_build._nvcc(), *_build._FLAGS, "-o", lib,
-                                             os.path.join(out, "dc_level.cu")]))
-    libs = {}
-    for spec, (path, proc) in jobs.items():
-        strict(proc.wait() == 0, "nvcc failed on the %s schedule" % spec)
-        lib = ctypes.CDLL(path)
-        for fn, argtypes in dl._SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[spec] = lib
-    load, product = dl._build.load, dl._product
-    failures = []
-
-    def count(cond, what):
-        if not cond:
-            failures.append(what)
-
-    try:
-        check = count
-        for spec, tf32 in groups.items():
-            dl._build.load = lambda name, sig, lib=libs[spec]: lib
-            dl._product = level_schedule_plain(torch, product, tf32)
-            failed = 0
-            for cfg in seeds:
-                n_user, seed = (int(v) for v in cfg.split(":"))
-                npad = jmod._padded_n(n_user, True)
-                levels = max(3, math.ceil(math.log2(npad)))
-                gen = torch.Generator(device="cuda").manual_seed(n_user + 1000 * seed)
-                a = torch.randn((8, n_user, n_user), generator=gen, device="cuda") \
-                    / math.sqrt(n_user)
-                big = a @ a.mT + 2.0 * torch.eye(n_user, device="cuda")
-                panel = jmod._shift_pad(big, npad).contiguous()
-                failures.clear()
-                dc_level_by_level(torch, panel, levels, 2, per_level=True)
-                om = default_probe(npad, torch.float32, panel.device)
-                ms = timed_ms(torch, lambda: dl.dc_precondition_per_level(
-                    panel, levels=levels, om=om), reps=3, inner=1)
-                failed += bool(failures)
-                print("schedule TF32 on [%s], 8 x %d^2 seed %d: %d check failures; kernel "
-                      "%.3f ms a call [%s]%s" % (spec, n_user, seed, len(failures), ms, card,
-                                                 "".join("\n    " + w[:240]
-                                                         for w in failures[:3])))
-            print("schedule TF32 on [%s]: %d of %d batches fail the level-by-level check"
-                  % (spec, failed, len(seeds)))
-    finally:
-        check, dl._build.load, dl._product = strict, load, product
-
-
-def level_turns(torch, dirs, card):
-    """Time the per-level DC kernel of the package under each of ``dirs``
-    (a checkout's root, or one unpacked from ``git archive``), in the given
-    order, at 8 x 768^2 and 8 x 512^2 on per_level_warm's panels: ms a call
-    with the probe given and as jacobi_eigh calls it, and the profiler's
-    products / passes split.  For comparing commits within one call."""
-    import importlib
-
-    runs = []
-    for d in dirs:
-        for k in [k for k in sys.modules if k.split(".")[0] == "xitorch_tpu_torch"]:
-            del sys.modules[k]
-        sys.path.insert(0, os.path.abspath(d))
-        try:
-            dl = importlib.import_module("xitorch_tpu_torch.ops.dc_level")
-            jm = importlib.import_module("xitorch_tpu_torch.ops.jacobi_eigh")
-            sd = importlib.import_module("xitorch_tpu_torch.ops.spectral_dc")
-            importlib.import_module("xitorch_tpu_torch.ops._build").build(["dc_level"])
-        finally:
-            sys.path.pop(0)
-        runs.append((d, dl, jm, sd))
-    for d, dl, jm, sd in runs:
-        for n_user in sorted(WARM_BIG, reverse=True):
-            npad = jm._padded_n(n_user, True)
-            levels = max(3, math.ceil(math.log2(npad)))
-            gen = torch.Generator(device="cuda").manual_seed(n_user)
-            a = torch.randn((8, n_user, n_user), generator=gen, device="cuda") \
-                / math.sqrt(n_user)
-            big = a @ a.mT + 2.0 * torch.eye(n_user, device="cuda")
-            panel = jm._shift_pad(big, npad).contiguous()
-            om = sd.default_probe(npad, torch.float32, panel.device)
-
-            def call(om=om):
-                return dl.dc_precondition_per_level(panel, levels=levels, om=om)
-
-            k_ms = timed_ms(torch, call, reps=5, inner=1)
-            c_ms = timed_ms(torch, lambda: call(None), reps=5, inner=1)
-            by = device_ms_by_name(torch, call, calls=2)
-            prod = sum(ms for nm, ms in by.items() if "level_gemm" in nm)
-            print("turn %s, 8 x %d^2 (%d levels): per-level dc kernel %.3f ms a call with "
-                  "the probe given, %.3f as called; products %.3f ms, passes %.3f ms [%s]"
-                  % (d, npad, levels, k_ms, c_ms, prod, sum(by.values()) - prod, card))
 
 
 def sweep_gate_table(torch, device, card, batches=None, sizes=None, hold=True):
@@ -2494,16 +2305,6 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=("dc_level",), default=None,
                         help="dc_level: build, then run only the per-level warm start's "
                              "phase (per_level_warm); a development switch")
-    parser.add_argument("--level-schedules", default=None,
-                        help="comma-separated sets of per-level DC step groups on TF32 "
-                             "('+'-joined of %s, or none): hold each schedule's kernel "
-                             "to the level-by-level check over --level-seeds"
-                             % ", ".join(LEVEL_GROUPS))
-    parser.add_argument("--level-seeds", default="700:0,512:0",
-                        help="comma-separated n:seed batches for --level-schedules")
-    parser.add_argument("--level-turns", default=None,
-                        help="comma-separated directories: time the per-level DC kernel "
-                             "of the package under each, in turns")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2542,14 +2343,6 @@ def main(argv=None) -> int:
         sweep_gate_table(torch, device, card, hold=False, sizes=(64,), batches=(1, 2))
         sweep_gate_table(torch, device, card, hold=False,
                          sizes=tuple(int(v) for v in args.gate_sizes.split(",")))
-        print("total: %.1f s" % (time.perf_counter() - t_start))
-        return 0
-    if args.level_turns or args.level_schedules:
-        if args.level_turns:
-            level_turns(torch, args.level_turns.split(","), card)
-        if args.level_schedules:
-            level_schedules(torch, args.level_schedules.split(","),
-                            args.level_seeds.split(","), card)
         print("total: %.1f s" % (time.perf_counter() - t_start))
         return 0
     if args.only == "dc_level":

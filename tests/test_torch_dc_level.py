@@ -3,7 +3,7 @@ launch, ``ops/dc_level.py``) against the JAX package's per-level Pallas
 kernel in interpret mode, on the same numpy inputs with the reference's own
 probe carried across; the kernel's zero-block rule (products over the band
 ranges of the level's segments give the dense level) and its precision
-schedule (TF32 operands, rounded as ``cvt.rna`` does, on the 7 products it
+schedule (TF32 operands, rounded as ``cvt.rna`` does, on the 6 products it
 runs on the tensor cores) through the plain version; the routing and
 padding of ``jacobi_eigh`` on that path; and the sweep-kernel gate of
 ``ops/jacobi_eigh.py``, which the card's measured table makes a function of
@@ -167,9 +167,11 @@ def test_level_by_level_check_of_the_card_run(monkeypatch):
         return s_, t_, (g_ + 1e-3 * g_.roll(1, -2)) if len(depth) == 2 else g_
 
     monkeypatch.setattr(dlmod, "dc_level_cuda", wrong)
-    # under TF32 plain's own float32-to-float64 distance is ~1e-3, so the
-    # G-invariant check is the one that catches this rotation, at level 2
-    with pytest.raises(AssertionError, match="level 2 loses the G-invariant"):
+    # plain's float64 run rounds the same operands to TF32, so its distance
+    # from the float32 run measures accumulation rounding only and the
+    # entrywise check catches this rotation, at level 2
+    with pytest.raises(AssertionError, match="G0 of the kernel and of the plain version "
+                                             "differ after level 2"):
         smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
 
 
@@ -223,8 +225,8 @@ def test_banded_products_give_the_dense_level(n, tile, levels, dtype, tol):
 
 
 # ------------------------------------------------------------------
-# the kernel's precision schedule: 7 products on TF32 (the probe and the
-# first 3 cubic polar steps), 65 in IEEE float32
+# the kernel's precision schedule: 6 products on TF32 (the first 3 cubic
+# polar steps), 66 in IEEE float32
 # ------------------------------------------------------------------
 
 def _f32(bits):
@@ -259,10 +261,11 @@ def test_tf32_round_as_cvt_rna():
 
 
 @pytest.mark.parametrize("dtype, fast, n_tf32", [
-    (torch.float32, "tf32", 7), (torch.float32, "ieee", 0), (torch.float64, "tf32", 0)])
+    (torch.float32, "tf32", 6), (torch.float32, "ieee", 0), (torch.float64, "tf32", 6),
+    (torch.float64, "ieee", 0)])
 def test_tf32_touches_only_the_kernels_tf32_products(monkeypatch, dtype, fast, n_tf32):
     # the order of a level's 72 products and which of them take TF32
-    # operands: 14 IEEE sign steps, the TF32 probe, 10 IEEE quintic polar
+    # operands: 14 IEEE sign steps, the IEEE probe, 10 IEEE quintic polar
     # steps, 3 TF32 + 2 IEEE cubic polar steps, then T Q, Q^T (T Q), Q^T G0
     flags = []
     product = dlmod._product
@@ -276,10 +279,10 @@ def test_tf32_touches_only_the_kernels_tf32_products(monkeypatch, dtype, fast, n
     dc_level_plain(torch.zeros((2, 48, 1), dtype=torch.int32), 0.5 * (a + a.mT), a,
                    fast=fast)
     on = n_tf32 > 0
-    want = [False] * 28 + [on] + [False] * 30 + [on] * 6 + [False] * 4 + [False] * 3
+    want = [False] * 28 + [False] + [False] * 30 + [on] * 6 + [False] * 4 + [False] * 3
     assert len(flags) == dlmod._PRODUCTS_PER_LEVEL == 72
     assert flags == want and sum(flags) == n_tf32
-    assert dlmod._TF32_PRODUCTS == 7
+    assert dlmod._TF32_PRODUCTS == 6
 
 
 def test_tf32_level_rounds_and_stays_close():
@@ -298,33 +301,55 @@ def test_tf32_level_rounds_and_stays_close():
         dc_level_plain(seg, a, a, fast="bf16")
 
 
-@pytest.mark.parametrize("groups, n_tf32_lines", [
-    (("probe", "cubic"), 3), ((), 0), (("sign", "probe", "quintic", "cubic"), 8),
-    (("quintic", "sign"), 5)])
-def test_schedule_variants_of_the_kernel_source(groups, n_tf32_lines):
-    # chip_smoke.py --level-schedules builds csrc/dc_level.cu with the named
-    # step groups on TF32 (the kernel's own schedule is the source itself)
-    # and holds it to a plain version whose products take TF32 operands by
-    # the same groups
-    smoke = _smoke()
-    with open(os.path.join(os.path.dirname(dlmod.__file__), os.pardir, "csrc",
-                           "dc_level.cu")) as f:
-        src = f.read()
-    out = smoke.level_schedule_source(src, groups)
-    assert out.count("run.gemm<kTf32") == n_tf32_lines
-    assert out.count("run.gemm<") == src.count("run.gemm<") + 2 * ("sign" in groups)
-    assert (out == src) == (set(groups) == set(smoke.LEVEL_TF32))
-    flags = []
-    stand_in = smoke.level_schedule_plain(
-        torch, lambda x, y, **kw: flags.append(kw["tf32"]), groups)
-    for dtype in (torch.float32, torch.float64):
-        for _ in range(72):
-            stand_in(torch.zeros(1, dtype=dtype), None)
-    want = ([("sign" in groups)] * 24 + [False] * 4 + [("probe" in groups)]
-            + [("quintic" in groups)] * 30 + [("cubic" in groups)] * 6 + [False] * 7)
-    assert flags == want + [False] * 72
-    if set(groups) == set(smoke.LEVEL_TF32):
-        assert sum(want) == dlmod._TF32_PRODUCTS
+@pytest.mark.parametrize("bits, want", [
+    (0x3FF0000000000000, 0x3FF0000000000000),   # 1.0: exact
+    (0x3FF0020000000000, 0x3FF0040000000000),   # 1 + 2^-11, a tie: away from zero
+    (0xBFF0020000000000, 0xBFF0040000000000),   # its negative
+    (0x3FF001FFFFFFFFFF, 0x3FF0000000000000),   # just below the tie: down
+    (0x3FF0020000000001, 0x3FF0040000000000),   # just above: up
+    (0x3FFFFE0000000000, 0x4000000000000000),   # the carry runs into the exponent
+    (0x7FF0000000000000, 0x7FF0000000000000),   # inf
+])
+def test_tf32_round_float64_by_hand(bits, want):
+    # in float64 the same rounding, to 10 mantissa bits, stays float64
+    x = torch.as_tensor(np.array([bits], dtype=np.uint64).view(np.float64))
+    r = tf32_round(x)
+    assert r.dtype == torch.float64
+    assert r.numpy().view(np.uint64).tolist() == [want]
+
+
+def test_tf32_round_float64_agrees_with_float32():
+    # a float32 value rounds to the same TF32 value in either dtype, and a
+    # float64 one within half a TF32 ulp
+    y = torch.as_tensor(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
+    assert torch.equal(tf32_round(y.double()), tf32_round(y).double())
+    z = torch.as_tensor(np.random.default_rng(2).standard_normal(4096))
+    r = tf32_round(z)
+    assert not bool((r.view(torch.int64) & ((1 << 42) - 1)).any())
+    assert bool(((r - z).abs() <= z.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("seed, n", [(2, 48), (5, 96)])
+def test_float64_tf32_run_takes_the_kernels_operands(seed, n):
+    # the card check's float64 run rounds the operands of the kernel's TF32
+    # products as the float32 run does, then sums in float64: the TF32
+    # rounding moves it off the all-IEEE float64 level, and it stays within
+    # accumulation rounding of the float32 run, with the same ids
+    from xitorch_tpu_torch.ops.spectral_dc import default_probe
+
+    a = torch.as_tensor(_spd(seed, 2, n))
+    s, t = torch.zeros((2, n, 1), dtype=torch.int32), 0.5 * (a + a.mT)
+    om64 = default_probe(n, torch.float32, a.device).double()
+    s32, _, g32 = dc_level_plain(s, t, a, fast="tf32")
+    s64, _, g64 = dc_level_plain(s, t.double(), a.double(), om=om64, fast="tf32")
+    _, _, gi = dc_level_plain(s, t.double(), a.double(), om=om64)
+    assert torch.equal(s32, s64)
+
+    def dist(x, y):
+        return float(((x - y).abs().amax(dim=(-2, -1)) / y.abs().amax(dim=(-2, -1))).max())
+
+    assert 1e-7 < dist(g64, gi) < 1e-2
+    assert dist(g32.double(), g64) < 1e-3
 
 
 def test_tile_operations_follow_the_band_ranges():

@@ -368,6 +368,7 @@ def test_warm_jacobi_eigh_on_card(cuda, n):
 @pytest.mark.parametrize("B, n, levels", [
     (2, 96, 5),      # down to frozen segments
     (3, 200, 4),     # n not a multiple of the product tile
+    (2, 130, 4),     # n not a multiple of 4: the TF32 tile stages single floats
     (2, 640, 3),     # the per-level window
 ])
 def test_dc_level_kernel_level_by_level(cuda, B, n, levels):

@@ -28,16 +28,15 @@
 // That is 72 (n, n) products a level: 28 sign, 1 probe, 30 quintic and 10
 // cubic polar, 2 for Q^T T Q and 1 for G0.  The reference runs 61 of them at
 // default precision (12 of the 14 sign steps, the probe, the 10 quintic and
-// 3 of the 5 cubic polar steps) and 11 at HIGHEST.  This card runs 7 on the
-// TF32 tensor cores, the probe and the first 3 cubic polar steps, and the
-// other 65 in IEEE float32: with the sign or the quintic polar steps on
-// TF32 the kernel's level and the plain version's emulation of its TF32
-// rounding (ops/dc_level.py) part, at the levels where the sort amplifies
-// rounding, by far more than the level-by-level check allows (of 41 random
-// batches at 8 x 512^2 to 8 x 768^2: 22 fail it with the reference's 61 on
-// TF32, 17 with the quintic steps back on IEEE, 1 with the sign steps back
-// too, 0 with all 72 IEEE; chip_smoke.py --level-schedules, PERF.md,
-// PR 8).  The schedule is fixed here; there is no other.
+// 3 of the 5 cubic polar steps) and 11 at HIGHEST.  This card runs 6 on the
+// TF32 tensor cores, the first 3 cubic polar steps, and the other 66 in
+// IEEE float32.  The level-by-level check (chip_smoke.py: ids equal, G0 and
+// T within 1e-4 or 4x the distance of the plain version's float32 run from
+// its float64 run, both with the same TF32 operands) decided it, over 41
+// random batches at 8 x 512^2 to 8 x 768^2: the reference's 61 on TF32
+// fail it on 22, the probe alone on 12 (the script's own 700^2 batch among
+// them), the cubic polar steps alone on 5, all 72 in IEEE float32 on none
+// (PERF.md, PR 8).  The schedule is fixed here; there is no other.
 //
 // Design.  The host runs the levels (ops/dc_level.py), one call of
 // dc_level_f32 a level, which puts a fixed sequence of kernels on the
@@ -77,8 +76,8 @@
 //
 // What bounds it on the H100: operations.  The segments of a run need
 // 142 sum(m^2) + 2 n sum(m) operations a matrix and level (m: each row's
-// segment size), 14 sum(m^2) of it on the TF32 products; at 8 x 768^2 and
-// 10 levels 0.766 TFLOP, 10.5 ms under this schedule (TF32 at 495 TFLOP/s,
+// segment size), 12 sum(m^2) of it on the TF32 products; at 8 x 768^2 and
+// 10 levels 0.766 TFLOP, 10.6 ms under this schedule (TF32 at 495 TFLOP/s,
 // IEEE float32 at 67) against T and G0 read and written once (~40 MB a
 // level).  The tiles run more than the segments need (a band's range covers
 // whole segments: ~1.0 TFLOP there), and at deep levels only the tiles near
@@ -181,7 +180,8 @@ level_gemm(Level L, const float* A, const float* B, float* C, const float* aux) 
 }
 
 // the same product on the TF32 tensor cores (csrc/dc_tf32.cuh), for the
-// block-diagonal products the reference runs at default precision
+// block-diagonal products of the schedule's TF32 steps (the cubic polar
+// steps: the Gram matrix stored, then the cubic epilogue)
 template <bool TA, bool V16, class Epi>
 __device__ __forceinline__ void tf32_level_tile(const Level& L, const float* A,
                                                 const float* B, float* C, Epi epi,
@@ -199,12 +199,11 @@ __device__ __forceinline__ void tf32_level_tile(const Level& L, const float* A,
 template <bool TA, int kMode, bool V16>
 __global__ void __launch_bounds__(kThreads, 2)
 level_gemm_tf32(Level L, const float* A, const float* B, float* C, const float* aux) {
+  static_assert(kMode != 1, "the quintic steps run on the IEEE tile");
   extern __shared__ __align__(16) float smem[];
   const int n = L.n;
   const size_t off = (size_t)blockIdx.z * n * n;
-  if (kMode == 1)
-    tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiQuinticW{aux + off, n}, smem);
-  else if (kMode == 2)
+  if (kMode == 2)
     tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiCubic{aux + off, n}, smem);
   else
     tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiStore{}, smem);
@@ -547,7 +546,7 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // ---- probe, blended slot columns, scaling ----
   float *Y = S, *POm = Xn;
   run.elementwise<kProbe>(L, Y, Y, om);
-  run.gemm<kTf32, false, 0>(L, P, Y, POm);
+  run.gemm<kIeee, false, 0>(L, P, Y, POm);
   run.elementwise<kBlend>(L, Y, POm);
   run.col_reduce<kColNorm2>(L, Y, kCol);
   run.elementwise<kDivColn>(L, Y, Y);

@@ -21,25 +21,24 @@ and ``T`` is masked to the level's blocks after ``T <- sym(Q^T T Q)``.
 Of a level's 72 products the reference runs 61 at default precision (12 of
 the 14 sign steps, the probe, the 10 quintic and 3 of the 5 cubic polar
 steps) and 11 at HIGHEST (the last 2 sign and 2 polar steps, ``T Q``,
-``Q^T (T Q)``, ``Q^T G0``).  The kernel runs 7 on the TF32 tensor cores,
-the probe and the first 3 cubic polar steps, and 65 in IEEE float32: with
-the sign or the quintic polar steps on TF32, its level and this module's
-emulation of its rounding part, at the levels where the sort amplifies
-rounding, by far more than the level-by-level check allows (all 61 on
-TF32: 22 of 41 random batches fail it, the quintic steps back on IEEE: 17,
-the sign steps back too: 1; ``chip_smoke.py --level-schedules``,
-``PERF.md``, PR 8).  And it runs each product only over the k-ranges of the
-level's segments (:func:`band_ranges`), which gives the dense result on
-every entry the level reads.
+``Q^T (T Q)``, ``Q^T G0``).  The kernel runs 6 on the TF32 tensor cores,
+the first 3 cubic polar steps, and 66 in IEEE float32: with more on TF32
+its level and this module's emulation of its rounding part, at the levels
+where the sort amplifies rounding, by more than the level-by-level check
+allows on more random batches (of 41: all 61 on TF32, 22 fail it; the
+probe alone, 12; the cubic polar steps alone, 5; all IEEE, none;
+``PERF.md``, PR 8).  And it runs each product only over the k-ranges of
+the level's segments (:func:`band_ranges`), which gives the dense result
+on every entry the level reads.
 
 * :func:`dc_level_cuda` launches one level of the hand-written kernel
   sequence ``csrc/dc_level.cu`` on CUDA tensors and counts one launch;
 * :func:`dc_level_plain` is the same level, step by step, in batched
   PyTorch: every product in IEEE arithmetic (``fast="ieee"``, as JAX on the
   CPU computes default-precision products), or with the operands of the
-  kernel's 7 TF32 products rounded to TF32 first as its ``cvt.rna`` does
-  (``fast="tf32"``, float32 only), and dense or over the kernel's k-ranges
-  (``tile``);
+  kernel's 6 TF32 products rounded to TF32 first as its ``cvt.rna`` does
+  (``fast="tf32"``, in float32 or float64), and dense or over the kernel's
+  k-ranges (``tile``);
 * :func:`dc_precondition_per_level` runs ``levels`` levels from
   ``T = sym(a)``, ``G0 = a``, ids 0, and returns ``G0``: the kernel for a
   CUDA tensor (or an error), the plain version (``fast="ieee"``) for a CPU
@@ -79,8 +78,8 @@ _N_QUINTIC_POLAR = 10
 _N_CUBIC_POLAR, _N_CUBIC_POLAR_HI = 3, 2
 _PRODUCTS_PER_LEVEL = (2 * _N_CUBIC_SIGN + 1 + 3 * _N_QUINTIC_POLAR
                        + 2 * (_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI) + 3)
-# the kernel's TF32 products: the probe and the first 3 cubic polar steps
-_TF32_PRODUCTS = 1 + 2 * _N_CUBIC_POLAR
+# the kernel's TF32 products: the first 3 cubic polar steps
+_TF32_PRODUCTS = 2 * _N_CUBIC_POLAR
 # rows of an output tile of the kernel's products: the width of a band
 _TILE = 128
 
@@ -161,13 +160,17 @@ def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """Float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
-    nearest with ties away from zero, to 10 mantissa bits (the low 13 bits
-    of the float32 word cleared); infinities and NaNs pass unchanged."""
-    bits = x.contiguous().view(torch.int32)
+    """``x`` rounded to TF32's 10 mantissa bits as ``cvt.rna.tf32.f32``
+    does: to nearest with ties away from zero (the low 13 bits of a float32
+    word cleared, the low 42 of a float64 word, which stays float64);
+    infinities and NaNs pass unchanged."""
+    if x.dtype == torch.float64:
+        bits, drop = x.contiguous().view(torch.int64), 42
+    else:
+        bits, drop = x.contiguous().view(torch.int32), 13
     # on the magnitude bits, + half a TF32 ulp then truncation rounds half
     # away from zero; a carry into the exponent is the correct rounding up
-    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    r = ((bits + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(x.dtype)
     return torch.where(torch.isfinite(x), r, x)
 
 
@@ -196,15 +199,16 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     (:func:`band_ranges`), which gives the dense result on every entry the
     level reads.  ``fast``: ``"ieee"`` runs every product in IEEE
     arithmetic; ``"tf32"`` rounds the operands of the kernel's TF32
-    products to TF32 (:func:`tf32_round`), as the kernel does, and is
-    ignored in float64."""
+    products to TF32 (:func:`tf32_round`), as the kernel does, and sums
+    them in the state's dtype (in float64 the products of the kernel's
+    TF32 operands without its float32 rounding)."""
     _check_state(seg, T, G0, "dc_level_plain")
     if fast not in ("ieee", "tf32"):
         raise ValueError('fast must be "ieee" or "tf32", got %r' % (fast,))
     B, n, _ = T.shape
     bands = None if tile is None else (*band_ranges(seg, tile), tile)
     mm = functools.partial(_product, bands=bands)
-    tf32 = fast == "tf32" and T.dtype == torch.float32
+    tf32 = fast == "tf32"
     dt, dev = T.dtype, T.device
     om = as_probe(om, n, dt, dev)
     qa, qb, qc = _QUINTIC
@@ -248,7 +252,7 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     low = ((iot[None, :] - starts) < r) & ~froz
 
     omb = (fro_any * eye + (1.0 - fro_any) * om) * seg_eq
-    POm = mm(P, omb, tf32=tf32)
+    POm = mm(P, omb)
     Y = (1.0 - beta) * torch.where(low[:, None, :], POm, omb - POm) + beta * omb
     Y = Y / (torch.sqrt((Y * Y).sum(-2, keepdim=True)) + 1e-20)
     rmax = _seg_max(Y.abs().sum(-1), seg_eq_b)
