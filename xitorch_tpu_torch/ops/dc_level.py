@@ -22,12 +22,12 @@ Of a level's 72 products the reference runs 61 at default precision (12 of
 the 14 sign steps, the probe, the 10 quintic and 3 of the 5 cubic polar
 steps) and 11 at HIGHEST (the last 2 sign and 2 polar steps, ``T Q``,
 ``Q^T (T Q)``, ``Q^T G0``).  The kernel runs 6 on the TF32 tensor cores,
-the first 3 cubic polar steps, and 66 in IEEE float32: with more on TF32
-its level and this module's emulation of its rounding part, at the levels
-where the sort amplifies rounding, by more than the level-by-level check
-allows on more random batches (of 41: all 61 on TF32, 22 fail it; the
-probe alone, 12; the cubic polar steps alone, 5; all IEEE, none;
-``PERF.md``, PR 8).  And it runs each product only over the k-ranges of
+the first 3 cubic polar steps, and 66 in IEEE float32.  With other step
+groups on TF32 too, its level and this module's emulation of its rounding
+part, at the levels where the sort amplifies rounding, by more than the
+level-by-level check allows on more of 41 random batches (all 61 on TF32:
+22 fail it; the probe alone: 12; the cubic polar steps alone: 5; all
+IEEE: none; ``PERF.md``, PR 8).  And it runs each product only over the k-ranges of
 the level's segments (:func:`band_ranges`), which gives the dense result
 on every entry the level reads.
 
