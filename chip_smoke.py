@@ -84,11 +84,13 @@ exits non-zero and prints no result.  Without a CUDA device it exits 2.
 only builds the kernels and measures the gate's table at those sizes (the
 gate's rows above 512 come from this), without holding the gate to it.
 
+    python3 chip_smoke.py --only dc
     python3 chip_smoke.py --only dc_level
 
-builds the kernels and runs only the per-level warm start's phase, with the
-same last lines: a development switch for work on that kernel.  The default
-run is the full script.
+build the kernels and run only config 2's warm start phase (the
+single-shot DC kernel) or only the per-level warm start's phase, with the
+same last lines: development switches for work on those kernels.  The
+default run is the full script.
 """
 from __future__ import annotations
 
@@ -253,23 +255,35 @@ def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def level_tile_operations(torch, seg):
-    """Operations one product of a per-level DC level runs on its tiles,
-    summed over the (B, n, 1) ids ``seg`` the level starts from: each
-    128 x 128 output tile multiplies over the k-range that
-    ``ops/dc_level.py::band_ranges`` gives it (``csrc/dc_level.cu``'s rule).
-    Returns ``(block-diagonal product, G0 <- Q^T G0)``."""
-    from xitorch_tpu_torch.ops.dc_level import _TILE, band_ranges
+def tile_operations(torch, seg, tile):
+    """Operations one product of a DC level runs on its ``tile``-wide output
+    tiles, summed over the (B, n, 1) ids ``seg`` the level starts from:
+    each tile multiplies over the k-range that
+    ``ops/dc_level.py::band_ranges`` gives it (the rule of
+    ``csrc/dc_level.cu`` and ``csrc/dc_kernel.cu``).  Returns
+    ``(block-diagonal product, row band: op(A) block-diagonal and B dense,
+    column band: A dense and B block-diagonal)``."""
+    from xitorch_tpu_torch.ops.dc_level import band_ranges
 
     n = seg.shape[1]
-    lo, hi = (v.double() for v in band_ranges(seg, _TILE))
-    h = torch.tensor([float(min(_TILE, n - r)) for r in range(0, n, _TILE)],
+    lo, hi = (v.double() for v in band_ranges(seg, tile))
+    h = torch.tensor([float(min(tile, n - r)) for r in range(0, n, tile)],
                      dtype=torch.float64, device=lo.device)
     k = (torch.minimum(hi[:, :, None], hi[:, None, :])
          - torch.maximum(lo[:, :, None], lo[:, None, :])).clamp(min=0)
     diag = 2.0 * float((h[:, None] * h[None, :] * k).sum())
-    rows = 2.0 * float((h * n * (hi - lo)).sum())
-    return diag, rows
+    rows = 2.0 * float((h[None, :, None] * h[None, None, :] * (hi - lo)[:, :, None]).sum())
+    cols = 2.0 * float((h[None, :, None] * h[None, None, :] * (hi - lo)[:, None, :]).sum())
+    return diag, rows, cols
+
+
+def level_tile_operations(torch, seg):
+    """Operations one product of a per-level DC level runs on its 128 x 128
+    tiles (:func:`tile_operations`).  Returns ``(block-diagonal product,
+    G0 <- Q^T G0)``."""
+    from xitorch_tpu_torch.ops.dc_level import _TILE
+
+    return tile_operations(torch, seg, _TILE)[:2]
 
 
 def config3_arrays(np, rng):
@@ -337,6 +351,20 @@ def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=
     return float((nk - npl).abs().max())
 
 
+def config2_batch(torch, np, device):
+    """Config 2's SPD batch (``bench_symeig.py``'s recipe, drawn with numpy
+    from ``SEED``), the panel ``jacobi_eigh`` hands the sweep kernel (the
+    Gershgorin-shifted input) and the sweep tolerance.  Returns
+    ``(rng, mats, mats_np, panel, tol)``; ``rng`` goes on to draw the
+    general batch."""
+    rng = np.random.default_rng(SEED)
+    a_np = rng.standard_normal((B2, N2, N2)) / math.sqrt(N2)
+    mats = torch.as_tensor(a_np @ a_np.transpose(0, 2, 1) + 2.0 * np.eye(N2),
+                           dtype=torch.float32, device=device)
+    tol = float(torch.finfo(torch.float32).eps) * 4.0 * math.sqrt(N2)
+    return rng, mats, mats.double().cpu().numpy(), shifted_panel(torch, mats), tol
+
+
 def config2(torch, np, xt, device, card):
     """BASELINE config 2 on the card: the Jacobi sweep kernel against its
     plain version, symeig/svd forward and gradient through the public API,
@@ -350,7 +378,6 @@ def config2(torch, np, xt, device, card):
     )
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 
-    rng = np.random.default_rng(SEED)
     f32 = torch.float32
 
     def dev(a, dtype=f32):
@@ -358,17 +385,13 @@ def config2(torch, np, xt, device, card):
 
     # bench_symeig.py's recipes, drawn with numpy: an SPD batch and a
     # general batch
-    a_np = rng.standard_normal((B2, N2, N2)) / math.sqrt(N2)
-    mats_np = a_np @ a_np.transpose(0, 2, 1) + 2.0 * np.eye(N2)
+    rng, mats, mats_np, panel, tol = config2_batch(torch, np, device)
     gmats_np = rng.standard_normal((B2, N2, N2)) / math.sqrt(N2)
-    mats, gmats = dev(mats_np), dev(gmats_np)
-    mats_np, gmats_np = mats.double().cpu().numpy(), gmats.double().cpu().numpy()
-    tol = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2)
+    gmats = dev(gmats_np)
+    gmats_np = gmats.double().cpu().numpy()
     max_sweeps = 18
 
     # ---- kernel vs plain at the config-2 panel and one rectangular panel ----
-    # the panel jacobi_eigh hands the kernel: the Gershgorin-shifted input
-    panel = shifted_panel(torch, mats)
     Gk, sk, gk, rk = jacobi_sweep_cuda(panel, max_sweeps, tol, return_stats=True)
     Gp, sp = jacobi_sweep_plain(panel, max_sweeps, tol)
     torch.cuda.synchronize()
@@ -796,9 +819,10 @@ def config2_warm(torch, np, xt, device, card, shared):
     the sweep kernel's launches on the warm paths."""
     from xitorch_tpu_torch.ops import jacobi_eigh as jmod
     from xitorch_tpu_torch.ops.dc_kernel import (
-        dc_precondition_cuda, dc_precondition_plain,
+        _PRODUCTS_PER_LEVEL, _TILE, dc_precondition_cuda, dc_precondition_plain,
     )
     from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, jacobi_sweep_cuda
+    from xitorch_tpu_torch.ops.spectral_dc import default_probe
 
     mats, mats_np, panel = shared["mats"], shared["mats_np"], shared["panel"]
     levels = max(3, math.ceil(math.log2(N2)))
@@ -948,10 +972,18 @@ def config2_warm(torch, np, xt, device, card, shared):
           "warm symeig: outside the gates: %s" % (qs,))
 
     # ---- timing ----
+    # as jacobi_eigh calls it (the default probe, drawn once a size and
+    # device), and with the probe given
     dc_kw = dict(levels=levels, min_seg=2)
+    om = default_probe(N2, torch.float32, device)
     k_ms = timed_ms(torch, lambda: dc_precondition_cuda(panel, **dc_kw), reps=3, inner=1)
+    given_ms = timed_ms(torch, lambda: dc_precondition_cuda(panel, om=om, **dc_kw), reps=3,
+                        inner=1)
     plain_ms = timed_ms(torch, lambda: dc_precondition_plain(panel, **dc_kw), reps=3, inner=1)
-    n_products = 74 * levels
+    by_name = device_ms_by_name(torch, lambda: dc_precondition_cuda(panel, **dc_kw), calls=3)
+    prod_ms = sum(ms for nm, ms in by_name.items() if "dc_gemm" in nm)
+    pass_ms = sum(by_name.values()) - prod_ms
+    n_products = _PRODUCTS_PER_LEVEL * levels
     out = torch.empty_like(panel)
 
     def products_as_bmm():
@@ -973,26 +1005,37 @@ def config2_warm(torch, np, xt, device, card, shared):
     cold_busy = device_busy_ms(torch, lambda: symeig_forced(False), calls=3)
     # the operations this run's data needs: a level's sign, probe and polar
     # products (71) act on operands block-diagonal over the segments the
-    # level starts from, 2 m^3 a segment of m rows; its tail (Q^T T, T not
-    # masked, that times Q, and Q^T G0) 2 m^2 n a product.  Per matrix,
+    # level starts from, 2 m^3 a segment of m rows; its tail (T Q, T not
+    # masked, Q^T times that, and Q^T G0) 2 m^2 n a product.  Per matrix,
     # summed over rows: 142 sum(m^2) + 6 n sum(m), on the kernel's own
-    # segments (its extra launches here are outside the counted runs)
-    flops = 0.0
+    # segments (its extra launches here are outside the counted runs).  And
+    # the operations the kernel's 32-wide tiles run (tile_operations): the
+    # band overlap for the 71, the column band for T Q, the row band for the
+    # other two
+    flops = run_ops = 0.0
     for lv in range(levels):
         s_ = torch.zeros_like(panel[..., :1], dtype=torch.int32) if lv == 0 else \
             dc_precondition_cuda(panel, levels=lv, min_seg=2, return_t=True,
                                  return_seg=True)[2]
         m = (s_ == s_.mT).sum(-1).double()
         flops += float(142.0 * (m * m).sum() + 6.0 * N2 * m.sum())
+        diag, rows, cols = tile_operations(torch, s_, _TILE)
+        run_ops += (_PRODUCTS_PER_LEVEL - 3) * diag + 2 * rows + cols
     dense = float(B2) * n_products * 2.0 * N2 ** 3
     k_bound, k_by = bound((2 * B2 * N2 * N2 + N2 * N2) * 4, flops)
     print("timing, config 2 warm start [%s], CUDA events after warm-up (median):" % card)
-    print("  dc kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s: %.3f TFLOP on this run's "
-          "segments, the kernel at %.1fx its bound; it runs its %d products dense, 2 n^3 "
-          "each a matrix: %.3f TFLOP), the same %d dense products as torch.bmm %.3f ms "
-          "(B=%d, n=%d, %d levels) [%s]"
-          % (k_ms, plain_ms, k_bound, k_by, flops / 1e12, k_ms / k_bound, n_products,
-             dense / 1e12, n_products, bmm_ms, B2, N2, levels, card))
+    print("  dc kernel %.3f ms a call as jacobi_eigh calls it (%.3f with the probe given), "
+          "plain %.3f ms, bound %.4f ms (%s: %.4f TFLOP on this run's segments, the kernel "
+          "at %.1fx its bound, %.1f TFLOP/s of the needed work); its %d products run %.4f "
+          "TFLOP on %d-wide tiles (%.1f TFLOP/s), dense they would be %.3f TFLOP; the same "
+          "%d dense products as torch.bmm %.3f ms (B=%d, n=%d, %d levels) [%s]"
+          % (k_ms, given_ms, plain_ms, k_bound, k_by, flops / 1e12, k_ms / k_bound,
+             flops / k_ms / 1e9, n_products, run_ops / 1e12, _TILE,
+             run_ops / prod_ms / 1e9, dense / 1e12, n_products, bmm_ms, B2, N2, levels,
+             card))
+    print("  dc kernel device time by name (profiler): products %.3f ms a call (%d "
+          "product kernels), passes and bookkeeping %.3f ms [%s]"
+          % (prod_ms, n_products, pass_ms, card))
     print("  jacobi_eigh warm %.3f ms (dc %.3f + correction and guard %.3f + sweeps left "
           "%.3f, mean %.2f a matrix) vs cold %.3f ms (sweep kernel %.3f, mean %.2f) [%s]"
           % (warm_ms, k_ms, tail_ms, warm_sweep_ms, float(sw.mean()), cold_ms,
@@ -2302,9 +2345,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
-    parser.add_argument("--only", choices=("dc_level",), default=None,
-                        help="dc_level: build, then run only the per-level warm start's "
-                             "phase (per_level_warm); a development switch")
+    parser.add_argument("--only", choices=("dc", "dc_level"), default=None,
+                        help="dc: build, then run only config 2's warm start phase "
+                             "(config2_warm, row 4); dc_level: only the per-level warm "
+                             "start's phase (per_level_warm, row 7); development switches")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2348,6 +2392,18 @@ def main(argv=None) -> int:
     if args.only == "dc_level":
         level_record, _ = per_level_warm(torch, np, xt, device, card)
         print(json.dumps({"kernels": [level_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "dc":
+        from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_sweep_cuda
+
+        _, mats, mats_np, panel, tol = config2_batch(torch, np, device)
+        shared = {"mats": mats, "mats_np": mats_np, "panel": panel, "tol": tol,
+                  "cold_kernel_ms": timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol),
+                                             inner=3)}
+        dc_record, _ = config2_warm(torch, np, xt, device, card, shared)
+        print(json.dumps({"kernels": [dc_record]}))
         print("total: %.1f s" % (time.perf_counter() - t_start))
         print_device(torch)
         return 0

@@ -277,3 +277,51 @@ def test_level_by_level_check_of_the_card_run(monkeypatch):
     monkeypatch.setattr(dcmod, "dc_precondition_cuda", wrong)
     with pytest.raises(AssertionError, match="after level 3"):
         smoke.dc_level_by_level(torch, a, 4, 2)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 1e-6)])
+@pytest.mark.parametrize("n, tile, levels, min_seg, refine", [
+    (64, 16, 6, 2, 0),     # down to frozen pairs
+    (96, 32, 4, 3, 1),     # odd min_seg, a refinement pass
+    (130, 32, 4, 16, 0),   # ragged last band, early freeze
+    (256, 64, 3, 2, 0),    # config 2's n at the kernel's band
+])
+def test_banded_products_give_the_dense_level(n, tile, levels, min_seg, refine, dtype, tol):
+    # one plain level whose products run only the kernel's k-ranges (both
+    # bands for the block-diagonal products, the column band for T Q with T
+    # unmasked, the row band for Q^T (T Q) and Q^T G0) gives the dense
+    # level's ids, T and G0, level after level from one state
+    a = torch.as_tensor(_spd(n + tile, 2, n, np.float64)).to(dtype)
+    kw = dict(levels=1, min_seg=min_seg, refine=refine, return_t=True, return_seg=True)
+    g, state = a, None
+    unmasked = frozen = False
+    for _ in range(levels):
+        gd, td, sd = dc_precondition_plain(g, state=state, **kw)
+        gb, tb, sb = dc_precondition_plain(g, state=state, tile=tile, **kw)
+        assert torch.equal(sb, sd)
+        for x, y in ((tb, td), (gb, gd)):
+            assert float((x - y).abs().max()) <= tol * float(y.abs().max())
+        # the carry is dense across the new segments: T Q reads all of T
+        unmasked |= bool((td[sd != sd.mT] != 0).any())
+        frozen |= bool(((sd == sd.mT).sum(-1) <= min_seg).any())
+        g, state = gd, (td, sd)
+    assert unmasked
+    assert frozen or n // 2 ** levels > min_seg
+
+
+def test_default_probe_is_drawn_once_and_left_unchanged():
+    # one draw per (n, dtype, device), shared by every caller, which only reads it
+    p1 = default_probe(48, torch.float32, "cpu")
+    p2 = default_probe(48, torch.float32, torch.device("cpu"))
+    assert p2 is p1
+    assert default_probe(48, torch.float64, "cpu") is not p1
+    assert torch.equal(default_probe(48, torch.float64, "cpu").float(), p1)
+    before = p1.clone()
+    a = torch.as_tensor(_spd(2, 2, 48))
+    dc_precondition(a, levels=3, min_seg=2, refine=1)
+    dc_precondition_plain(a, levels=2, return_t=True, return_seg=True)
+    spectral_sort_basis(a, levels=2)
+    from xitorch_tpu_torch.ops.dc_level import dc_precondition_per_level
+    dc_precondition_per_level(a, levels=2)
+    assert default_probe(48, torch.float32, "cpu") is p1
+    assert torch.equal(p1, before)

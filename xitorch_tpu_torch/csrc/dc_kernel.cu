@@ -25,366 +25,618 @@
 // Segments of at most min_seg positions are frozen: identity columns.
 // That is 74 (n, n) products a level (30 sign, 1 probe, 40 polar, 3 tail).
 //
-// What bounds it on the H100: operations.  74 * levels * 2 n^3 float32
-// operations a matrix against a, omega, G0 read or written once: at
-// (64, 256, 256) and 8 levels 1.27 TFLOP against 50 MB.
+// What bounds it on the H100: operations.  The ids are non-decreasing along
+// the index (each segment a contiguous run), so after level l the operands
+// of the 71 sign, probe and polar products are block-diagonal over the
+// level's segments: 2 m^3 operations a segment of m rows; the tail's three
+// products 2 m^2 n each.  Per matrix and level 142 sum(m^2) + 6 n sum(m)
+// (m: each row's segment size): at (64, 256, 256) and 8 levels 0.225 TFLOP,
+// 3.36 ms at IEEE float32's 67 TFLOP/s, against a, omega, G0 read or written
+// once (50 MB).  The dense products would be 1.271 TFLOP.
 //
-// Design.  What the TPU kernel was shaped by (no transposes, every vector in
-// row and in column orientation, masks as (n, n) planes, ~10 planes resident
-// in fast memory) does not carry over.  Here a matrix's planes (T, five
-// scratch planes, the output) do not fit the 227 KB of shared memory, so
-// they live in a workspace in device memory that the wrapper allocates, and
-// shared memory holds the tiles of the product and the segment bookkeeping:
-// a handful of length-n vectors (segment id, size, start, low flag, and
-// float scratch for diagonal, median, bounds, norms), computed with O(n^2)
-// comparison loops.  Masks are predicates in the epilogue of a product,
-// never planes.  One persistent launch, one block of 256 threads a matrix,
-// which runs the whole level loop; the products are a device function
-// (csrc/dc_common.cuh, shared with the per-level kernel csrc/dc_level.cu:
-// 128 x 128 output tile, 8-deep k tiles staged through registers, 8 x 8
-// outputs a thread, C = op(A) B with op = identity or transpose, fused
-// epilogues), with __syncthreads() between steps.  All accumulation is
-// IEEE float32 multiply-adds (no TF32), so that the rounded ranks and slot
-// assignments agree with the plain PyTorch version.
+// Design.  The C entry puts the whole fixed sequence of all the levels on
+// the stream, with no host sync (the wrapper counts one launch a call):
+//   * the segment bookkeeping (sizes, starts, medians, ranks, slot split,
+//     segmented maxima, band ranges) as small kernels of one 1024-thread
+//     block a matrix over length-n vectors in device memory;
+//   * the plane-wide elementwise steps and column/row reductions over many
+//     blocks a matrix;
+//   * each product one batched kernel of grid = 32 x 32 output tiles x
+//     matrices (4,096 blocks of 64 threads at 64 x 256^2) on the IEEE tile
+//     of csrc/dc_common.cuh (4 x 4 outputs a thread, k tiles staged as
+//     16-byte loads when n is a multiple of 4), with the elementwise step
+//     that follows a product fused into its epilogue where it reads only
+//     the same entry (the live mask among them).
+// A launch boundary is a barrier across the whole grid.  The planes (T and
+// five scratch planes) live in a workspace in device memory.
 //
-// Rejected: a batched product kernel launched ~600 times over B x tiles.
-// It would fill all 132 SMs where this fills B of them, but it pays ~600
-// launches and as many host-side elementwise passes for the bookkeeping
-// between products, and splits the algorithm between host and device.
+// Zero blocks.  dc_stats writes, for each 32-row band, the k-range of its
+// segments (lo: the first index of the segment of the band's first row, hi:
+// one past the end of that of its last row).  Output tile (bi, bj) sums k
+// over
+//   * [max(lo_bi, lo_bj), min(hi_bi, hi_bj)) for the block-diagonal products
+//     (sign, probe, polar, refinement);
+//   * [lo_bj, hi_bj) for T Q: T is never masked (the return_t export stays
+//     exact), so A is dense and only B = Q is block-diagonal;
+//   * [lo_bi, hi_bi) for Q^T (T Q) and Q^T G0: op(A) = Q^T is
+//     block-diagonal, B dense.
+// Outside these ranges every term is an exact zero, so every entry is the
+// dense product's, summed in the same order.  A tile whose range is empty
+// stores zeros, which is what every epilogue gives there, and exits (the
+// planes rotate and must not keep stale values).  The band is the output
+// tile's width.  The split points drift from the halves (segments of
+// 157/99 after level 1 at n = 256), so wide bands skip little: on config
+// 2's recipe the tiles run 1.17x the operations the segments need with
+// 32-wide bands, 1.52x with 64, 2.56x with 128.  A call at (64, 256, 256)
+// took 21.2 ms with 32-wide tiles and 26.6 with 64-wide, the code
+// otherwise the same (in turns on an NVIDIA H100 80GB HBM3, 700 W); the
+// narrow tile is no slower even on the dense first level.
+//
+// Numbers: every product IEEE float32 multiply-adds (no TF32), every sum in
+// a fixed order, no atomics, so two launches give the same bits, and the
+// rounded ranks and slot assignments agree with the plain PyTorch version.
+// Only exact zeros are skipped and the epilogues round as the rejected
+// design's did, so G0, T and the ids are that design's bits (held on the
+// card at config 2's batch and at n = 1 to 448).
+//
+// Rejected: one block of 256 threads a matrix running the whole level loop
+// with the 74 dense products walked tile after tile and a block barrier
+// after each (the first design of this kernel).  It filled 64 of the 132
+// SMs at config 2's batch and ran every product over all of n: 116-126 ms
+// a call at (64, 256, 256), 8 levels, 35-37x its bound and slower than its
+// own plain version (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 #include "dc_common.cuh"
 
 namespace {
 
-constexpr int kMaxN = 1024;  // length of the bookkeeping vectors
-constexpr int kPlanes = 6;   // workspace planes a matrix: T and five scratch
+constexpr int kMaxN = 1024;        // length of the bookkeeping vectors
+constexpr int kTile = 32;          // output tile and band width of the products
+constexpr int kTileThreads = TileSmem<kTile>::kThreads;
+constexpr int kVecThreads = 1024;  // one block a matrix for the bookkeeping
+constexpr int kColThreads = 128;   // column reductions: a thread a column
 
 constexpr float kBeta = 0.002f;  // rank-safety probe blend
 constexpr int kQuinticSign = 8, kCubicSign = 3;
 constexpr int kQuinticPolar = 10, kCubicPolar = 5, kCubicRefine = 3;
 
-// Segment bookkeeping of one matrix and the product's tiles.
-struct Shared {
-  int seg[kMaxN];    // segment id of a position
-  int size[kMaxN];   // size of its segment
-  int start[kMaxN];  // first position of its segment
-  int low[kMaxN];    // rank inside the segment, later the low-slot flag
-  float v0[kMaxN], v1[kMaxN], v2[kMaxN], v3[kMaxN];
-  Tiles t;
-  int min_seg;
-};
+// int vectors a matrix: segment id, its size, its first position, the low
+// slot flag, and per kTile-row band the band's k-range [lo, hi) (the first
+// ceil(n / kTile) entries of the last two)
+enum { kSeg = 0, kSize, kStart, kLow, kLo, kHi, kIvec };
+// float vectors a matrix: median, column sums (of |C|, then the column
+// 2-norms, then |Y|), the segment bound, row sums of |Y|, the column scale
+enum { kSigma = 0, kCol, kBound, kRsum, kScale, kFvec };
 
-// 1 inside a live segment's diagonal block, else 0
-__device__ __forceinline__ float live_mask(const Shared& s, int i, int j) {
-  return (s.seg[i] == s.seg[j] && s.size[i] > s.min_seg) ? 1.0f : 0.0f;
-}
-
-__device__ __forceinline__ bool frozen(const Shared& s, int i) {
-  return s.size[i] <= s.min_seg;
-}
-
-// (X W) masked to the live segments
-struct EpiMask {
-  const Shared* s;
-  __device__ float operator()(int i, int j, float acc) const {
-    return acc * live_mask(*s, i, j);
+struct Dc {
+  int* ivec;    // (B, kIvec, n)
+  float* fvec;  // (B, kFvec, n)
+  int n, min_seg;
+  __device__ int* iv(int b, int k) const { return ivec + ((size_t)b * kIvec + k) * n; }
+  __device__ float* fv(int b, int k) const { return fvec + ((size_t)b * kFvec + k) * n; }
+  __device__ bool frozen(int b, int i) const { return iv(b, kSize)[i] <= min_seg; }
+  __device__ bool same_seg(int b, int i, int j) const {
+    const int* s = iv(b, kSeg);
+    return s[i] == s[j];
+  }
+  // 1 inside a live segment's diagonal block, else 0
+  __device__ float live(int b, int i, int j) const {
+    return (same_seg(b, i, j) && !frozen(b, i)) ? 1.0f : 0.0f;
   }
 };
-// 1.5 X - 0.5 (X X2) masked to the live segments
-struct EpiCubicLive {
+
+// ---------------------------------------------------------------------------
+// the batched product: C[b] = op(A[b]) B[b] for every matrix b, one 32 x 32
+// output tile a block, k over the tile's range (see Zero blocks above)
+// ---------------------------------------------------------------------------
+enum { kBlockDiag = 0, kRowBand, kColBand };
+// the epilogues: acc; qa I + qb aux + qc acc; 1.5 aux - 0.5 acc; acc masked
+// to the live segments; (1.5 aux - 0.5 acc) masked to the live segments.
+// The multiply-adds are written out (fmaf, __fmul_rn), so that no
+// instantiation of the product kernel leaves the choice of contraction to
+// the compiler: they are the rounding the one-block-a-matrix design (see
+// Rejected) was compiled to, and the two give the same bits.
+enum { kStore = 0, kQuinticW, kCubic, kMask, kCubicLive };
+
+__device__ __forceinline__ float quintic_w(int i, int j, float x2, float acc) {
+  return fmaf(kQc, acc, fmaf(kQb, x2, i == j ? kQa : 0.0f));
+}
+__device__ __forceinline__ float cubic(float x, float acc) {
+  return fmaf(1.5f, x, __fmul_rn(-0.5f, acc));  // 0.5 acc is exact
+}
+
+struct EpiQuinticWRn {
+  const float* X2;
+  int n;
+  __device__ float operator()(int i, int j, float acc) const {
+    return quintic_w(i, j, X2[(size_t)i * n + j], acc);
+  }
+};
+struct EpiCubicRn {
   const float* X;
   int n;
-  const Shared* s;
   __device__ float operator()(int i, int j, float acc) const {
-    return (1.5f * X[(size_t)i * n + j] - 0.5f * acc) * live_mask(*s, i, j);
+    return cubic(X[(size_t)i * n + j], acc);
+  }
+};
+struct EpiMask {
+  Dc d;
+  int b;
+  __device__ float operator()(int i, int j, float acc) const { return acc * d.live(b, i, j); }
+};
+struct EpiCubicLive {
+  const float* X;
+  Dc d;
+  int b;
+  __device__ float operator()(int i, int j, float acc) const {
+    return cubic(X[(size_t)i * d.n + j], acc) * d.live(b, i, j);
   }
 };
 
-// C = op(A) B on row-major (n, n) planes in device memory, op = transpose
-// when TA, one output tile after the other (csrc/dc_common.cuh).  C is
-// neither A nor B.  Every thread of the block calls it; it ends on a
-// barrier, so C is visible to the block on return.
-template <bool TA, class Epi>
-__device__ void gemm(const float* A, const float* B, float* C, int n, Epi epi,
-                     Shared& s) {
-  for (int bm = 0; bm < n; bm += BM)
-    for (int bn = 0; bn < n; bn += BN) gemm_tile<TA>(A, B, C, n, bm, bn, epi, s.t);
-  __syncthreads();
-}
-
-// out_j = sum_i f(i, j) for every column j (a thread a column: coalesced)
-template <class F>
-__device__ __forceinline__ void col_reduce(float* out, int n, F f) {
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) acc += f(i, j);
-    out[j] = acc;
+template <bool TA, bool kVec, class Epi>
+__device__ __forceinline__ void dc_tile(const float* A, const float* B, float* C, int n,
+                                        int k_lo, int k_hi, Epi epi,
+                                        TileSmem<kTile>& tiles) {
+  const int bm = blockIdx.y * kTile, bn = blockIdx.x * kTile;
+  if (k_lo < k_hi) {
+    gemm_tile<TA, kVec>(A, B, C, n, bm, bn, epi, tiles, k_lo, k_hi);
+    return;
+  }
+  // An empty range only happens off the diagonal blocks of a
+  // block-diagonal product, where every epilogue gives zero (its aux plane
+  // is block-diagonal too): store zeros without reading anything
+  for (int e = threadIdx.x; e < kTile * kTile; e += kTileThreads) {
+    const int i = bm + e / kTile, j = bn + e % kTile;
+    if (i < n && j < n) C[(size_t)i * n + j] = 0.0f;
   }
 }
 
-// out_i = sum_j f(i, j) for every row i (a warp a row: coalesced)
-template <class F>
-__device__ __forceinline__ void row_reduce(float* out, int n, F f) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < n; i += kWarps) {
-    float acc = 0.0f;
-    for (int j = lane; j < n; j += 32) acc += f(i, j);
-    acc = warp_sum(acc);
-    if (lane == 0) out[i] = acc;
+// kVec: n is a multiple of 4, the k tiles are staged as 16-byte loads
+template <bool TA, int kEpi, int kRange, bool kVec>
+__global__ void __launch_bounds__(kTileThreads)
+dc_gemm(Dc d, const float* A, const float* B, float* C, const float* aux) {
+  __shared__ TileSmem<kTile> tiles;
+  const int b = blockIdx.z, n = d.n;
+  const size_t off = (size_t)b * n * n;
+  const int* lo = d.iv(b, kLo);
+  const int* hi = d.iv(b, kHi);
+  const int band = kRange == kColBand ? blockIdx.x : blockIdx.y;
+  int k_lo = lo[band], k_hi = hi[band];
+  if (kRange == kBlockDiag) {
+    k_lo = max(k_lo, lo[blockIdx.x]);
+    k_hi = min(k_hi, hi[blockIdx.x]);
+  }
+  A += off;
+  B += off;
+  C += off;
+  if (kEpi == kQuinticW)
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiQuinticWRn{aux + off, n}, tiles);
+  else if (kEpi == kCubic)
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiCubicRn{aux + off, n}, tiles);
+  else if (kEpi == kMask)
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiMask{d, b}, tiles);
+  else if (kEpi == kCubicLive)
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiCubicLive{aux + off, d, b}, tiles);
+  else
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiStore{}, tiles);
+}
+
+// ---------------------------------------------------------------------------
+// segment bookkeeping: one block of kVecThreads a matrix
+// ---------------------------------------------------------------------------
+
+// sizes, starts, the band ranges, and the median sigma of diag(T) in each
+// segment
+__global__ void __launch_bounds__(kVecThreads) dc_stats(Dc d, const float* T_g) {
+  __shared__ int seg[kMaxN];
+  __shared__ int size[kMaxN];
+  __shared__ int start[kMaxN];
+  __shared__ int rank[kMaxN];
+  __shared__ float dg[kMaxN];
+  const int b = blockIdx.x, n = d.n, tid = threadIdx.x;
+  const float* T = T_g + (size_t)b * n * n;
+  for (int i = tid; i < n; i += kVecThreads) {
+    seg[i] = d.iv(b, kSeg)[i];
+    dg[i] = T[(size_t)i * n + i];
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += kVecThreads) {
+    int sz = 0, st = 0;
+    const int si = seg[i];
+    for (int j = 0; j < n; ++j) {
+      sz += seg[j] == si;
+      st += seg[j] < si;
+    }
+    size[i] = sz;
+    start[i] = st;
+    d.iv(b, kSize)[i] = sz;
+    d.iv(b, kStart)[i] = st;
+  }
+  // rank of each diagonal entry inside its segment, ties by index
+  for (int j = tid; j < n; j += kVecThreads) {
+    int r = 0;
+    const float dj = dg[j];
+    for (int i = 0; i < n; ++i) {
+      const float di = dg[i];
+      r += (seg[i] == seg[j]) && (di < dj || (di == dj && i < j));
+    }
+    rank[j] = r;
+  }
+  __syncthreads();
+  // the band ranges the products read (segments are contiguous runs)
+  for (int t = tid; t * kTile < n; t += kVecThreads) {
+    const int last = min(n, (t + 1) * kTile) - 1;
+    d.iv(b, kLo)[t] = start[t * kTile];
+    d.iv(b, kHi)[t] = start[last] + size[last];
+  }
+  // median: mean of the two middle ranks
+  for (int i = tid; i < n; i += kVecThreads) {
+    const int lo_t = (size[i] - 1) / 2, hi_t = size[i] / 2;
+    float lo = 0.0f, hi = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      if (seg[j] != seg[i]) continue;
+      if (rank[j] == lo_t) lo += dg[j];
+      if (rank[j] == hi_t) hi += dg[j];
+    }
+    d.fv(b, kSigma)[i] = 0.5f * (lo + hi);
   }
 }
 
 // out_i = max over the positions j of i's segment of v_j (v >= 0)
-__device__ __forceinline__ void seg_max(float* out, const float* v, const Shared& s,
-                                        int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+__device__ __forceinline__ void seg_max(float* out, const float* v, const int* seg, int n) {
+  for (int i = threadIdx.x; i < n; i += kVecThreads) {
     float m = 0.0f;
     for (int j = 0; j < n; ++j)
-      if (s.seg[j] == s.seg[i]) m = fmaxf(m, v[j]);
+      if (seg[j] == seg[i]) m = fmaxf(m, v[j]);
     out[i] = m;
   }
 }
 
-// Y_ij <- Y_ij / (coln_j + 1e-20), coln_j the column 2-norms (uses s.v0)
-__device__ __forceinline__ void normalize_columns(float* Y, int n, Shared& s) {
-  const int tid = threadIdx.x;
-  col_reduce(s.v0, n, [&](int i, int j) {
-    const float y = Y[(size_t)i * n + j];
-    return y * y;
-  });
+// bound_i = the largest column 1-norm of C in i's segment
+__global__ void __launch_bounds__(kVecThreads) dc_bound(Dc d) {
+  __shared__ int seg[kMaxN];
+  __shared__ float col[kMaxN];
+  const int b = blockIdx.x, n = d.n;
+  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+    seg[i] = d.iv(b, kSeg)[i];
+    col[i] = d.fv(b, kCol)[i];
+  }
   __syncthreads();
-  for (int idx = tid; idx < n * n; idx += kThreads)
-    Y[idx] = Y[idx] / (sqrtf(s.v0[idx % n]) + 1e-20f);
-  __syncthreads();
+  seg_max(d.fv(b, kBound), col, seg, n);
 }
 
-// cubic polar steps Q <- 1.5 Q - 0.5 Q (Q^T Q); returns the plane that
-// holds Q, the other of (Q, Qn) is scratch
-__device__ __forceinline__ void polar_cubic(float*& Q, float*& Qn, float* Gm, int n,
-                                            int steps, Shared& s) {
-  for (int it = 0; it < steps; ++it) {
-    gemm<true>(Q, Q, Gm, n, EpiStore{}, s);
-    gemm<false>(Q, Gm, Qn, n, EpiCubic{Q, n}, s);
-    float* t = Q;
-    Q = Qn;
-    Qn = t;
+// the low-slot flags: r = round(trace of the segment's block of P)
+__global__ void __launch_bounds__(kVecThreads) dc_slots(Dc d, const float* P_g) {
+  __shared__ int seg[kMaxN];
+  __shared__ float pd[kMaxN];
+  const int b = blockIdx.x, n = d.n;
+  const float* P = P_g + (size_t)b * n * n;
+  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+    seg[i] = d.iv(b, kSeg)[i];
+    pd[i] = P[(size_t)i * n + i];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+    float tr = 0.0f;
+    for (int j = 0; j < n; ++j)
+      if (seg[j] == seg[i]) tr += pd[j];
+    const int size = d.iv(b, kSize)[i];
+    int r = (int)rintf(tr);  // half to even
+    r = min(max(r, 0), size);
+    d.iv(b, kLow)[i] = ((i - d.iv(b, kStart)[i]) < r && size > d.min_seg) ? 1 : 0;
   }
 }
 
+// scale_j = 1.01 sqrt(max row sum * max column sum of j's segment)
+__global__ void __launch_bounds__(kVecThreads) dc_scale(Dc d) {
+  __shared__ int seg[kMaxN];
+  __shared__ float rs[kMaxN];
+  __shared__ float cs[kMaxN];
+  __shared__ float rmax[kMaxN];
+  const int b = blockIdx.x, n = d.n;
+  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+    seg[i] = d.iv(b, kSeg)[i];
+    rs[i] = d.fv(b, kRsum)[i];
+    cs[i] = d.fv(b, kCol)[i];
+  }
+  __syncthreads();
+  seg_max(rmax, rs, seg, n);
+  seg_max(d.fv(b, kScale), cs, seg, n);  // cmax, finished below
+  __syncthreads();
+  float* scale = d.fv(b, kScale);
+  for (int j = threadIdx.x; j < n; j += kVecThreads)
+    scale[j] = 1.01f * sqrtf(rmax[j] * scale[j]) + 1e-30f;
+}
+
+// the ids split: low or frozen positions take the even child
+__global__ void __launch_bounds__(kVecThreads) dc_split(Dc d) {
+  const int b = blockIdx.x;
+  int* seg = d.iv(b, kSeg);
+  for (int i = threadIdx.x; i < d.n; i += kVecThreads) {
+    const bool low = d.iv(b, kLow)[i] != 0;
+    seg[i] = seg[i] * 2 + ((low || d.frozen(b, i)) ? 0 : 1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// plane-wide passes: many blocks a matrix
+// ---------------------------------------------------------------------------
+
+// C_ij = T_ij [same segment] - sigma_i [i == j]
+__device__ __forceinline__ float c_entry(const Dc& d, int b, const float* T, int i, int j) {
+  const float eq = d.same_seg(b, i, j) ? 1.0f : 0.0f;
+  return T[(size_t)i * d.n + j] * eq - (i == j ? d.fv(b, kSigma)[i] : 0.0f);
+}
+
+// the kinds of column reduction, a thread a column (coalesced), rows in order
+enum { kColAbsC = 0, kColNorm2, kColAbs };
+
+template <int kKind>
+__global__ void __launch_bounds__(kColThreads) dc_col_reduce(Dc d, const float* X_g) {
+  const int b = blockIdx.y, n = d.n;
+  const int j = blockIdx.x * kColThreads + threadIdx.x;
+  if (j >= n) return;
+  const float* X = X_g + (size_t)b * n * n;
+  float acc = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    if (kKind == kColAbsC) {
+      acc += fabsf(c_entry(d, b, X, i, j));
+    } else {
+      const float x = X[(size_t)i * n + j];
+      acc += kKind == kColNorm2 ? x * x : fabsf(x);
+    }
+  }
+  d.fv(b, kCol)[j] = kKind == kColNorm2 ? sqrtf(acc) : acc;
+}
+
+// rsum_i = sum_j |Y_ij|: a warp a row
+__global__ void __launch_bounds__(kThreads) dc_row_abs(Dc d, const float* Y_g) {
+  const int b = blockIdx.y, n = d.n;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= n) return;
+  const float* Y = Y_g + (size_t)b * n * n + (size_t)i * n;
+  float acc = 0.0f;
+  for (int j = lane; j < n; j += 32) acc += fabsf(Y[j]);
+  acc = warp_sum(acc);
+  if (lane == 0) d.fv(b, kRsum)[i] = acc;
+}
+
+// the elementwise steps: the start, and those of a level
+enum {
+  kInit = 0, kSignInit, kProjector, kProbe, kBlend, kDivColn, kDivScale, kRefine, kSymT
+};
+
+// x, y: (B, n, n) planes a step writes or reads (per step below); r: the
+// input batch a (kInit) or the (n, n) probe (kProbe)
+template <int kStep>
 __global__ void __launch_bounds__(kThreads)
-dc_kernel(const float* __restrict__ a_g, const float* __restrict__ om, float* g_g,
-          float* t_g, int* seg_g, float* work_g, int n, int levels, int min_seg,
-          int refine) {
-  __shared__ Shared s;
-  const int tid = threadIdx.x;
-  const int nn = n * n;
-  const float* a = a_g + (size_t)blockIdx.x * nn;
-  float* G = g_g + (size_t)blockIdx.x * nn;
-  float* W = work_g + (size_t)blockIdx.x * kPlanes * nn;
-  float* T = W;
-  float* S0 = W + nn;
-  float* S1 = W + 2 * nn;
-  float* S2 = W + 3 * nn;
-  float* S3 = W + 4 * nn;
-  float* S4 = W + 5 * nn;
-
-  if (tid == 0) s.min_seg = min_seg;
-  for (int i = tid; i < n; i += kThreads) s.seg[i] = 0;
-  for (int idx = tid; idx < nn; idx += kThreads) {
-    const int i = idx / n, j = idx % n;
-    G[idx] = a[idx];
-    T[idx] = 0.5f * (a[idx] + a[(size_t)j * n + i]);
+dc_elementwise(Dc d, float* x_g, float* y_g, const float* r) {
+  const int b = blockIdx.y, n = d.n;
+  const size_t nn = (size_t)n * n;
+  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= nn) return;
+  const int i = (int)(idx / n), j = (int)(idx % n);
+  float* x = x_g + (size_t)b * nn;
+  float* y = y_g + (size_t)b * nn;
+  if (kStep == kInit) {
+    // x (T) <- sym(a), y (G0) <- a; the ids start at 0
+    const float* a = r + (size_t)b * nn;
+    x[idx] = 0.5f * (a[idx] + a[(size_t)j * n + i]);
+    y[idx] = a[idx];
+    if (idx < (size_t)n) d.iv(b, kSeg)[idx] = 0;
+  } else if (kStep == kSignInit) {
+    // x (X) <- C / (1.01 bound_i + 1e-30), y = T
+    x[idx] = c_entry(d, b, y, i, j) / (1.01f * d.fv(b, kBound)[i] + 1e-30f);
+  } else if (kStep == kProjector) {
+    // x (E) <- (I - sym(E)) / 2 on the live segments, in place: the thread
+    // of (i, j), i <= j, writes both (i, j) and (j, i)
+    if (i > j) return;
+    const float e = 0.5f * (x[idx] + x[(size_t)j * n + i]);
+    const float lv = (d.frozen(b, i) || d.frozen(b, j)) ? 0.0f : 1.0f;
+    const float p = 0.5f * ((i == j ? 1.0f : 0.0f) - e) * lv;
+    x[idx] = p;
+    x[(size_t)j * n + i] = p;
+  } else if (kStep == kProbe) {
+    // x <- omega masked to the segments, identity on the frozen ones
+    const bool fro = d.frozen(b, i) || d.frozen(b, j);
+    const float eq = d.same_seg(b, i, j) ? 1.0f : 0.0f;
+    x[idx] = (fro ? (i == j ? 1.0f : 0.0f) : r[idx]) * eq;
+  } else if (kStep == kBlend) {
+    // x (omega masked) <- the blended slot columns, y = P omega
+    const float omb = x[idx], pom = y[idx];
+    x[idx] = (1.0f - kBeta) * (d.iv(b, kLow)[j] ? pom : omb - pom) + kBeta * omb;
+  } else if (kStep == kDivColn) {
+    x[idx] = x[idx] / (d.fv(b, kCol)[j] + 1e-20f);
+  } else if (kStep == kDivScale) {
+    x[idx] = x[idx] / d.fv(b, kScale)[j];
+  } else if (kStep == kRefine) {
+    // x (Q) <- the low slots through P, the high ones through I - P
+    // (y = P Q); frozen segments keep their identity columns
+    const float pq = y[idx];
+    float q = d.iv(b, kLow)[j] ? pq : x[idx] - pq;
+    if (d.frozen(b, i) || d.frozen(b, j)) q = (i == j) ? 1.0f : 0.0f;
+    x[idx] = q;
+  } else {
+    // kSymT: x (T) <- sym(y), y = Q^T T Q (not masked)
+    x[idx] = 0.5f * (y[idx] + y[(size_t)j * n + i]);
   }
-  __syncthreads();
+}
 
-  for (int level = 0; level < levels; ++level) {
-    // ---- segment sizes and starts ----
-    for (int i = tid; i < n; i += kThreads) {
-      int size = 0, start = 0;
-      const int si = s.seg[i];
-      for (int j = 0; j < n; ++j) {
-        size += s.seg[j] == si;
-        start += s.seg[j] < si;
-      }
-      s.size[i] = size;
-      s.start[i] = start;
-      s.v0[i] = T[(size_t)i * n + i];  // diagonal
-    }
-    __syncthreads();
-    // ---- rank of each diagonal entry inside its segment, ties by index ----
-    for (int j = tid; j < n; j += kThreads) {
-      int rank = 0;
-      const float dj = s.v0[j];
-      for (int i = 0; i < n; ++i) {
-        const float di = s.v0[i];
-        rank += (s.seg[i] == s.seg[j]) && (di < dj || (di == dj && i < j));
-      }
-      s.low[j] = rank;
-    }
-    __syncthreads();
-    // ---- median of the segment: mean of the two middle ranks ----
-    for (int i = tid; i < n; i += kThreads) {
-      const int lo_t = (s.size[i] - 1) / 2, hi_t = s.size[i] / 2;
-      float lo = 0.0f, hi = 0.0f;
-      for (int j = 0; j < n; ++j) {
-        if (s.seg[j] != s.seg[i]) continue;
-        if (s.low[j] == lo_t) lo += s.v0[j];
-        if (s.low[j] == hi_t) hi += s.v0[j];
-      }
-      s.v1[i] = 0.5f * (lo + hi);  // sigma
-    }
-    __syncthreads();
-    // ---- C = T * [same segment] - sigma I; column 1-norms; segment bound ----
-    auto c_entry = [&](int i, int j) {
-      const float eq = s.seg[i] == s.seg[j] ? 1.0f : 0.0f;
-      return T[(size_t)i * n + j] * eq - (i == j ? s.v1[i] : 0.0f);
-    };
-    col_reduce(s.v2, n, [&](int i, int j) { return fabsf(c_entry(i, j)); });
-    __syncthreads();
-    seg_max(s.v3, s.v2, s, n);
-    __syncthreads();
-    float* X = S0;
-    float* Xn = S3;
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int i = idx / n, j = idx % n;
-      X[idx] = c_entry(i, j) / (1.01f * s.v3[i] + 1e-30f);
-    }
-    __syncthreads();
+// dst <- src, total floats
+__global__ void __launch_bounds__(kThreads) dc_copy(float* dst, const float* src, size_t total) {
+  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (idx < total) dst[idx] = src[idx];
+}
 
-    // ---- E ~ sign(X) ----
-    for (int it = 0; it < kQuinticSign; ++it) {
-      gemm<false>(X, X, S1, n, EpiStore{}, s);
-      gemm<false>(S1, S1, S2, n, EpiQuinticW{S1, n}, s);
-      gemm<false>(X, S2, Xn, n, EpiMask{&s}, s);
-      float* t = X;
-      X = Xn;
-      Xn = t;
-    }
-    for (int it = 0; it < kCubicSign; ++it) {
-      gemm<false>(X, X, S1, n, EpiStore{}, s);
-      gemm<false>(X, S1, Xn, n, EpiCubicLive{X, n, &s}, s);
-      float* t = X;
-      X = Xn;
-      Xn = t;
-    }
-    // ---- P = (I - sym(E)) / 2 on the live segments, in X's plane ----
-    float* P = X;
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int i = idx / n, j = idx % n;
-      if (i > j) continue;
-      const float e = 0.5f * (X[idx] + X[(size_t)j * n + i]);
-      const float lv = (frozen(s, i) || frozen(s, j)) ? 0.0f : 1.0f;
-      const float p = 0.5f * ((i == j ? 1.0f : 0.0f) - e) * lv;
-      P[idx] = p;
-      P[(size_t)j * n + i] = p;
-    }
-    __syncthreads();
-    // ---- slot assignment: r = round(trace of the segment's block of P) ----
-    for (int i = tid; i < n; i += kThreads) s.v0[i] = P[(size_t)i * n + i];
-    __syncthreads();
-    for (int i = tid; i < n; i += kThreads) {
-      float tr = 0.0f;
-      for (int j = 0; j < n; ++j)
-        if (s.seg[j] == s.seg[i]) tr += s.v0[j];
-      int r = (int)rintf(tr);  // half to even
-      r = min(max(r, 0), s.size[i]);
-      s.low[i] = ((i - s.start[i]) < r && !frozen(s, i)) ? 1 : 0;
-    }
-    __syncthreads();
-    // ---- probe, blended slot columns, scaling ----
-    float* Q = Xn;       // omega masked to the segments, then Y, then Q
-    float* POm = S1;
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int i = idx / n, j = idx % n;
-      const float fro = (frozen(s, i) || frozen(s, j)) ? 1.0f : 0.0f;
-      const float eq = s.seg[i] == s.seg[j] ? 1.0f : 0.0f;
-      Q[idx] = (fro * (i == j ? 1.0f : 0.0f) + (1.0f - fro) * om[idx]) * eq;
-    }
-    __syncthreads();
-    gemm<false>(P, Q, POm, n, EpiStore{}, s);
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int j = idx % n;
-      const float omb = Q[idx], pom = POm[idx];
-      Q[idx] = (1.0f - kBeta) * (s.low[j] ? pom : omb - pom) + kBeta * omb;
-    }
-    __syncthreads();
-    normalize_columns(Q, n, s);
-    row_reduce(s.v1, n, [&](int i, int j) { return fabsf(Q[(size_t)i * n + j]); });
-    col_reduce(s.v2, n, [&](int i, int j) { return fabsf(Q[(size_t)i * n + j]); });
-    __syncthreads();
-    seg_max(s.v0, s.v1, s, n);  // largest row sum of the segment
-    seg_max(s.v3, s.v2, s, n);  // largest column sum of the segment
-    __syncthreads();
-    for (int j = tid; j < n; j += kThreads)
-      s.v1[j] = 1.01f * sqrtf(s.v0[j] * s.v3[j]) + 1e-30f;
-    __syncthreads();
-    for (int idx = tid; idx < nn; idx += kThreads) Q[idx] = Q[idx] / s.v1[idx % n];
-    __syncthreads();
+// the final ids, (B, n) int32
+__global__ void __launch_bounds__(kVecThreads) dc_export_seg(Dc d, int* seg_out) {
+  const int b = blockIdx.x;
+  for (int i = threadIdx.x; i < d.n; i += kVecThreads)
+    seg_out[(size_t)b * d.n + i] = d.iv(b, kSeg)[i];
+}
 
-    // ---- Q = polar factor ----
-    float* Qn = S4;
-    for (int it = 0; it < kQuinticPolar; ++it) {
-      gemm<true>(Q, Q, S1, n, EpiStore{}, s);
-      gemm<false>(S1, S1, S2, n, EpiQuinticW{S1, n}, s);
-      gemm<false>(Q, S2, Qn, n, EpiStore{}, s);
+struct Launcher {
+  Dc d;
+  int B;
+  cudaStream_t stream;
+  cudaError_t err = cudaSuccess;
+
+  void ok() {
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  template <bool TA, int kEpi, int kRange = kBlockDiag>
+  void gemm(const float* A, const float* Bm, float* C, const float* aux = nullptr) {
+    if (err != cudaSuccess) return;
+    const dim3 grid((d.n + kTile - 1) / kTile, (d.n + kTile - 1) / kTile, B);
+    if (d.n % 4 == 0)
+      dc_gemm<TA, kEpi, kRange, true><<<grid, kTileThreads, 0, stream>>>(d, A, Bm, C, aux);
+    else
+      dc_gemm<TA, kEpi, kRange, false><<<grid, kTileThreads, 0, stream>>>(d, A, Bm, C, aux);
+    ok();
+  }
+  template <int kStep>
+  void elementwise(float* x, float* y, const float* r = nullptr) {
+    if (err != cudaSuccess) return;
+    const size_t nn = (size_t)d.n * d.n;
+    const dim3 grid((unsigned)((nn + kThreads - 1) / kThreads), B);
+    dc_elementwise<kStep><<<grid, kThreads, 0, stream>>>(d, x, y, r);
+    ok();
+  }
+  template <int kKind>
+  void col_reduce(const float* X) {
+    if (err != cudaSuccess) return;
+    dc_col_reduce<kKind><<<dim3((d.n + kColThreads - 1) / kColThreads, B), kColThreads, 0,
+                           stream>>>(d, X);
+    ok();
+  }
+  void row_abs(const float* Y) {
+    if (err != cudaSuccess) return;
+    dc_row_abs<<<dim3((d.n + kWarps - 1) / kWarps, B), kThreads, 0, stream>>>(d, Y);
+    ok();
+  }
+  template <class K, class... Args>
+  void per_matrix(K kernel, Args... args) {
+    if (err != cudaSuccess) return;
+    kernel<<<B, kVecThreads, 0, stream>>>(d, args...);
+    ok();
+  }
+  void copy(float* dst, const float* src) {
+    if (err != cudaSuccess) return;
+    const size_t total = (size_t)B * d.n * d.n;
+    dc_copy<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(dst, src,
+                                                                                  total);
+    ok();
+  }
+  // cubic polar steps Q <- 1.5 Q - 0.5 Q (Q^T Q); Q ends in one of (Q, Qn),
+  // the other is scratch
+  void polar_cubic(float*& Q, float*& Qn, float* Gm, int steps) {
+    for (int it = 0; it < steps; ++it) {
+      gemm<true, kStore>(Q, Q, Gm);
+      gemm<false, kCubic>(Q, Gm, Qn, Q);
       float* t = Q;
       Q = Qn;
       Qn = t;
     }
-    polar_cubic(Q, Qn, S1, n, kCubicPolar, s);
-
-    // ---- refinement: re-project through P, re-orthonormalise ----
-    for (int pass = 0; pass < refine; ++pass) {
-      gemm<false>(P, Q, S1, n, EpiStore{}, s);
-      for (int idx = tid; idx < nn; idx += kThreads) {
-        const int i = idx / n, j = idx % n;
-        const float pq = S1[idx];
-        float q = s.low[j] ? pq : Q[idx] - pq;
-        // frozen segments keep their identity columns
-        if (frozen(s, i) || frozen(s, j))
-          q = (i == j) ? 1.0f : 0.0f;
-        Q[idx] = q;
-      }
-      __syncthreads();
-      normalize_columns(Q, n, s);
-      polar_cubic(Q, Qn, S1, n, kCubicRefine, s);
-    }
-
-    // ---- T <- sym(Q^T T Q), G0 <- Q^T G0, split the segments ----
-    gemm<false>(T, Q, S1, n, EpiStore{}, s);
-    gemm<true>(Q, S1, S2, n, EpiStore{}, s);
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int i = idx / n, j = idx % n;
-      T[idx] = 0.5f * (S2[idx] + S2[(size_t)j * n + i]);
-    }
-    gemm<true>(Q, G, S1, n, EpiStore{}, s);
-    for (int idx = tid; idx < nn; idx += kThreads) G[idx] = S1[idx];
-    for (int i = tid; i < n; i += kThreads)
-      s.seg[i] = s.seg[i] * 2 + ((s.low[i] || frozen(s, i)) ? 0 : 1);
-    __syncthreads();
   }
-
-  if (t_g != nullptr)
-    for (int idx = tid; idx < nn; idx += kThreads)
-      t_g[(size_t)blockIdx.x * nn + idx] = T[idx];
-  if (seg_g != nullptr)
-    for (int i = tid; i < n; i += kThreads) seg_g[(size_t)blockIdx.x * n + i] = s.seg[i];
-}
+};
 
 }  // namespace
 
 // Plain C entry for ctypes.  a, g (and t when given): (B, n, n) contiguous
 // f32 on the device; om: (n, n) f32; seg (when given): (B, n) int32; work:
-// B * 6 * n * n f32 of scratch.  a, g, t and work are distinct buffers.
-// 1 <= n <= 1024, 0 <= levels <= 24.  t and seg may be null.  Returns a
-// cudaError_t (0 on success).
-extern "C" int dc_precondition_f32(const float* a, const float* om, float* g,
-                                   float* t, int* seg, float* work, int B, int n,
-                                   int levels, int min_seg, int refine,
+// 6 * B * n * n f32 of scratch; ivec: B * 6 * n int32, fvec: B * 5 * n f32
+// of scratch.  a, g, t and work are distinct buffers.  1 <= B <= 65535,
+// 1 <= n <= 1024, 0 <= levels <= 24.  t and seg may be null.  Puts the
+// whole sequence on the stream; returns a cudaError_t (0 on success).
+extern "C" int dc_precondition_f32(const float* a, const float* om, float* g, float* t,
+                                   int* seg, float* work, int* ivec, float* fvec, int B,
+                                   int n, int levels, int min_seg, int refine,
                                    void* stream) {
-  if (B <= 0 || n < 1 || n > kMaxN || levels < 0 || levels > 24 || min_seg < 0 ||
-      refine < 0)
+  if (B <= 0 || B > 65535 || n < 1 || n > kMaxN || levels < 0 || levels > 24 ||
+      min_seg < 0 || refine < 0)
     return (int)cudaErrorInvalidValue;
-  dc_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(a, om, g, t, seg, work, n,
-                                                       levels, min_seg, refine);
-  return (int)cudaGetLastError();
+  Launcher run{Dc{ivec, fvec, n, min_seg}, B, (cudaStream_t)stream};
+  const size_t plane = (size_t)B * n * n;
+  float* T = work;
+  float* S0 = work + plane;
+  float* S1 = work + 2 * plane;
+  float* S2 = work + 3 * plane;
+  float* S3 = work + 4 * plane;
+  float* S4 = work + 5 * plane;
+
+  run.elementwise<kInit>(T, g, a);
+  for (int level = 0; level < levels; ++level) {
+    // ---- segments, band ranges, medians, bounds, the sign's start ----
+    run.per_matrix(dc_stats, (const float*)T);
+    run.col_reduce<kColAbsC>(T);
+    run.per_matrix(dc_bound);
+    float* X = S0;
+    float* Xn = S3;
+    run.elementwise<kSignInit>(X, T);
+
+    // ---- E ~ sign(X) ----
+    for (int it = 0; it < kQuinticSign; ++it) {
+      run.gemm<false, kStore>(X, X, S1);
+      run.gemm<false, kQuinticW>(S1, S1, S2, S1);
+      run.gemm<false, kMask>(X, S2, Xn);
+      float* tmp = X;
+      X = Xn;
+      Xn = tmp;
+    }
+    for (int it = 0; it < kCubicSign; ++it) {
+      run.gemm<false, kStore>(X, X, S1);
+      run.gemm<false, kCubicLive>(X, S1, Xn, X);
+      float* tmp = X;
+      X = Xn;
+      Xn = tmp;
+    }
+    // ---- P = (I - sym(E)) / 2 on the live segments, in X's plane ----
+    float* P = X;
+    run.elementwise<kProjector>(P, P);
+    run.per_matrix(dc_slots, (const float*)P);
+
+    // ---- probe, blended slot columns, scaling ----
+    float* Q = Xn;  // omega masked to the segments, then Y, then Q
+    run.elementwise<kProbe>(Q, Q, om);
+    run.gemm<false, kStore>(P, Q, S1);
+    run.elementwise<kBlend>(Q, S1);
+    run.col_reduce<kColNorm2>(Q);
+    run.elementwise<kDivColn>(Q, Q);
+    run.row_abs(Q);
+    run.col_reduce<kColAbs>(Q);
+    run.per_matrix(dc_scale);
+    run.elementwise<kDivScale>(Q, Q);
+
+    // ---- Q = polar factor ----
+    float* Qn = S4;
+    for (int it = 0; it < kQuinticPolar; ++it) {
+      run.gemm<true, kStore>(Q, Q, S1);
+      run.gemm<false, kQuinticW>(S1, S1, S2, S1);
+      run.gemm<false, kStore>(Q, S2, Qn);
+      float* tmp = Q;
+      Q = Qn;
+      Qn = tmp;
+    }
+    run.polar_cubic(Q, Qn, S1, kCubicPolar);
+
+    // ---- refinement: re-project through P, re-orthonormalise ----
+    for (int pass = 0; pass < refine; ++pass) {
+      run.gemm<false, kStore>(P, Q, S1);
+      run.elementwise<kRefine>(Q, S1);
+      run.col_reduce<kColNorm2>(Q);
+      run.elementwise<kDivColn>(Q, Q);
+      run.polar_cubic(Q, Qn, S1, kCubicRefine);
+    }
+
+    // ---- T <- sym(Q^T T Q), G0 <- Q^T G0, split the segments ----
+    run.gemm<false, kStore, kColBand>(T, Q, S1);
+    run.gemm<true, kStore, kRowBand>(Q, S1, S2);
+    run.elementwise<kSymT>(T, S2);
+    run.gemm<true, kStore, kRowBand>(Q, g, S1);
+    run.copy(g, S1);
+    run.per_matrix(dc_split);
+  }
+  if (t != nullptr) run.copy(t, T);
+  if (seg != nullptr) run.per_matrix(dc_export_seg, seg);
+  return (int)run.err;
 }

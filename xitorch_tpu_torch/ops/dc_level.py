@@ -136,10 +136,11 @@ def band_ranges(seg: torch.Tensor, tile: int = _TILE) -> Tuple[torch.Tensor, tor
     return starts[:, first], ends[:, last]
 
 
-def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
-    """``op(a) @ b`` as the kernel's tiles run it: output block (bi, bj)
+def _banded(a, b, lo, hi, tile: int, ta: bool, k_by: str) -> torch.Tensor:
+    """``op(a) @ b`` as the kernels' tiles run it: output block (bi, bj)
     sums k over the overlap of the two bands' ranges when both operands are
-    block-diagonal, over the row band's when only op(A) is (``rows``), and
+    block-diagonal (``k_by="both"``), over the row band's when only op(A) is
+    (``"rows"``), over the column band's when only B is (``"cols"``), and
     is zero where that range is empty."""
     B, n, _ = b.shape
     lo, hi = lo.tolist(), hi.tolist()
@@ -148,8 +149,8 @@ def _banded(a, b, lo, hi, tile: int, ta: bool, rows: bool) -> torch.Tensor:
         for bi in range(len(lo[m])):
             r = slice(bi * tile, min(n, (bi + 1) * tile))
             for bj in range(len(lo[m])):
-                k0, k1 = lo[m][bi], hi[m][bi]
-                if not rows:
+                k0, k1 = (lo[m][bj], hi[m][bj]) if k_by == "cols" else (lo[m][bi], hi[m][bi])
+                if k_by == "both":
                     k0, k1 = max(k0, lo[m][bj]), min(k1, hi[m][bj])
                 if k0 >= k1:
                     continue
@@ -174,18 +175,17 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), r, x)
 
 
-def _product(a, b, *, ta: bool = False, rows: bool = False, tf32: bool = False,
+def _product(a, b, *, ta: bool = False, k_by: str = "both", tf32: bool = False,
              bands=None) -> torch.Tensor:
-    """One of the level's 72 products, ``op(a) @ b`` (op = transpose when
-    ``ta``) in IEEE arithmetic, of operands rounded to TF32 first when
-    ``tf32``: dense, or with ``bands = (lo, hi, tile)`` only over the
-    k-ranges the kernel's tiles run (``rows``: b is dense, the row band's
-    range)."""
+    """One product of a level, ``op(a) @ b`` (op = transpose when ``ta``) in
+    IEEE arithmetic, of operands rounded to TF32 first when ``tf32``: dense,
+    or with ``bands = (lo, hi, tile)`` only over the k-ranges the kernel's
+    tiles run (``k_by``: see :func:`_banded`)."""
     if tf32:
         a, b = tf32_round(a), tf32_round(b)
     if bands is None:
         return dot_hi(a.mT if ta else a, b)
-    return _banded(a, b, *bands, ta, rows)
+    return _banded(a, b, *bands, ta, k_by)
 
 
 def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
@@ -271,7 +271,7 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     # outside the level's blocks, which Q^T (T Q) on the blocks never reads
     Tn = mm(Q, mm(T, Q), ta=True)
     Tn = 0.5 * (Tn + Tn.mT) * seg_eq
-    Gn = mm(Q, G0, ta=True, rows=True)
+    Gn = mm(Q, G0, ta=True, k_by="rows")
     seg = seg * 2 + torch.where(low | froz, 0, 1)
     return seg.to(torch.int32)[..., None], Tn, Gn
 

@@ -42,6 +42,7 @@ agree to a tolerance, not to rounding.  The level loop:
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -70,7 +71,16 @@ def default_probe(n: int, dtype: torch.dtype, device) -> torch.Tensor:
     """The fixed (n, n) standard-normal mixer ``omega``: drawn on the CPU
     from a ``torch.Generator`` seeded 1803 (in float64, then cast) and moved
     to ``device``, so every device and every implementation sees the same
-    probe."""
+    probe.  Drawn once per (n, dtype, device) and shared: callers only read
+    it (at 768^2 a draw and its copy to the card cost ~18 ms a call)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _probe(n, dtype, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _probe(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     gen = torch.Generator(device="cpu").manual_seed(_PROBE_SEED)
     om = torch.randn((n, n), generator=gen, dtype=torch.float64)
     return om.to(dtype=dtype, device=device)
