@@ -1212,8 +1212,8 @@ def per_level_warm(torch, np, xt, device, card):
                            inner=1)
         cold_ms = timed_ms(torch, lambda: jacobi_eigh(big, precondition=False), reps=3,
                            inner=1)
-        # the kernel with its probe made once, and the call as jacobi_eigh makes
-        # it, which draws the probe on the host every time
+        # the kernel with its probe given, and the call as jacobi_eigh makes it
+        # (the default probe, drawn once a size and device)
         om = default_probe(npad, torch.float32, device)
         k_ms = timed_ms(torch, lambda: dc_precondition_per_level(panel, levels=levels, om=om),
                         reps=3, inner=1)
@@ -1240,8 +1240,9 @@ def per_level_warm(torch, np, xt, device, card):
         prod_ms = sum(ms for nm, ms in by_name.items() if "level_gemm" in nm)
         pass_ms = sum(by_name.values()) - prod_ms
         print("  timing %s [%s], CUDA events after warm-up (median): per-level dc kernel "
-              "%.3f ms a call, %.3f ms a level (%.3f ms a call with the probe drawn on the "
-              "host, as jacobi_eigh calls it); plain %.3f ms; device time by name "
+              "%.3f ms a call with the probe given, %.3f ms a level (%.3f ms a call as "
+              "jacobi_eigh calls it, the default probe drawn once); plain %.3f ms; device "
+              "time by name "
               "(profiler): products %.3f ms a call (%.3f a level), passes and "
               "bookkeeping %.3f ms (%.3f a level)"
               % (tag, card, k_ms, k_ms / levels, call_ms, plain_ms, prod_ms,

@@ -286,7 +286,7 @@ def test_level_by_level_check_of_the_card_run(monkeypatch):
     (130, 32, 4, 16, 0),   # ragged last band, early freeze
     (256, 64, 3, 2, 0),    # config 2's n at the kernel's band
 ])
-def test_banded_products_give_the_dense_level(n, tile, levels, min_seg, refine, dtype, tol):
+def test_banded_plain_levels_give_the_dense_levels(n, tile, levels, min_seg, refine, dtype, tol):
     # one plain level whose products run only the kernel's k-ranges (both
     # bands for the block-diagonal products, the column band for T Q with T
     # unmasked, the row band for Q^T (T Q) and Q^T G0) gives the dense

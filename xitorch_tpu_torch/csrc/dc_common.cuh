@@ -37,6 +37,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---- epilogues: value stored at (i, j) for the accumulated product ----
+// The multiply-adds are written out (fmaf, __fmul_rn), so that no
+// instantiation of a product kernel leaves the choice of contraction to the
+// compiler (it chose these where the expressions were written plainly).
+__device__ __forceinline__ float quintic_w(int i, int j, float x2, float acc) {
+  return fmaf(kQc, acc, fmaf(kQb, x2, i == j ? kQa : 0.0f));
+}
+__device__ __forceinline__ float cubic(float x, float acc) {
+  return fmaf(1.5f, x, __fmul_rn(-0.5f, acc));  // 0.5 acc is exact
+}
+
 struct EpiStore {
   __device__ float operator()(int, int, float acc) const { return acc; }
 };
@@ -45,7 +55,7 @@ struct EpiQuinticW {
   const float* X2;
   int n;
   __device__ float operator()(int i, int j, float acc) const {
-    return (i == j ? kQa : 0.0f) + kQb * X2[(size_t)i * n + j] + kQc * acc;
+    return quintic_w(i, j, X2[(size_t)i * n + j], acc);
   }
 };
 // 1.5 X - 0.5 (X X2)
@@ -53,7 +63,7 @@ struct EpiCubic {
   const float* X;
   int n;
   __device__ float operator()(int i, int j, float acc) const {
-    return 1.5f * X[(size_t)i * n + j] - 0.5f * acc;
+    return cubic(X[(size_t)i * n + j], acc);
   }
 };
 
@@ -79,12 +89,11 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* B, float*
   constexpr int kR = TileSmem<TM>::kR;  // outputs a thread along a side
   constexpr int kT = TM / kR;           // threads along a side of the tile
   constexpr int kN = kT * kT;           // threads
-  constexpr int kL = BK * TM / kN;      // A (and B) values a thread stages: 4
-  constexpr int kV = kL / 4;            // the same as 16-byte chunks: 1
+  constexpr int kL = BK * TM / kN;      // A (and B) values a thread stages
+  static_assert(kL == 4, "a thread stages one 16-byte chunk of A and of B");
   constexpr int kH = TM / 2;            // a thread's second half of rows / columns
   // (unsigned: the divisions by powers of two are shifts and masks)
   const unsigned u = threadIdx.x;
-  const int tid = (int)u;
   const int tx = (int)(u % kT), ty = (int)(u / kT);
   // global -> register staging: this thread's kL A and kL B values
   const int la_k = (int)(TA ? u / (TM / kL) : (u % (BK / kL)) * kL);
@@ -123,50 +132,43 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* B, float*
     }
   };
 
-  // 16-byte staging: chunk c = tid + r kN of a k tile.  B and A^T: k tile
-  // row c / (TM / 4), columns 4 (c % (TM / 4)) + 0..3; A: row c / 2 of the
-  // tile, k 4 (c % 2) + 0..3 (32 contiguous bytes a row)
-  float4 va[kV], vb[kV];
+  // 16-byte staging, one chunk of A and one of B a thread (c the thread).
+  // B and A^T: k tile row c / (TM / 4), columns 4 (c % (TM / 4)) + 0..3;
+  // A: row c / 2 of the tile, k 4 (c % 2) + 0..3 (32 contiguous bytes a row)
+  const int c = (int)u;
+  float4 va, vb;
   auto load4 = [&](const float* X, int k, int col) {
     return (k >= k_lo && k < k_hi && col < n)
                ? *reinterpret_cast<const float4*>(X + (size_t)k * n + col)
                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   };
   auto fetch4 = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < kV; ++r) {
-      const int c = tid + r * kN;
-      const int k = k0 + c / (TM / 4), col = 4 * (c % (TM / 4));
-      vb[r] = load4(B, k, bn + col);
-      if (TA) {
-        va[r] = load4(A, k, bm + col);
-      } else {
-        const int i = bm + c / 2, kk = k0 + 4 * (c % 2);
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (i < n && kk < n) v = *reinterpret_cast<const float4*>(A + (size_t)i * n + kk);
-        v.x = (kk >= k_lo && kk < k_hi) ? v.x : 0.0f;
-        v.y = (kk + 1 >= k_lo && kk + 1 < k_hi) ? v.y : 0.0f;
-        v.z = (kk + 2 >= k_lo && kk + 2 < k_hi) ? v.z : 0.0f;
-        v.w = (kk + 3 >= k_lo && kk + 3 < k_hi) ? v.w : 0.0f;
-        va[r] = v;
-      }
+    const int k = k0 + c / (TM / 4), col = 4 * (c % (TM / 4));
+    vb = load4(B, k, bn + col);
+    if (TA) {
+      va = load4(A, k, bm + col);
+    } else {
+      const int i = bm + c / 2, kk = k0 + 4 * (c % 2);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < n && kk < n) v = *reinterpret_cast<const float4*>(A + (size_t)i * n + kk);
+      v.x = (kk >= k_lo && kk < k_hi) ? v.x : 0.0f;
+      v.y = (kk + 1 >= k_lo && kk + 1 < k_hi) ? v.y : 0.0f;
+      v.z = (kk + 2 >= k_lo && kk + 2 < k_hi) ? v.z : 0.0f;
+      v.w = (kk + 3 >= k_lo && kk + 3 < k_hi) ? v.w : 0.0f;
+      va = v;
     }
   };
   auto stage4 = [&]() {
-#pragma unroll
-    for (int r = 0; r < kV; ++r) {
-      const int c = tid + r * kN;
-      const int k = c / (TM / 4), col = 4 * (c % (TM / 4));
-      *reinterpret_cast<float4*>(&s.Bs[k][col]) = vb[r];
-      if (TA) {
-        *reinterpret_cast<float4*>(&s.As[k][col]) = va[r];
-      } else {
-        const int i = c / 2, kh = 4 * (c % 2);
-        s.As[kh][i] = va[r].x;
-        s.As[kh + 1][i] = va[r].y;
-        s.As[kh + 2][i] = va[r].z;
-        s.As[kh + 3][i] = va[r].w;
-      }
+    const int k = c / (TM / 4), col = 4 * (c % (TM / 4));
+    *reinterpret_cast<float4*>(&s.Bs[k][col]) = vb;
+    if (TA) {
+      *reinterpret_cast<float4*>(&s.As[k][col]) = va;
+    } else {
+      const int i = c / 2, kh = 4 * (c % 2);
+      s.As[kh][i] = va.x;
+      s.As[kh + 1][i] = va.y;
+      s.As[kh + 2][i] = va.z;
+      s.As[kh + 3][i] = va.w;
     }
   };
 

@@ -92,7 +92,7 @@ namespace {
 constexpr int kMaxN = 1024;        // length of the bookkeeping vectors
 constexpr int kTile = 32;          // output tile and band width of the products
 constexpr int kTileThreads = TileSmem<kTile>::kThreads;
-constexpr int kVecThreads = 1024;  // one block a matrix for the bookkeeping
+constexpr int kBookThreads = 1024; // one block a matrix for the bookkeeping
 constexpr int kColThreads = 128;   // column reductions: a thread a column
 
 constexpr float kBeta = 0.002f;  // rank-safety probe blend
@@ -130,34 +130,10 @@ struct Dc {
 // ---------------------------------------------------------------------------
 enum { kBlockDiag = 0, kRowBand, kColBand };
 // the epilogues: acc; qa I + qb aux + qc acc; 1.5 aux - 0.5 acc; acc masked
-// to the live segments; (1.5 aux - 0.5 acc) masked to the live segments.
-// The multiply-adds are written out (fmaf, __fmul_rn), so that no
-// instantiation of the product kernel leaves the choice of contraction to
-// the compiler: they are the rounding the one-block-a-matrix design (see
-// Rejected) was compiled to, and the two give the same bits.
+// to the live segments; (1.5 aux - 0.5 acc) masked to the live segments
+// (they round as the rejected design's did: see csrc/dc_common.cuh)
 enum { kStore = 0, kQuinticW, kCubic, kMask, kCubicLive };
 
-__device__ __forceinline__ float quintic_w(int i, int j, float x2, float acc) {
-  return fmaf(kQc, acc, fmaf(kQb, x2, i == j ? kQa : 0.0f));
-}
-__device__ __forceinline__ float cubic(float x, float acc) {
-  return fmaf(1.5f, x, __fmul_rn(-0.5f, acc));  // 0.5 acc is exact
-}
-
-struct EpiQuinticWRn {
-  const float* X2;
-  int n;
-  __device__ float operator()(int i, int j, float acc) const {
-    return quintic_w(i, j, X2[(size_t)i * n + j], acc);
-  }
-};
-struct EpiCubicRn {
-  const float* X;
-  int n;
-  __device__ float operator()(int i, int j, float acc) const {
-    return cubic(X[(size_t)i * n + j], acc);
-  }
-};
 struct EpiMask {
   Dc d;
   int b;
@@ -209,9 +185,9 @@ dc_gemm(Dc d, const float* A, const float* B, float* C, const float* aux) {
   B += off;
   C += off;
   if (kEpi == kQuinticW)
-    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiQuinticWRn{aux + off, n}, tiles);
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiQuinticW{aux + off, n}, tiles);
   else if (kEpi == kCubic)
-    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiCubicRn{aux + off, n}, tiles);
+    dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiCubic{aux + off, n}, tiles);
   else if (kEpi == kMask)
     dc_tile<TA, kVec>(A, B, C, n, k_lo, k_hi, EpiMask{d, b}, tiles);
   else if (kEpi == kCubicLive)
@@ -221,12 +197,12 @@ dc_gemm(Dc d, const float* A, const float* B, float* C, const float* aux) {
 }
 
 // ---------------------------------------------------------------------------
-// segment bookkeeping: one block of kVecThreads a matrix
+// segment bookkeeping: one block of kBookThreads a matrix
 // ---------------------------------------------------------------------------
 
 // sizes, starts, the band ranges, and the median sigma of diag(T) in each
 // segment
-__global__ void __launch_bounds__(kVecThreads) dc_stats(Dc d, const float* T_g) {
+__global__ void __launch_bounds__(kBookThreads) dc_stats(Dc d, const float* T_g) {
   __shared__ int seg[kMaxN];
   __shared__ int size[kMaxN];
   __shared__ int start[kMaxN];
@@ -234,12 +210,12 @@ __global__ void __launch_bounds__(kVecThreads) dc_stats(Dc d, const float* T_g) 
   __shared__ float dg[kMaxN];
   const int b = blockIdx.x, n = d.n, tid = threadIdx.x;
   const float* T = T_g + (size_t)b * n * n;
-  for (int i = tid; i < n; i += kVecThreads) {
+  for (int i = tid; i < n; i += kBookThreads) {
     seg[i] = d.iv(b, kSeg)[i];
     dg[i] = T[(size_t)i * n + i];
   }
   __syncthreads();
-  for (int i = tid; i < n; i += kVecThreads) {
+  for (int i = tid; i < n; i += kBookThreads) {
     int sz = 0, st = 0;
     const int si = seg[i];
     for (int j = 0; j < n; ++j) {
@@ -252,7 +228,7 @@ __global__ void __launch_bounds__(kVecThreads) dc_stats(Dc d, const float* T_g) 
     d.iv(b, kStart)[i] = st;
   }
   // rank of each diagonal entry inside its segment, ties by index
-  for (int j = tid; j < n; j += kVecThreads) {
+  for (int j = tid; j < n; j += kBookThreads) {
     int r = 0;
     const float dj = dg[j];
     for (int i = 0; i < n; ++i) {
@@ -263,13 +239,13 @@ __global__ void __launch_bounds__(kVecThreads) dc_stats(Dc d, const float* T_g) 
   }
   __syncthreads();
   // the band ranges the products read (segments are contiguous runs)
-  for (int t = tid; t * kTile < n; t += kVecThreads) {
+  for (int t = tid; t * kTile < n; t += kBookThreads) {
     const int last = min(n, (t + 1) * kTile) - 1;
     d.iv(b, kLo)[t] = start[t * kTile];
     d.iv(b, kHi)[t] = start[last] + size[last];
   }
   // median: mean of the two middle ranks
-  for (int i = tid; i < n; i += kVecThreads) {
+  for (int i = tid; i < n; i += kBookThreads) {
     const int lo_t = (size[i] - 1) / 2, hi_t = size[i] / 2;
     float lo = 0.0f, hi = 0.0f;
     for (int j = 0; j < n; ++j) {
@@ -283,7 +259,7 @@ __global__ void __launch_bounds__(kVecThreads) dc_stats(Dc d, const float* T_g) 
 
 // out_i = max over the positions j of i's segment of v_j (v >= 0)
 __device__ __forceinline__ void seg_max(float* out, const float* v, const int* seg, int n) {
-  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+  for (int i = threadIdx.x; i < n; i += kBookThreads) {
     float m = 0.0f;
     for (int j = 0; j < n; ++j)
       if (seg[j] == seg[i]) m = fmaxf(m, v[j]);
@@ -292,11 +268,11 @@ __device__ __forceinline__ void seg_max(float* out, const float* v, const int* s
 }
 
 // bound_i = the largest column 1-norm of C in i's segment
-__global__ void __launch_bounds__(kVecThreads) dc_bound(Dc d) {
+__global__ void __launch_bounds__(kBookThreads) dc_bound(Dc d) {
   __shared__ int seg[kMaxN];
   __shared__ float col[kMaxN];
   const int b = blockIdx.x, n = d.n;
-  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+  for (int i = threadIdx.x; i < n; i += kBookThreads) {
     seg[i] = d.iv(b, kSeg)[i];
     col[i] = d.fv(b, kCol)[i];
   }
@@ -305,17 +281,17 @@ __global__ void __launch_bounds__(kVecThreads) dc_bound(Dc d) {
 }
 
 // the low-slot flags: r = round(trace of the segment's block of P)
-__global__ void __launch_bounds__(kVecThreads) dc_slots(Dc d, const float* P_g) {
+__global__ void __launch_bounds__(kBookThreads) dc_slots(Dc d, const float* P_g) {
   __shared__ int seg[kMaxN];
   __shared__ float pd[kMaxN];
   const int b = blockIdx.x, n = d.n;
   const float* P = P_g + (size_t)b * n * n;
-  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+  for (int i = threadIdx.x; i < n; i += kBookThreads) {
     seg[i] = d.iv(b, kSeg)[i];
     pd[i] = P[(size_t)i * n + i];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+  for (int i = threadIdx.x; i < n; i += kBookThreads) {
     float tr = 0.0f;
     for (int j = 0; j < n; ++j)
       if (seg[j] == seg[i]) tr += pd[j];
@@ -327,13 +303,13 @@ __global__ void __launch_bounds__(kVecThreads) dc_slots(Dc d, const float* P_g) 
 }
 
 // scale_j = 1.01 sqrt(max row sum * max column sum of j's segment)
-__global__ void __launch_bounds__(kVecThreads) dc_scale(Dc d) {
+__global__ void __launch_bounds__(kBookThreads) dc_scale(Dc d) {
   __shared__ int seg[kMaxN];
   __shared__ float rs[kMaxN];
   __shared__ float cs[kMaxN];
   __shared__ float rmax[kMaxN];
   const int b = blockIdx.x, n = d.n;
-  for (int i = threadIdx.x; i < n; i += kVecThreads) {
+  for (int i = threadIdx.x; i < n; i += kBookThreads) {
     seg[i] = d.iv(b, kSeg)[i];
     rs[i] = d.fv(b, kRsum)[i];
     cs[i] = d.fv(b, kCol)[i];
@@ -343,15 +319,15 @@ __global__ void __launch_bounds__(kVecThreads) dc_scale(Dc d) {
   seg_max(d.fv(b, kScale), cs, seg, n);  // cmax, finished below
   __syncthreads();
   float* scale = d.fv(b, kScale);
-  for (int j = threadIdx.x; j < n; j += kVecThreads)
+  for (int j = threadIdx.x; j < n; j += kBookThreads)
     scale[j] = 1.01f * sqrtf(rmax[j] * scale[j]) + 1e-30f;
 }
 
 // the ids split: low or frozen positions take the even child
-__global__ void __launch_bounds__(kVecThreads) dc_split(Dc d) {
+__global__ void __launch_bounds__(kBookThreads) dc_split(Dc d) {
   const int b = blockIdx.x;
   int* seg = d.iv(b, kSeg);
-  for (int i = threadIdx.x; i < d.n; i += kVecThreads) {
+  for (int i = threadIdx.x; i < d.n; i += kBookThreads) {
     const bool low = d.iv(b, kLow)[i] != 0;
     seg[i] = seg[i] * 2 + ((low || d.frozen(b, i)) ? 0 : 1);
   }
@@ -469,9 +445,9 @@ __global__ void __launch_bounds__(kThreads) dc_copy(float* dst, const float* src
 }
 
 // the final ids, (B, n) int32
-__global__ void __launch_bounds__(kVecThreads) dc_export_seg(Dc d, int* seg_out) {
+__global__ void __launch_bounds__(kBookThreads) dc_export_seg(Dc d, int* seg_out) {
   const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < d.n; i += kVecThreads)
+  for (int i = threadIdx.x; i < d.n; i += kBookThreads)
     seg_out[(size_t)b * d.n + i] = d.iv(b, kSeg)[i];
 }
 
@@ -517,7 +493,7 @@ struct Launcher {
   template <class K, class... Args>
   void per_matrix(K kernel, Args... args) {
     if (err != cudaSuccess) return;
-    kernel<<<B, kVecThreads, 0, stream>>>(d, args...);
+    kernel<<<B, kBookThreads, 0, stream>>>(d, args...);
     ok();
   }
   void copy(float* dst, const float* src) {

@@ -41,7 +41,6 @@ import torch
 from xitorch_tpu_torch.ops import _build, dc_level
 from xitorch_tpu_torch.ops.spectral_dc import _QUINTIC, _RANK_SAFE_BETA, as_probe
 from xitorch_tpu_torch.ops.tridiag import use_kernel
-from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["dc_precondition", "dc_precondition_cuda", "dc_precondition_plain",
            "fits_dc_kernel"]
