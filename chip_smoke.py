@@ -16,7 +16,8 @@ paths give it, and drives these configurations through the public API:
   ``linalg.symeig(A, 8, "lowest")`` by exacteig, davidson, chebfsi and
   the default routing (which must be exacteig through the sweep kernel,
   converged and silent), ``linalg.svd`` of 64 general matrices, and the
-  gradient to the dense A (the one-sided Jacobi sweep kernel);
+  gradient to the dense A (the one-sided Jacobi sweep kernel, which must
+  take its cluster path with 2 CTAs a matrix);
 * the default routing outside the sweep kernel's window: ``method=None``,
   ``"exacteig"`` and ``"chebfsi"`` timed at 8 x 1536 x 1536, neig 8;
 * config 2 with the warm start: the divide-and-conquer kernel against its
@@ -29,7 +30,8 @@ paths give it, and drives these configurations through the public API:
 * the per-level warm start past a padded n of 448: the level kernel
   against ``dc_level_plain`` one launch (one level) at a time from the
   kernel's own state at 8 x 700 x 700 (padded to 768, 10 levels) and
-  8 x 512 x 512 (9 levels), the invariants at full depth, then
+  8 x 512 x 512 (9 levels), the invariants at full depth, the real sweep
+  kernel against its plain version on the cold panel at both sizes, then
   ``jacobi_eigh(precondition=True)`` against the cold sweep (quality gates,
   sweeps, guard fall-backs, one launch a level) and the level's products
   as ``torch.bmm``;
@@ -86,11 +88,13 @@ gate's rows above 512 come from this), without holding the gate to it.
 
     python3 chip_smoke.py --only dc
     python3 chip_smoke.py --only dc_level
+    python3 chip_smoke.py --only sweep
 
 build the kernels and run only config 2's warm start phase (the
-single-shot DC kernel) or only the per-level warm start's phase, with the
-same last lines: development switches for work on those kernels.  The
-default run is the full script.
+single-shot DC kernel), only the per-level warm start's phase, or only
+config 2's phase (the real sweep kernel, its path and cluster size) and
+the sweep gate's table, with the same last lines: development switches
+for work on those kernels.  The default run is the full script.
 """
 from __future__ import annotations
 
@@ -305,13 +309,16 @@ def shifted_panel(torch, mats):
     return (mats + sigma[:, None, None] * eye).contiguous()
 
 
-def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=False):
+def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=False,
+                 cluster=None):
     """Hold a sweep kernel's output ``Gk`` against the plain version's
     ``Gp`` on the panel ``P`` (neither promises a row order, so everything
     compared is invariant under one).  ``spectrum``: the float64 row norms
     expected at convergence, ascending.  With ``complexpair`` the panels are
     packed planes ``[Re | Im]`` and the invariant is the hermitian
-    ``G^H G``.  Returns the max abs difference of the sorted row norms."""
+    ``G^H G``.  ``cluster``: the real kernel's path for this launch
+    (``jacobi_sweep_cuda.last_cluster``), printed.  Returns the max abs
+    difference of the sorted row norms."""
     from xitorch_tpu_torch.ops.jacobi_eigh import _max_cos2
 
     def wide(G):
@@ -337,11 +344,13 @@ def sweep_checks(torch, name, P, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=
     rel = float((nk - npl).abs().max()) / scale
     dsweeps = int((sk - sp).abs().max())
     spec = float((nk - spectrum).abs().max()) / scale
+    path = ("" if cluster is None else ", path: cluster of %d CTAs a matrix" % cluster
+            if cluster else ", path: device memory")
     print("%s kernel vs plain: gauge %.2e / %.2e (tol^2 %.2e), G-invariant %.2e / "
           "%.2e, sorted row norms rel diff %.2e, vs float64 spectrum %.2e, sweeps "
-          "%d..%d (mean %.2f, max |diff| %d)"
+          "%d..%d (mean %.2f, max |diff| %d)%s"
           % (name, gauges[0], gauges[1], tol2, invs[0], invs[1], rel, spec,
-             int(sk.min()), int(sk.max()), float(sk.float().mean()), dsweeps))
+             int(sk.min()), int(sk.max()), float(sk.float().mean()), dsweeps, path))
     # float32 rounding of ~n rotations per row and sweep
     check(max(invs) <= 1e-5, "%s: G-invariant broken: %s" % (name, invs))
     # sums in another order; both left on a measured gauge
@@ -393,20 +402,25 @@ def config2(torch, np, xt, device, card):
 
     # ---- kernel vs plain at the config-2 panel and one rectangular panel ----
     Gk, sk, gk, rk = jacobi_sweep_cuda(panel, max_sweeps, tol, return_stats=True)
+    cluster = jacobi_sweep_cuda.last_cluster
     Gp, sp = jacobi_sweep_plain(panel, max_sweeps, tol)
     torch.cuda.synchronize()
     spectrum = torch.linalg.eigvalsh(panel.double())
     sq_err = sweep_checks(torch, "jacobi_sweep (%d, %d, %d)" % (B2, N2, N2), panel, Gk,
-                          Gp, sk, sp, gk, tol, spectrum)
+                          Gp, sk, sp, gk, tol, spectrum, cluster=cluster)
+    # config 2's 256 KB panels: two 128 KB column slices a matrix, 128 CTAs
+    check(cluster == 2, "config 2: the sweep kernel took path %s, not a cluster of 2"
+          % cluster)
     # rows = the first 128 columns of the general batch: Hestenes' SVD
     rect = gmats[:, :, :N2 // 2].mT.contiguous()
     tol_r = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2 // 2)
     Rk, rsk, rgk, _ = jacobi_sweep_cuda(rect, max_sweeps, tol_r, return_stats=True)
+    r_cluster = jacobi_sweep_cuda.last_cluster
     Rp, rsp = jacobi_sweep_plain(rect, max_sweeps, tol_r)
     torch.cuda.synchronize()
     sweep_checks(torch, "jacobi_sweep (%d, %d, %d)" % (B2, N2 // 2, N2), rect, Rk, Rp,
                  rsk, rsp, rgk, tol_r,
-                 torch.linalg.svdvals(rect.double()).flip(-1))
+                 torch.linalg.svdvals(rect.double()).flip(-1), cluster=r_cluster)
 
     counts = {"fwd": 0, "default": 0, "svd": 0, "grad": 0}
 
@@ -613,14 +627,14 @@ def config2(torch, np, xt, device, card):
         return B2 / ms * 1e3
 
     print("timing, config 2 [%s], CUDA events after warm-up (median):" % card)
-    print("  jacobi_sweep kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s), "
-          "torch.linalg.eigh of the same panel %.3f ms; mean sweeps per matrix %.2f, "
-          "rotations applied %.0f of %.0f pair visits (B=%d, n=%d) [%s]"
-          % (k_ms, plain_ms, k_bound, k_by, lib_eigh_panel_ms, sweeps_total / B2,
-             rot_total, sweeps_total * rounds * (N2 // 2), B2, N2, card))
-    print("  gauge + norm refresh alone (max_sweeps=0, panel copy of %.3f ms taken "
-          "off) %.3f ms a time: %.0f%% of the kernel's time [%s]"
-          % (copy_ms, gauge_ms - copy_ms, 100 * gauge_share, card))
+    print("  jacobi_sweep kernel %.3f ms (cluster of %d CTAs a matrix), plain %.3f ms, "
+          "bound %.4f ms (%s), torch.linalg.eigh of the same panel %.3f ms; mean sweeps "
+          "per matrix %.2f, rotations applied %.0f of %.0f pair visits (B=%d, n=%d) [%s]"
+          % (k_ms, cluster, plain_ms, k_bound, k_by, lib_eigh_panel_ms,
+             sweeps_total / B2, rot_total, sweeps_total * rounds * (N2 // 2), B2, N2, card))
+    print("  the tiled gauge alone (max_sweeps=0, its diagonal tiles refresh the norms; "
+          "panel copy of %.3f ms taken off) %.3f ms a time: %.0f%% of the kernel's time "
+          "[%s]" % (copy_ms, gauge_ms - copy_ms, 100 * gauge_share, card))
     print("  jacobi_eigh %.3f ms vs torch.linalg.eigh (of the panel, above: same shape) "
           "%.3f ms; jacobi_svd %.3f ms vs torch.linalg.svd %.3f ms (%d x %d x %d) [%s]"
           % (je_ms, lib_eigh_panel_ms, js_ms, svd_ms, B2, N2, N2, card))
@@ -1074,7 +1088,9 @@ def per_level_warm(torch, np, xt, device, card):
         _PRODUCTS_PER_LEVEL, _TF32_PRODUCTS, dc_level_cuda, dc_level_plain,
         dc_precondition_per_level,
     )
-    from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_eigh, jacobi_sweep_cuda
+    from xitorch_tpu_torch.ops.jacobi_eigh import (
+        jacobi_eigh, jacobi_sweep_cuda, jacobi_sweep_plain,
+    )
     from xitorch_tpu_torch.ops.spectral_dc import default_probe
 
     bsz = 8
@@ -1206,6 +1222,22 @@ def per_level_warm(torch, np, xt, device, card):
         for q, name in zip(qual, ("warm", "cold")):
             check(q[0] <= 1e-5 and q[1] < 2e-5 and q[2] < 5e-5,
                   "%s jacobi_eigh at %s: outside the gates: %s" % (name, tag, q))
+
+        # ---- the sweep kernel against its plain version on the panel of the
+        # cold sweep, which the guard also hands it for every fall-back ----
+        tol_s = float(torch.finfo(torch.float32).eps) * 4.0 * math.sqrt(n_user)
+        Gs, ss, gs, _ = jacobi_sweep_cuda(panel, 18, tol_s, return_stats=True)
+        cl = jacobi_sweep_cuda.last_cluster
+        Gq, sq = jacobi_sweep_plain(panel, 18, tol_s)
+        torch.cuda.synchronize()
+        sweep_checks(torch, "jacobi_sweep (%d, %d, %d)" % (bsz, npad, npad), panel, Gs, Gq,
+                     ss, sq, gs, tol_s, torch.linalg.eigvalsh(panel.double()), cluster=cl)
+        del Gs, Gq
+        sweep_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol_s), reps=3,
+                            inner=1)
+        print("  sweep kernel on the cold panel %s [%s]: %.3f ms a call, cluster of %d CTAs "
+              "a matrix, sweeps %d..%d" % (tag, card, sweep_ms, cl, int(ss.min()),
+                                           int(ss.max())))
 
         # ---- timing ----
         warm_ms = timed_ms(torch, lambda: jacobi_eigh(big, precondition=True), reps=3,
@@ -1958,18 +1990,19 @@ def path_b(torch, np, xt, device, card):
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(1)
 
-    # ---- the sweep kernel against its plain version at the factor shapes:
-    # batch 1, the whole panel in one block (where the gate sends these to
-    # torch.linalg.eigh, this is the measurement behind that) ----
+    # ---- the sweep kernel against its plain version at the factor shapes,
+    # batch 1 (where the gate sends these to torch.linalg.eigh, this is the
+    # measurement behind that) ----
     factor_ms = {}
     for n in sorted({n for dims in KRON_POINTS for n in dims}):
         panel = shifted_panel(torch, lap1d(torch, n, device, f32)[None])
         tol = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(n)
         Gk, sk, gk, _ = jacobi_sweep_cuda(panel, 18, tol, return_stats=True)
+        cluster = jacobi_sweep_cuda.last_cluster
         Gp, sp = jacobi_sweep_plain(panel, 18, tol)
         torch.cuda.synchronize()
         sweep_checks(torch, "jacobi_sweep (1, %d, %d)" % (n, n), panel, Gk, Gp, sk, sp, gk,
-                     tol, torch.linalg.eigvalsh(panel.double()))
+                     tol, torch.linalg.eigvalsh(panel.double()), cluster=cluster)
         factor_ms[n] = (timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol), reps=3,
                                  inner=3),
                         timed_ms(torch, lambda: torch.linalg.eigh(panel), reps=3, inner=3))
@@ -2346,10 +2379,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
-    parser.add_argument("--only", choices=("dc", "dc_level"), default=None,
+    parser.add_argument("--only", choices=("dc", "dc_level", "sweep"), default=None,
                         help="dc: build, then run only config 2's warm start phase "
                              "(config2_warm, row 4); dc_level: only the per-level warm "
-                             "start's phase (per_level_warm, row 7); development switches")
+                             "start's phase (per_level_warm, row 7); sweep: only config "
+                             "2's phase (config2, row 3) and the sweep gate's table; "
+                             "development switches")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2393,6 +2428,13 @@ def main(argv=None) -> int:
     if args.only == "dc_level":
         level_record, _ = per_level_warm(torch, np, xt, device, card)
         print(json.dumps({"kernels": [level_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "sweep":
+        jacobi_record, _ = config2(torch, np, xt, device, card)
+        sweep_gate_table(torch, device, card)
+        print(json.dumps({"kernels": [jacobi_record]}))
         print("total: %.1f s" % (time.perf_counter() - t_start))
         print_device(torch)
         return 0

@@ -385,10 +385,18 @@ def test_gate_follows_the_table(kind):
             assert jmod._kernel_wins(kind, (batch,), n) == want, (kind, n, batch)
             # a batch given in several dims counts as their product
             assert jmod._kernel_wins(kind, (1, batch, 1), n) == want
-    # the crossover never falls as n grows: the kernel's one block a matrix
-    # wins later at larger n
     rows = [b if b is not None else math.inf for b in jmod._GATE_MIN_BATCH[kind]]
-    assert rows == sorted(rows)
+    if kind.startswith("complex"):
+        # the complex kernel runs one block a matrix: its crossover never
+        # falls as n grows
+        assert rows == sorted(rows)
+    else:
+        # the real kernel splits a matrix over a cluster of CTAs wherever
+        # the panel's slices fit one (n <= 768): there it wins from batch 1
+        # or 2, at 768 (two waves of clusters of 16) later, and at 1024 (the
+        # device-memory path, one block a matrix) latest or never
+        assert all(b <= 2 for n, b in zip(jmod._GATE_N, rows) if n <= 512)
+        assert rows[-1] >= rows[-2] >= max(rows[:-2])
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 64), (64, 256, 256), (32, 512, 512), (256, 128, 96)])

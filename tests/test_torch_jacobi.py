@@ -204,6 +204,52 @@ def test_gates_and_window():
     assert jacobi_sweep_cuda.launches_complex == 0
 
 
+@pytest.mark.parametrize("B, n, width, expect", [
+    (64, 256, 256, 2),     # config 2: a 256 KB panel, two 128 KB slices, 128 CTAs
+    (64, 128, 256, 2),     # config 2's rectangular panel fits one CTA; 2 fill the card
+    (1, 256, 256, 8),      # batch 1: grown to 8 CTAs a matrix
+    (2, 256, 256, 8),
+    (1, 64, 64, 8),        # path B's factor panels
+    (1, 128, 128, 8),
+    (1, 512, 512, 8),      # a 1 MB panel needs 8
+    (8, 512, 512, 8),      # the per-level warm path's sweeps
+    (8, 768, 768, 16),     # 2.36 MB: only the non-portable 16 holds it
+    (32, 768, 768, 16),    # several waves, but no smaller cluster holds it
+    (3, 32, 32, 8),        # each CTA keeps one float4 column
+    (1, 16, 8, 2),         # no more CTAs than float4 columns
+    (1, 1024, 1024, 0),    # no cluster holds it: the device-memory path
+    (4, 1024, 4096, 0),
+])
+def test_sweep_cluster_chooser(B, n, width, expect):
+    c = jmod.sweep_cluster(B, n, width)
+    assert c == expect
+    if c:
+        # the slices fit the shared memory a block may opt in to on the H100,
+        # and the next smaller cluster's would not (or it is 1)
+        assert jmod.cluster_smem_bytes(n, width, c) <= 232448
+        assert B * c <= 132 or c == min(
+            cc for cc in (1, 2, 4, 8, 16) if jmod.cluster_smem_bytes(n, width, cc) <= 232448)
+    # a shared-memory limit of 0 forces the device-memory path
+    assert jmod.sweep_cluster(B, n, width, smem_block=0) == 0
+
+
+def test_sweep_cluster_chooser_limits():
+    # the formula of csrc/jacobi_sweep.cu: 256 rows of 33 float4 (32 held,
+    # the odd stride), two 64 x 64 tiles (more than 2 x 2 x 128 partials),
+    # the norms and the coefficients, 64 words; at 768 on 16 CTAs the
+    # partials take the area
+    assert jmod.cluster_smem_bytes(256, 256, 2) == 256 * 33 * 16 + (8192 + 512 + 64) * 4
+    assert jmod.cluster_smem_bytes(768, 768, 16) == \
+        768 * 13 * 16 + (16 * 768 + 2 * 768 + 64) * 4
+    # fewer SMs or less shared memory change the choice; the occupancy
+    # query stops the growth where the card holds fewer clusters than B
+    assert jmod.sweep_cluster(1, 256, 256, sm_count=4) == 4
+    assert jmod.sweep_cluster(64, 256, 256, smem_block=120000) == 4
+    assert jmod.sweep_cluster(1, 256, 256, active_clusters=lambda c: 1 if c <= 4 else 0) == 4
+    assert jmod.sweep_cluster(4, 128, 128, active_clusters=lambda c: 132 // c) == 8
+    assert jmod.sweep_cluster(4, 128, 128, active_clusters=lambda c: 3) == 1
+
+
 # ------------------------------------------------------------------
 # the warm start: correction, guard, and the whole route
 # ------------------------------------------------------------------

@@ -10,8 +10,9 @@ need not have; this file imports no JAX.)
 
 (``python3 chip_smoke.py`` covers the BASELINE config-3 and config-2
 shapes; these cases cover odd sizes, several bands, other ranks, float64
-Thomas, the real and the complex Jacobi sweep kernel on both of their
-memory paths, the divide-and-conquer kernel with its exports, the per-level
+Thomas, the real Jacobi sweep kernel on every cluster size its chooser
+picks and on its device-memory path, the complex one on both of its memory
+paths, the divide-and-conquer kernel with its exports, the per-level
 divide-and-conquer kernel one level at a time, the sweep gate by batch, and
 the fused dense CG kernel over odd sizes, every group size, float64 and a
 broadcast A.)
@@ -143,14 +144,20 @@ def _sorted_row_norms(G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, n, width", [
-    (3, 32, 32),      # square, shared-memory path, one float4 per lane
-    (2, 64, 300),     # rectangular, width not a multiple of 4 nor of 128
-    (2, 256, 256),    # the config-2 panel: 256 KB, device-memory path
-    (1, 16, 1000),    # wide rows: eight float4 per lane in registers
-    (1, 32, 2052),    # wider than the register cache: rows read twice
+@pytest.mark.parametrize("B, n, width, smem_limit, cluster", [
+    (3, 32, 32, None, 8),        # square, one float4 column a CTA
+    (2, 64, 300, None, 8),       # rectangular: 75 float4 columns, slices of 10, the last 5
+    (2, 256, 256, None, 8),      # a 256 KB panel grown to 8 CTAs
+    (64, 256, 256, None, 2),     # config 2: two 128 KB slices a matrix, 128 CTAs
+    (1, 256, 256, None, 8),      # batch 1
+    (1, 512, 512, None, 8),      # a 1 MB panel
+    (2, 768, 768, None, 16),     # 2.36 MB: the non-portable cluster of 16
+    (1, 16, 1000, None, 8),      # wide rows
+    (2, 256, 256, 0, 0),         # the device-memory path, forced
+    (1, 16, 1000, 0, 0),         # device memory, eight float4 per lane in registers
+    (1, 32, 2052, 0, 0),         # device memory, wider than the register cache
 ])
-def test_jacobi_sweep_kernel_matches_plain(cuda, B, n, width):
+def test_jacobi_sweep_kernel_matches_plain(cuda, B, n, width, smem_limit, cluster):
     rng = np.random.default_rng(3)
     a = rng.standard_normal((B, n, width))
     if n == width:
@@ -158,7 +165,8 @@ def test_jacobi_sweep_kernel_matches_plain(cuda, B, n, width):
     a[-1, 1] = 0.0  # a zero row must stay dead
     P = torch.tensor(a, dtype=torch.float32, device=cuda)
     tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(n)
-    Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True)
+    Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True, smem_limit=smem_limit)
+    assert jacobi_sweep_cuda.last_cluster == cluster
     Gp, sp = jacobi_sweep_plain(P, 18, tol)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(Gk).all())
@@ -178,6 +186,37 @@ def test_jacobi_sweep_kernel_matches_plain(cuda, B, n, width):
     # at most one rotation per pair and round
     rounds = -(-(n - 1) // 6) * 6
     assert bool((rk > 0).all()) and bool((rk <= sk * rounds * (n // 2)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, cluster", [(3, 8), (40, 2)])
+def test_jacobi_sweep_clusters_exit_on_their_own(cuda, B, cluster):
+    # one launch: an orthogonal panel (no sweep), random ones, one with a
+    # dead zero row; every cluster leaves on its own gauge and none hangs
+    n = 256
+    rng = np.random.default_rng(7)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    a = a @ a.transpose(0, 2, 1) + 2.0 * np.eye(n)
+    a[0] = q * np.arange(1, n + 1)[:, None]
+    a[-1, 5] = 0.0
+    P = torch.tensor(a, dtype=torch.float32, device=cuda)
+    tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(n)
+    G, sweeps, gauge, rot = jacobi_sweep_cuda(P, 18, tol, return_stats=True)
+    torch.cuda.synchronize()
+    assert jacobi_sweep_cuda.last_cluster == cluster
+    assert int(sweeps[0]) == 0 and int(rot[0]) == 0 and bool(torch.equal(G[0], P[0]))
+    assert bool((sweeps[1:] >= 5).all()) and bool((sweeps <= 18).all())
+    assert float(G[-1, 5].abs().max()) == 0.0
+    assert bool((gauge <= tol * tol).all()) and float(_max_cos2(G).max()) <= tol * tol
+    ref = P.double().mT @ P.double()
+    inv = torch.linalg.norm(G.double().mT @ G.double() - ref, dim=(-2, -1)) \
+        / torch.linalg.norm(ref, dim=(-2, -1))
+    assert float(inv.max()) <= 1e-5
+    # max_sweeps = 0 measures the gauge and leaves, on every cluster
+    G0, s0, g0, _ = jacobi_sweep_cuda(P, 0, tol, return_stats=True)
+    assert bool((s0 == 0).all()) and bool(torch.equal(G0, P))
+    assert float(((g0.double() / _max_cos2(P).double())[1:] - 1.0).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -462,10 +501,18 @@ def test_per_level_warm_jacobi_eigh_on_card(cuda):
 def test_sweep_gate_by_batch_on_card(cuda):
     from xitorch_tpu_torch.ops.jacobi_eigh import use_jacobi_for, use_jacobi_svd_for
 
-    # the measured table: one 128 x 128 matrix goes to the library, 64 to the kernel
+    # the measured table: one 128 x 128 matrix goes to the library, two and
+    # 64 to the kernel; from one 256 x 256 matrix on the kernel; at 768 the
+    # library up to batch 8 for eigh; at 1024 the library for eigh
     assert not use_jacobi_for(torch.zeros(1, 128, 128, device=cuda))
+    assert use_jacobi_for(torch.zeros(2, 128, 128, device=cuda))
     assert use_jacobi_for(torch.zeros(64, 128, 128, device=cuda))
+    assert use_jacobi_for(torch.zeros(1, 256, 256, device=cuda))
+    assert not use_jacobi_for(torch.zeros(8, 768, 768, device=cuda))
+    assert use_jacobi_for(torch.zeros(16, 768, 768, device=cuda))
+    assert not use_jacobi_for(torch.zeros(32, 1024, 1024, device=cuda))
     assert not use_jacobi_svd_for(torch.zeros(1, 128, 300, device=cuda))
+    assert use_jacobi_svd_for(torch.zeros(2, 128, 300, device=cuda))
     assert use_jacobi_svd_for(torch.zeros(64, 128, 300, device=cuda))
     assert not use_jacobi_for(torch.zeros(64, 512, 512, dtype=torch.complex64, device=cuda))
     # the library side of the gate meets the kernel side's orthogonality: a

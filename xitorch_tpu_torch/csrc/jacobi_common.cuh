@@ -1,6 +1,10 @@
 // What the real and the complex one-sided Jacobi sweep kernels share
 // (csrc/jacobi_sweep.cu, csrc/jacobi_sweep_complex.cu): the block shape, the
-// warp reduction, the rotation and the ring tournament.
+// warp reduction, the rotation and the ring tournament; and the machinery
+// of the real kernel's cluster path (rank, cluster barrier, rank-ordered
+// sums through distributed shared memory, words pushed into other CTAs
+// with st.async and counted on mbarriers, the column slice), which the
+// complex kernel does not use yet.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,5 +55,131 @@ __device__ __forceinline__ int ring_at(int x, int shift, int m) {
   const int k = x - shift;
   return k < 0 ? k + m : k;
 }
+
+// the rows of pair i (top_i, bot_i) after `shift` rounds
+__device__ __forceinline__ int pair_top(int i, int shift, int h, int n, int m) {
+  return i == 0 ? 0 : ring_player(ring_at(i - 1, shift, m), h, n);
+}
+__device__ __forceinline__ int pair_bot(int i, int shift, int h, int n, int m) {
+  return ring_player(ring_at(n - 2 - i, shift, m), h, n);
+}
+
+// ---- thread-block clusters (sm_90): one matrix split over C CTAs ----
+//
+// Every CTA of a cluster holds all rows of a slice of the columns in its
+// own shared memory; a sum over the whole row is the CTAs' partial sums
+// read through distributed shared memory and added in rank order
+// 0 .. C-1, so that every CTA forms the same value bit for bit.
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: writes to shared memory before
+// it are visible to every CTA of the cluster after it (arrive has release,
+// wait acquire semantics); it is also a barrier of the CTA's own threads
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;"
+               ::: "memory");
+}
+
+// the word at `p` (this CTA's shared memory) in CTA `rank` of the cluster
+__device__ __forceinline__ float cluster_load(const float* p, unsigned rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned ra;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(ra));
+  return v;
+}
+
+// sum over the cluster's C CTAs of the word at `p`, in rank order (all
+// loads issued before the first add)
+template <int C>
+__device__ __forceinline__ float cluster_sum(const float* p) {
+  float v[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) v[r] = cluster_load(p, r);
+  float s = v[0];
+#pragma unroll
+  for (int r = 1; r < C; ++r) s += v[r];
+  return s;
+}
+
+template <int C>
+__device__ __forceinline__ float cluster_max(const float* p) {
+  float m = cluster_load(p, 0);
+#pragma unroll
+  for (int r = 1; r < C; ++r) m = fmaxf(m, cluster_load(p, r));
+  return m;
+}
+
+// Pushing a word into another CTA: st.async carries the value and
+// completes its bytes on the receiver's mbarrier, so the receiver learns
+// that the data arrived by waiting on its own barrier, with no fence at
+// cluster scope (on an NVIDIA H100 80GB HBM3 at 700 W a cluster barrier,
+// whose arrive has release semantics, took ~0.7 us; with a relaxed arrive
+// ~0.07 us).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned cluster_map(unsigned a, unsigned rank) {
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(a), "r"(rank));
+  return ra;
+}
+
+// the word v to cluster address `ra`, its 4 bytes completed on the mbarrier
+// at cluster address `rbar` (both in the same CTA)
+__device__ __forceinline__ void push_word(unsigned ra, float v, unsigned rbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               :: "r"(ra), "r"(__float_as_uint(v)), "r"(rbar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(void* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// the barrier inits visible to the cluster (before any CTA pushes to them)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one arrival that also expects `bytes` more bytes in the current phase
+__device__ __forceinline__ void mbar_expect(void* bar, unsigned bytes) {
+  [[maybe_unused]] unsigned long long state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+               : "=l"(state) : "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// A slice: the ceil(w4 / C) float4 columns a CTA holds of each row, stored
+// at an odd row stride (in float4) so that the same column of 8 consecutive
+// rows falls in 8 different 16-byte bank groups
+__host__ __device__ __forceinline__ int slice_w4(int w4, int C) {
+  return (w4 + C - 1) / C;
+}
+__host__ __device__ __forceinline__ int slice_stride(int s4) { return s4 | 1; }
 
 }  // namespace

@@ -12,33 +12,81 @@
 // is measured in IEEE float32, and the loop runs while
 // sweep < max_sweeps and gauge > tol^2.  A panel that is already
 // orthogonal leaves with zero sweeps.  Every matrix has its own exit and
-// its own sweep count.
+// its own sweep count.  Rows never move: the tournament is a ring of
+// players, and which row sits in which seat in round r is computed from r,
+// so the output keeps the input's row order.  A pair (p, q): gamma =
+// <g_p, g_q>, (c, s) from the carried norms as the reference forms them
+// (c = 1/sqrt(1 + t^2) in IEEE rounding, s = c t), the pair skipped when
+// it is already orthogonal, else both rows rotated in the form that never
+// rounds 1 - c away (rot4) and the two norms updated.
 //
 // What bounds it on the H100: a sweep rotates each of the n/2 pairs in
-// each of its ~n rounds, touching the whole panel once per round, so a
-// sweep moves ~2 n^2 width floats through the memory that holds the panel
-// and does ~3 n^2 width multiply-adds; the rounds are serial (one block-
-// wide barrier each).  It is bound by the bandwidth and latency of the
-// memory that holds the panel, not by device memory: the input is read
-// once and the output written once.
+// each of its ~n rounds, touching the whole panel once per round (~2 n^2
+// width floats through the memory that holds the panel, ~3 n^2 width
+// multiply-adds), and the rounds are serial.  The input is read once and
+// the output written once, so device memory is not the limit: the latency
+// of a round is (~2,300 rounds a matrix at n = 256), and within it the
+// shared-memory traffic of the slice, the exchange between the CTAs and
+// the divisions and square roots of one pair's rotation.
 //
-// Design: one thread block of 16 warps per matrix.  The panel stays in
-// dynamic shared memory when it fits the 227 KB a block may opt in to,
-// and otherwise in the output buffer in device memory (a batch of 64
-// panels of 256 KB is 16 MB and stays in the 50 MB L2).  Rows never move:
-// the tournament is a ring of players, and which row sits in which seat
-// in round r is computed from r, so the output keeps the input's row
-// order.  A warp owns a pair for a round: it loads both rows (held in
-// registers for widths up to 1024), reduces gamma = <g_p, g_q> with warp
-// shuffles, forms (c, s) from the carried norms as the reference does
-// (c = 1/sqrt(1 + t^2) in IEEE rounding, s = c t), skips the pair
-// when it is already orthogonal, else writes both rotated rows (in the
-// form that never rounds 1 - c away, see rot4) and the two updated norms.
-// One __syncthreads per round.  The gauge takes the upper triangle only: a
-// warp keeps row i in registers and dots it with every row j > i.
+// Design, the cluster path (every panel whose column slices fit shared
+// memory; the host picks C, see ops/jacobi_eigh.py::sweep_cluster): one
+// matrix is one thread-block cluster of C = 1, 2, 4, 8 or 16 CTAs of 32
+// warps.  CTA `rank` holds all n rows of float4 columns
+// [rank s4, (rank + 1) s4), s4 = ceil(w4 / C), in its own shared memory,
+// so no round touches L2.  A round:
+//   1. groups of 8 threads (fewer where s4 < 8) each take a pair and its
+//      partial gamma over the CTA's columns (8 threads read 128 contiguous
+//      bytes of a row), reduce it with shuffles and push it with st.async
+//      into part[r % 2][rank][pair] of every CTA of the cluster, the bytes
+//      counted on that CTA's mbarrier for the round's parity;
+//   2. every thread waits on its own CTA's mbarrier: the C partials of
+//      every pair have arrived (no fence at cluster scope: a cluster
+//      barrier, whose arrive has release semantics, took ~0.7 us a round on
+//      an NVIDIA H100 80GB HBM3 at 700 W);
+//   3. one thread a pair adds the C partials in rank order 0..C-1, so
+//      every CTA of the cluster forms the same gamma, the same (c, s, tau),
+//      the same skip decision and the same carried norms, bit for bit, and
+//      writes (s, tau) for the round (s = 0: not rotated); one CTA barrier;
+//   4. the groups of step 1 rotate their pairs' columns (held in registers
+//      since step 1 where a round is one pass and a thread holds 2 to 4
+//      float4 of a row); one CTA barrier, since the next round pairs rows
+//      that other threads rotated.
+// Why double-buffered partials need no other synchronisation: CTA X pushes
+// into part[r % 2] of CTA Y again in round r + 2, after it has waited in
+// round r + 1 for Y's partials, which Y pushes only after its step 3 of
+// round r, its last read of part[r % 2].  The gauge (below) and the
+// partials share one area of shared memory: the gauge's cluster barriers
+// separate the two uses in every CTA.  No CTA leaves while another may
+// read its shared memory or push into it: the kernel ends with a cluster
+// barrier after the last remote access, and the exit decision (sweep <
+// max_sweeps and gauge > tol^2) is made from the same rank-ordered sums in
+// every CTA, so all CTAs of a cluster take the same path.
+// The gauge is tiled: G G^T over the CTA's columns in 64 x 64 output tiles
+// of IEEE float32 FMAs (each of the 1,024 threads 2 x 2 outputs), the
+// diagonal tiles first (their diagonals, summed in rank order by every CTA,
+// are the refreshed norms), then the strict upper tiles; after a cluster
+// barrier each CTA takes a C-th of every tile's entries, sums their C
+// partials, read through distributed shared memory, in rank order and
+// keeps the max of g^2 / max(n_i n_j, 16 tiny); the tiles are
+// double-buffered (one cluster barrier a tile) and the C maxima are
+// exchanged at the end.  The rotation count stays in registers, one
+// atomic a warp.
+//
+// The device-memory path (a panel whose slices no cluster holds, such as
+// n = 1024 at width 1024, or asked for with cluster = 0): one block of 16
+// warps a matrix working in the output buffer (a batch of 64 panels of
+// 256 KB is 16 MB, inside the 50 MB L2); a warp owns a pair for a round,
+// loads both rows (held in registers for widths up to 1024), reduces gamma
+// with shuffles, rotates and writes both rows back; one __syncthreads a
+// round.  Its gauge takes the upper triangle row by row: a warp keeps row i
+// in registers and dots it with every row j > i.
 #include "jacobi_common.cuh"
 
 namespace {
+
+// ============================ device-memory path ============================
+
 
 // A row of the panel as one lane sees it: NV float4 values in registers
 // (NV = 0: nothing cached, the row is read again where it is needed).
@@ -165,8 +213,7 @@ template <int NV>
 __global__ void __launch_bounds__(kThreads)
 jacobi_sweep_kernel(const float* __restrict__ a_g, float* g_g, int* sweeps_g,
                     float* gauge_g, int* rot_g, int n, int width, int max_sweeps,
-                    float tol2, float live_thresh, int use_smem) {
-  extern __shared__ float4 panel_smem[];
+                    float tol2, float live_thresh) {
   __shared__ float nrm[kMaxN];
   __shared__ float red[kWarps];
   __shared__ int rotations;  // pairs rotated so far (skipped pairs not counted)
@@ -179,8 +226,7 @@ jacobi_sweep_kernel(const float* __restrict__ a_g, float* g_g, int* sweeps_g,
   const int w4 = width / 4;
   const size_t count = (size_t)n * w4;
   const float4* src = reinterpret_cast<const float4*>(a_g) + blockIdx.x * count;
-  float4* out = reinterpret_cast<float4*>(g_g) + blockIdx.x * count;
-  float4* G = use_smem ? panel_smem : out;
+  float4* G = reinterpret_cast<float4*>(g_g) + blockIdx.x * count;
 
   for (size_t i = tid; i < count; i += kThreads) G[i] = src[i];
   if (tid == 0) rotations = 0;
@@ -196,8 +242,8 @@ jacobi_sweep_kernel(const float* __restrict__ a_g, float* g_g, int* sweeps_g,
   while (sweep < max_sweeps && worst > tol2) {
     for (int r = 0; r < rounds; ++r) {
       for (int i = warp; i < h; i += kWarps) {
-        const int pi = i == 0 ? 0 : ring_player(ring_at(i - 1, shift, m), h, n);
-        const int qi = ring_player(ring_at(n - 2 - i, shift, m), h, n);
+        const int pi = pair_top(i, shift, h, n, m);
+        const int qi = pair_bot(i, shift, h, n, m);
         float4* p = G + (size_t)pi * w4;
         float4* q = G + (size_t)qi * w4;
         Row<NV> rp, rq;
@@ -232,8 +278,6 @@ jacobi_sweep_kernel(const float* __restrict__ a_g, float* g_g, int* sweeps_g,
     worst = gauge<NV>(G, nrm, red, n, w4, warp, lane);
   }
 
-  if (use_smem)
-    for (size_t i = tid; i < count; i += kThreads) out[i] = G[i];
   if (tid == 0) {
     sweeps_g[blockIdx.x] = sweep;
     gauge_g[blockIdx.x] = worst;
@@ -242,57 +286,447 @@ jacobi_sweep_kernel(const float* __restrict__ a_g, float* g_g, int* sweeps_g,
 }
 
 template <int NV>
-cudaError_t launch(const float* a, float* g, int* sweeps, float* gauge_out,
-                   int* rot, int B, int n, int width, int max_sweeps, float tol2,
-                   float live_thresh, size_t smem_limit, cudaStream_t stream) {
-  const size_t bytes = (size_t)n * width * sizeof(float);
-  const int use_smem = bytes <= smem_limit ? 1 : 0;
-  const size_t smem = use_smem ? bytes : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        jacobi_sweep_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  jacobi_sweep_kernel<NV><<<B, kThreads, smem, stream>>>(
-      a, g, sweeps, gauge_out, rot, n, width, max_sweeps, tol2, live_thresh,
-      use_smem);
+cudaError_t launch_device_memory(const float* a, float* g, int* sweeps,
+                                 float* gauge_out, int* rot, int B, int n,
+                                 int width, int max_sweeps, float tol2,
+                                 float live_thresh, cudaStream_t stream) {
+  jacobi_sweep_kernel<NV><<<B, kThreads, 0, stream>>>(
+      a, g, sweeps, gauge_out, rot, n, width, max_sweeps, tol2, live_thresh);
   return cudaGetLastError();
+}
+
+// =============================== cluster path ===============================
+
+constexpr int kCThreads = 1024;
+constexpr int kCWarps = kCThreads / 32;
+constexpr int kTile = 64;   // gauge tiles of kTile x kTile outputs
+// words after the slice, the shared area, the norms and the coefficients:
+// two mbarriers, the per-warp maxima, this CTA's max and the rotation count
+constexpr int kMisc = 64;
+
+// The shared area of a CTA: the gauge's two tiles, or (in the rounds) the
+// pair partials received from every rank, part[2][C][n/2]
+__host__ __device__ __forceinline__ int shared_area(int n, int C) {
+  return 2 * kTile * kTile > C * n ? 2 * kTile * kTile : C * n;
+}
+
+// dynamic shared memory of one CTA: the slice (n x slice_stride float4),
+// the shared area, the carried norms (n), the round's coefficients (2 x
+// n/2) and kMisc words.  ops/jacobi_eigh.py::cluster_smem_bytes is the
+// same formula.
+__host__ __device__ __forceinline__ size_t cluster_smem_bytes(int n, int w4, int C) {
+  return (size_t)n * slice_stride(slice_w4(w4, C)) * sizeof(float4) +
+         (size_t)(shared_area(n, C) + 2 * n + kMisc) * sizeof(float);
+}
+
+// Threads a pair in the vector work of a round: 8, so that 8 threads read
+// 128 contiguous bytes of a row (one conflict-free access), or fewer where
+// the slice row is shorter
+__host__ __device__ __forceinline__ int pair_threads(int s4) {
+  int tpp = 8;
+  while (tpp > 1 && tpp >= 2 * s4) tpp >>= 1;
+  return tpp;
+}
+
+// float4 of each row a thread keeps in registers from the pair dots to the
+// rotation, where a round is one pass of the pairs over the threads and a
+// thread holds 2 to kKeep float4 of a row (at one, the registers cost more
+// than the shared-memory reads they save, measured on an NVIDIA H100 80GB
+// HBM3 at 700 W)
+constexpr int kKeep = 4;
+
+__host__ __device__ __forceinline__ bool keeps_rows(int n, int w4, int C) {
+  const int s4 = slice_w4(w4, C), tpp = pair_threads(s4);
+  return n / 2 <= kCThreads / tpp && s4 > tpp && s4 <= kKeep * tpp;
+}
+
+// The gauge and the refreshed norms of the panel held by the cluster; every
+// thread of every CTA returns the same value.  S: this CTA's slice.
+template <int C>
+__device__ float cluster_gauge(const float4* S, int n, int s4, int sp,
+                               float* tiles, float* nrm, float* red,
+                               float* gmax, unsigned rank, int tid) {
+  const int ty = tid >> 5, tx = tid & 31;
+  const int T = (n + kTile - 1) / kTile;
+  const int steps = T * (T + 1) / 2;
+  const int share = kTile * kTile / C;  // entries of a tile this CTA sums
+  float worst = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    // tile t: the T diagonal tiles first, then the strict upper ones by rows
+    int I = t, J = t;
+    if (t >= T) {
+      int u = t - T;
+      I = 0;
+      while (u >= T - 1 - I) {
+        u -= T - 1 - I;
+        ++I;
+      }
+      J = I + 1 + u;
+    }
+    const int i0 = I * kTile, j0 = J * kTile;
+    float* buf = tiles + (t & 1) * kTile * kTile;
+    {
+      // this CTA's partial tile: rows i0 + ty (+32), columns j0 + tx (+32);
+      // rows past n read row n - 1 and are never used
+      const float4* a0 = S + (size_t)min(i0 + ty, n - 1) * sp;
+      const float4* a1 = S + (size_t)min(i0 + ty + 32, n - 1) * sp;
+      const float4* b0 = S + (size_t)min(j0 + tx, n - 1) * sp;
+      const float4* b1 = S + (size_t)min(j0 + tx + 32, n - 1) * sp;
+      float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
+      for (int k = 0; k < s4; ++k) {
+        const float4 x0 = a0[k], x1 = a1[k], y0 = b0[k], y1 = b1[k];
+        c00 = fmaf(x0.x, y0.x, c00); c00 = fmaf(x0.y, y0.y, c00);
+        c00 = fmaf(x0.z, y0.z, c00); c00 = fmaf(x0.w, y0.w, c00);
+        c01 = fmaf(x0.x, y1.x, c01); c01 = fmaf(x0.y, y1.y, c01);
+        c01 = fmaf(x0.z, y1.z, c01); c01 = fmaf(x0.w, y1.w, c01);
+        c10 = fmaf(x1.x, y0.x, c10); c10 = fmaf(x1.y, y0.y, c10);
+        c10 = fmaf(x1.z, y0.z, c10); c10 = fmaf(x1.w, y0.w, c10);
+        c11 = fmaf(x1.x, y1.x, c11); c11 = fmaf(x1.y, y1.y, c11);
+        c11 = fmaf(x1.z, y1.z, c11); c11 = fmaf(x1.w, y1.w, c11);
+      }
+      buf[ty * kTile + tx] = c00;
+      buf[ty * kTile + tx + 32] = c01;
+      buf[(ty + 32) * kTile + tx] = c10;
+      buf[(ty + 32) * kTile + tx + 32] = c11;
+    }
+    cluster_sync();
+    if (I == J) {
+      // every CTA sums the diagonal itself: the refreshed norms
+      if (tid < kTile && i0 + tid < n) nrm[i0 + tid] = cluster_sum<C>(buf + tid * (kTile + 1));
+      __syncthreads();
+    }
+    for (int e = rank * share + tid; e < (rank + 1) * share; e += kCThreads) {
+      const int a = e / kTile, b = e % kTile;
+      const int i = i0 + a, j = j0 + b;
+      if (i < n && j < n && (I != J || a < b)) {
+        const float g = cluster_sum<C>(buf + e);
+        worst = fmaxf(worst, g * g / fmaxf(nrm[i] * nrm[j], kEpsFloor));
+      }
+    }
+  }
+  worst = warp_max(worst);
+  if ((tid & 31) == 0) red[tid >> 5] = worst;
+  __syncthreads();
+  if (tid == 0) {
+    float m = 0.f;
+    for (int w = 0; w < kCWarps; ++w) m = fmaxf(m, red[w]);
+    *gmax = m;
+  }
+  cluster_sync();
+  return cluster_max<C>(gmax);
+}
+
+// KEEP (keeps_rows): the thread's columns of its pair stay in registers
+// from step 1 to step 4, so a round reads the slice once and writes it once
+template <int C, bool KEEP>
+__global__ void __launch_bounds__(kCThreads, 1)
+jacobi_sweep_cluster_kernel(const float* __restrict__ a_g, float* g_g,
+                            int* sweeps_g, float* gauge_g, int* rot_g, int n,
+                            int w4, int max_sweeps, float tol2,
+                            float live_thresh) {
+  extern __shared__ float4 smem4[];
+  const int s4 = slice_w4(w4, C);
+  const int sp = slice_stride(s4);
+  const int h = n / 2;
+  const int m = n - 1;  // length of the ring
+  float4* S = smem4;
+  float* area = reinterpret_cast<float*>(S + (size_t)n * sp);
+  float* nrm = area + shared_area(n, C);
+  float* coef_s = nrm + n;      // the round's s of each pair (0: not rotated)
+  float* coef_tau = coef_s + h;  // and tau = s / (1 + c)
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(coef_tau + h);
+  float* red = coef_tau + h + 4;
+  float* gmax = red + kCWarps;
+  int* rotations = reinterpret_cast<int*>(gmax + 1);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const unsigned rank = cluster_rank();
+  const size_t mat = blockIdx.x / C;
+  const int c0 = (int)rank * s4;                     // first column held
+  const int cw = max(0, min(s4, w4 - c0));           // columns held (the rest zero)
+  const float4* src = reinterpret_cast<const float4*>(a_g) + mat * n * w4;
+  float4* out = reinterpret_cast<float4*>(g_g) + mat * n * w4;
+
+  for (int e = tid; e < n * s4; e += kCThreads) {
+    const int i = e / s4, k = e - i * s4;
+    S[(size_t)i * sp + k] = k < cw ? src[(size_t)i * w4 + c0 + k]
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (tid == 0) {
+    *rotations = 0;
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // its cluster barriers also make the mbarriers' inits visible to every
+  // CTA before the first push
+  float worst = cluster_gauge<C>(S, n, s4, sp, area, nrm, red, gmax, rank, tid);
+
+  // the vector work of a round: a group of tpp threads a pair, thread
+  // `sub` taking columns sub, sub + tpp, ...; group `grp` takes pairs grp,
+  // grp + groups, ...
+  const int tpp = pair_threads(s4);
+  const int groups = kCThreads / tpp;
+  const int grp = tid / tpp;
+  const int sub = tid & (tpp - 1);
+  const int passes = (h + groups - 1) / groups;  // the same in every warp
+  const int rounds = (m + kUnroll - 1) / kUnroll * kUnroll;
+  const unsigned bytes = (unsigned)(C * h * sizeof(float));
+  int nrot = 0;        // pairs this thread found live (phase 3)
+  int shift = 0;       // rounds played so far, modulo the ring length
+  unsigned phase = 0;  // rounds played in all sweeps: part and bar[phase & 1]
+  int sweep = 0;
+  float4 kp[KEEP ? kKeep : 1], kq[KEEP ? kKeep : 1];  // the kept columns
+  while (sweep < max_sweeps && worst > tol2) {
+    for (int r = 0; r < rounds; ++r, ++phase) {
+      const int par = phase & 1;
+      float* part = area + par * C * h;
+      if (tid == 0) mbar_expect(bar + par, bytes);
+      // ---- 1. the partial gamma of each pair pv over this CTA's columns,
+      // pushed into part[par][rank][pv] of every rank ----
+      for (int k = 0; k < passes; ++k) {
+        const int pv = grp + k * groups;
+        float acc = 0.f;
+        if (pv < h) {
+          const float4* p = S + (size_t)pair_top(pv, shift, h, n, m) * sp;
+          const float4* q = S + (size_t)pair_bot(pv, shift, h, n, m) * sp;
+          if constexpr (KEEP) {
+#pragma unroll
+            for (int j = 0; j < kKeep; ++j) {
+              const int x = sub + j * tpp;
+              if (x < s4) {
+                kp[j] = p[x];
+                kq[j] = q[x];
+                acc += dot4(kp[j], kq[j]);
+              }
+            }
+          } else {
+            for (int x = sub; x < s4; x += tpp) acc += dot4(p[x], q[x]);
+          }
+        }
+        for (int o = tpp >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (pv < h) {
+          const unsigned a = smem_u32(part + rank * h + pv);
+          const unsigned b = smem_u32(bar + par);
+          for (int d = sub; d < C; d += tpp) push_word(cluster_map(a, d), acc, cluster_map(b, d));
+        }
+      }
+      // ---- 2. every rank's partials have arrived ----
+      mbar_wait(bar + par, (phase >> 1) & 1);
+      // ---- 3. one thread a pair: gamma in rank order, the rotation's
+      // coefficients and the carried norms ----
+      if (tid < h) {
+        float g = part[tid];
+#pragma unroll
+        for (int rr = 1; rr < C; ++rr) g += part[rr * h + tid];
+        const int pi = pair_top(tid, shift, h, n, m);
+        const int qi = pair_bot(tid, shift, h, n, m);
+        const float a = nrm[pi], b = nrm[qi];
+        float s = 0.f, tau = 0.f;
+        const float ratio = g * g / fmaxf(a * b, kEpsFloor);
+        if (ratio > live_thresh) {  // else already orthogonal, or zero
+          const float zeta = (b - a) / (2.0f * g);
+          const float t = (zeta >= 0.f ? 1.0f : -1.0f) /
+                          (fabsf(zeta) + sqrtf(1.0f + zeta * zeta));
+          // 1/sqrt in IEEE rounding (see the device-memory kernel)
+          const float c = 1.0f / sqrtf(1.0f + t * t);
+          s = c * t;
+          tau = s / (1.0f + c);
+          const float cs2 = 2.0f * c * s * g;
+          nrm[pi] = c * c * a + s * s * b - cs2;
+          nrm[qi] = s * s * a + c * c * b + cs2;
+          ++nrot;
+        }
+        coef_s[tid] = s;
+        coef_tau[tid] = tau;
+      }
+      __syncthreads();
+      // ---- 4. the rotation of this CTA's columns (s = 0: the identity) ----
+      for (int pv = grp; pv < h; pv += groups) {
+        const float s = coef_s[pv];
+        if (s != 0.f) {
+          const float tau = coef_tau[pv];
+          float4* p = S + (size_t)pair_top(pv, shift, h, n, m) * sp;
+          float4* q = S + (size_t)pair_bot(pv, shift, h, n, m) * sp;
+          if constexpr (KEEP) {
+#pragma unroll
+            for (int j = 0; j < kKeep; ++j) {
+              const int x = sub + j * tpp;
+              if (x < s4) {
+                float4 np, nq;
+                rot4(kp[j], kq[j], s, tau, np, nq);
+                p[x] = np;
+                q[x] = nq;
+              }
+            }
+          } else {
+            for (int x = sub; x < s4; x += tpp) {
+              float4 np, nq;
+              rot4(p[x], q[x], s, tau, np, nq);
+              p[x] = np;
+              q[x] = nq;
+            }
+          }
+        }
+      }
+      // ---- 5. the next round pairs rows that other threads just rotated ----
+      __syncthreads();
+      shift = shift + 1 == m ? 0 : shift + 1;
+    }
+    ++sweep;
+    worst = cluster_gauge<C>(S, n, s4, sp, area, nrm, red, gmax, rank, tid);
+  }
+
+  // every CTA's last remote read (the gauge's maximum) is behind this
+  // barrier: no CTA leaves while another may still read its shared memory
+  cluster_sync();
+  for (int e = tid; e < n * cw; e += kCThreads) {
+    const int i = e / cw, k = e - i * cw;
+    out[(size_t)i * w4 + c0 + k] = S[(size_t)i * sp + k];
+  }
+  nrot = __reduce_add_sync(0xffffffffu, nrot);
+  if (lane == 0 && nrot) atomicAdd(rotations, nrot);
+  __syncthreads();
+  if (rank == 0 && tid == 0) {
+    sweeps_g[mat] = sweep;
+    gauge_g[mat] = worst;
+    rot_g[mat] = *rotations;
+  }
+}
+
+template <int C, bool KEEP>
+cudaError_t cluster_attributes(int n, int w4, size_t* smem) {
+  *smem = cluster_smem_bytes(n, w4, C);
+  cudaError_t e = cudaFuncSetAttribute(jacobi_sweep_cluster_kernel<C, KEEP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)*smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(jacobi_sweep_cluster_kernel<C, KEEP>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+template <int C>
+cudaLaunchConfig_t cluster_config(int clusters, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C, 1, 1);
+  cfg.blockDim = dim3(kCThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int C, bool KEEP>
+cudaError_t launch_cluster_as(const float* a, float* g, int* sweeps, float* gauge_out,
+                              int* rot, int B, int n, int w4, int max_sweeps,
+                              float tol2, float live_thresh, cudaStream_t stream) {
+  size_t smem;
+  cudaError_t e = cluster_attributes<C, KEEP>(n, w4, &smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config<C>(B, smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, jacobi_sweep_cluster_kernel<C, KEEP>, a, g, sweeps,
+                         gauge_out, rot, n, w4, max_sweeps, tol2, live_thresh);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_cluster(const float* a, float* g, int* sweeps, float* gauge_out,
+                           int* rot, int B, int n, int w4, int max_sweeps,
+                           float tol2, float live_thresh, cudaStream_t stream) {
+  if (keeps_rows(n, w4, C))
+    return launch_cluster_as<C, true>(a, g, sweeps, gauge_out, rot, B, n, w4,
+                                      max_sweeps, tol2, live_thresh, stream);
+  return launch_cluster_as<C, false>(a, g, sweeps, gauge_out, rot, B, n, w4,
+                                     max_sweeps, tol2, live_thresh, stream);
+}
+
+template <int C, bool KEEP>
+cudaError_t active_clusters_as(int n, int w4, int* out) {
+  size_t smem;
+  cudaError_t e = cluster_attributes<C, KEEP>(n, w4, &smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config<C>(1, smem, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(out, jacobi_sweep_cluster_kernel<C, KEEP>, &cfg);
+}
+
+template <int C>
+cudaError_t active_clusters(int n, int w4, int* out) {
+  return keeps_rows(n, w4, C) ? active_clusters_as<C, true>(n, w4, out)
+                              : active_clusters_as<C, false>(n, w4, out);
+}
+
+bool valid(int n, int width, int cluster) {
+  return n >= 2 && !(n & 1) && n <= kMaxN && width >= 4 && !(width & 3) &&
+         (cluster == 0 || cluster == 1 || cluster == 2 || cluster == 4 ||
+          cluster == 8 || cluster == 16);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  a, g: (B, n, width) contiguous f32 on the
+// Plain C entries for ctypes.  a, g: (B, n, width) contiguous f32 on the
 // device, distinct buffers, n even and <= 1024, width a multiple of 4;
-// sweeps (B,) int32, gauge (B,) f32 and rot (B,) int32 receive each matrix's
-// executed sweep count, last measured gauge and number of pairs rotated.  smem_limit: the largest panel (bytes)
-// to keep in shared memory (0 forces the device-memory path).  Returns a
-// cudaError_t (0 on success).
+// sweeps (B,) int32, gauge (B,) f32 and rot (B,) int32 receive each
+// matrix's executed sweep count, last measured gauge and number of pairs
+// rotated.  cluster: C (1, 2, 4, 8 or 16) CTAs a matrix on the cluster
+// path, whose slices must fit the shared memory a block may opt in to
+// (cluster_smem_bytes), or 0 for the device-memory path.  Returns a
+// cudaError_t (0 on success); a cluster launch the card refuses returns
+// its error.
 extern "C" int jacobi_sweep_f32(const float* a, float* g, int* sweeps,
                                 float* gauge_out, int* rot, int B, int n,
                                 int width, int max_sweeps, float tol2, float live_thresh,
-                                int smem_limit, void* stream) {
-  if (B <= 0 || n < 2 || (n & 1) || n > kMaxN || width < 4 || (width & 3) ||
-      max_sweeps < 0 || smem_limit < 0)
+                                int cluster, void* stream) {
+  if (B <= 0 || !valid(n, width, cluster) || max_sweeps < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int nv = (width / 4 + 31) / 32;
-  const size_t lim = (size_t)smem_limit;
+  const int w4 = width / 4;
   cudaError_t e;
-  if (nv <= 1)
-    e = launch<1>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2,
-                  live_thresh, lim, s);
-  else if (nv <= 2)
-    e = launch<2>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2,
-                  live_thresh, lim, s);
-  else if (nv <= 4)
-    e = launch<4>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2,
-                  live_thresh, lim, s);
-  else if (nv <= 8)
-    e = launch<8>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2,
-                  live_thresh, lim, s);
-  else
-    e = launch<0>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2,
-                  live_thresh, lim, s);
+  switch (cluster) {
+    case 1: e = launch_cluster<1>(a, g, sweeps, gauge_out, rot, B, n, w4, max_sweeps, tol2, live_thresh, s); break;
+    case 2: e = launch_cluster<2>(a, g, sweeps, gauge_out, rot, B, n, w4, max_sweeps, tol2, live_thresh, s); break;
+    case 4: e = launch_cluster<4>(a, g, sweeps, gauge_out, rot, B, n, w4, max_sweeps, tol2, live_thresh, s); break;
+    case 8: e = launch_cluster<8>(a, g, sweeps, gauge_out, rot, B, n, w4, max_sweeps, tol2, live_thresh, s); break;
+    case 16: e = launch_cluster<16>(a, g, sweeps, gauge_out, rot, B, n, w4, max_sweeps, tol2, live_thresh, s); break;
+    default: {
+      const int nv = (w4 + 31) / 32;
+      if (nv <= 1)
+        e = launch_device_memory<1>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2, live_thresh, s);
+      else if (nv <= 2)
+        e = launch_device_memory<2>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2, live_thresh, s);
+      else if (nv <= 4)
+        e = launch_device_memory<4>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2, live_thresh, s);
+      else if (nv <= 8)
+        e = launch_device_memory<8>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2, live_thresh, s);
+      else
+        e = launch_device_memory<0>(a, g, sweeps, gauge_out, rot, B, n, width, max_sweeps, tol2, live_thresh, s);
+    }
+  }
   return (int)e;
+}
+
+// How many clusters of `cluster` CTAs of the cluster path the card holds at
+// once for an (n, width) panel (cudaOccupancyMaxActiveClusters), into *out;
+// 0 means it cannot schedule one.  Returns a cudaError_t.
+extern "C" int jacobi_sweep_f32_clusters(int n, int width, int cluster, int* out) {
+  if (!valid(n, width, cluster) || cluster == 0) return (int)cudaErrorInvalidValue;
+  const int w4 = width / 4;
+  switch (cluster) {
+    case 1: return (int)active_clusters<1>(n, w4, out);
+    case 2: return (int)active_clusters<2>(n, w4, out);
+    case 4: return (int)active_clusters<4>(n, w4, out);
+    case 8: return (int)active_clusters<8>(n, w4, out);
+    default: return (int)active_clusters<16>(n, w4, out);
+  }
 }

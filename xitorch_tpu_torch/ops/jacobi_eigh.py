@@ -23,12 +23,13 @@ Jacobi iteration on a row panel ``G^T``:
 On a CUDA float32 panel :func:`jacobi_sweep` launches the hand-written
 kernel in ``csrc/jacobi_sweep.cu`` (:func:`jacobi_sweep_cuda`) or raises;
 on a CPU panel it runs :func:`jacobi_sweep_plain`, the same algorithm in
-PyTorch.  The kernel keeps a panel in shared memory when it fits
-(``n * width * 4 B <= 219 KB``) and otherwise works in the output buffer
-in device memory; each matrix is its own thread block with its own exit
-and sweep count, and the rows keep their input order (the plain version
-moves rows as the reference does, so its output is a row permutation of
-the kernel's: every consumer sorts).
+PyTorch.  The kernel splits each matrix's columns over a thread-block
+cluster of C CTAs, each holding all rows of its slice in shared memory
+(C chosen on the host by :func:`sweep_cluster`), and works in the output
+buffer in device memory, one block a matrix, where no cluster holds the
+slices; each matrix has its own exit and sweep count, and the rows keep
+their input order (the plain version moves rows as the reference does, so
+its output is a row permutation of the kernel's: every consumer sorts).
 
 Complex hermitian input and complex SVD run the same iteration on packed
 real planes ``[Re G^T | Im G^T]`` (``complexpair=True``): the pair dot is
@@ -65,7 +66,8 @@ from xitorch_tpu_torch.utils.tensor import dot_hi
 __all__ = ["jacobi_eigh", "jacobi_svd", "use_jacobi_for", "use_jacobi_svd_for",
            "dense_eigh", "dense_svd",
            "jacobi_sweep", "jacobi_sweep_cuda", "jacobi_sweep_plain",
-           "fits_jacobi_sweep", "in_jacobi_window"]
+           "fits_jacobi_sweep", "in_jacobi_window", "sweep_cluster",
+           "cluster_smem_bytes"]
 
 # global switch: degen_eigh / degen_svd dispatch the dense decomposition
 # here when use_jacobi_for / use_jacobi_svd_for approve
@@ -73,16 +75,27 @@ ENABLED = True
 
 _UNROLL = 6  # a sweep is ceil((n-1)/_UNROLL)*_UNROLL rounds (the reference's)
 
-# Window of the kernel on the H100.  Rows: the carried norms are a static
-# shared-memory array of _N_MAX floats (kMaxN in csrc/jacobi_sweep.cu).
-# Width: a panel larger than the 227 KB a block may opt in to works in
-# device memory, so the width is bounded only by keeping one panel
-# (n * width * 4 B <= 16 MB) well inside the 50 MB L2.
+# Window of the kernel on the H100.  Rows: the device-memory path keeps the
+# carried norms in a static shared-memory array of _N_MAX floats (kMaxN in
+# csrc/jacobi_common.cuh).  Width: a panel whose slices no cluster holds
+# works in device memory, so the width is bounded only by keeping one
+# panel (n * width * 4 B <= 16 MB) well inside the 50 MB L2.
 _N_MAX = 1024
 _W_MAX = 4096
-# largest panel kept in shared memory: 227 KB less the static norm and
-# reduction arrays (and headroom)
-_SMEM_PANEL = 232448 - 8192
+# the shared memory a block may opt in to on the H100 (used where the
+# device does not report it)
+_SMEM_BLOCK = 232448
+_SM_COUNT = 132
+# the cluster path (csrc/jacobi_sweep.cu): cluster sizes, the largest one
+# the chooser grows to (16 CTAs is not portable and is taken only where a
+# panel needs it), the gauge's output tile and the kernel's other words
+_CLUSTERS = (1, 2, 4, 8, 16)
+_CLUSTER_GROW_MAX = 8
+_SWEEP_TILE = 64
+_SWEEP_MISC = 64
+# largest packed panel the complex kernel keeps in shared memory (its
+# block's static arrays and headroom taken off)
+_SMEM_PANEL_COMPLEX = _SMEM_BLOCK - 8192
 
 _NEXT_SLICE = ("the last slice of the port (the deflated path of the "
                "reference's _finisher_lab; see ROADMAP.md, queue 1)")
@@ -98,7 +111,8 @@ _ROT_EMAX = 0.1  # |E_ij| clip of the first-order rotational correction
 _P = ctypes.c_void_p
 _SWEEP_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P]
-_SIGNATURES = {"jacobi_sweep_f32": _SWEEP_ARGS}
+_SIGNATURES = {"jacobi_sweep_f32": _SWEEP_ARGS,
+               "jacobi_sweep_f32_clusters": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]}
 _SIGNATURES_COMPLEX = {"jacobi_sweep_c32": _SWEEP_ARGS}
 
 
@@ -271,8 +285,65 @@ def _pad_halves(panel: torch.Tensor, hw: int, hw4: int) -> torch.Tensor:
                       F.pad(panel[..., hw:], (0, hw4 - hw))], dim=-1)
 
 
+def cluster_smem_bytes(n: int, width: int, c: int) -> int:
+    """Shared memory one CTA of the real sweep kernel's cluster path takes
+    for an (n, width) panel split over ``c`` CTAs (``cluster_smem_bytes`` in
+    ``csrc/jacobi_sweep.cu``): its slice of ceil(ceil(width/4)/c) float4
+    columns at an odd row stride, an area that holds the gauge's two 64 x 64
+    tiles or the pair partials received from every CTA (2 x c x n/2), the
+    carried norms, the round's coefficients (2 x n/2) and a few words."""
+    s4 = -(-(-(-width // 4)) // c)
+    area = max(2 * _SWEEP_TILE ** 2, c * n)
+    return n * (s4 | 1) * 16 + (area + 2 * n + _SWEEP_MISC) * 4
+
+
+def sweep_cluster(B: int, n: int, width: int, sm_count: int = _SM_COUNT,
+                  smem_block: int = _SMEM_BLOCK, active_clusters=None) -> int:
+    """How many CTAs the real sweep kernel splits each matrix of a
+    (B, n, width) panel over: the smallest cluster (1, 2, 4, 8 or 16) whose
+    slices fit ``smem_block`` bytes of shared memory a block, then doubled
+    while it stays at most 8, each CTA keeps at least one float4 column,
+    the B clusters keep to one CTA an SM (B C <= ``sm_count``) and, where
+    ``active_clusters(c)`` (the card's occupancy query) is given, the card
+    holds B clusters of that size at once.  0: no cluster holds the slices
+    (or ``smem_block`` is 0), the device-memory path.  Shapes only, so a CPU
+    test can ask it."""
+    fit = [c for c in _CLUSTERS if cluster_smem_bytes(n, width, c) <= smem_block]
+    if not fit:
+        return 0
+    c = fit[0]
+    w4 = -(-width // 4)
+    while (2 * c <= _CLUSTER_GROW_MAX and 2 * c <= w4 and B * 2 * c <= sm_count
+           and (active_clusters is None or active_clusters(2 * c) >= B)):
+        c *= 2
+    return c
+
+
+def _card_limits(device) -> Tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of a CUDA device."""
+    props = torch.cuda.get_device_properties(device)
+    return (props.multi_processor_count,
+            int(getattr(props, "shared_memory_per_block_optin", _SMEM_BLOCK)))
+
+
+_ACTIVE_CLUSTERS = {}
+
+
+def _active_clusters(lib, device, n: int, width: int, c: int) -> int:
+    """The card's occupancy query: how many clusters of ``c`` CTAs of the
+    real kernel it holds at once for an (n, width) panel (cached)."""
+    key = (device.index, n, width, c)
+    if key not in _ACTIVE_CLUSTERS:
+        out = ctypes.c_int(0)
+        _build.check(lib.jacobi_sweep_f32_clusters(n, width, c, ctypes.addressof(out)),
+                     "jacobi_sweep_cuda: cluster occupancy query")
+        _ACTIVE_CLUSTERS[key] = out.value
+    return _ACTIVE_CLUSTERS[key]
+
+
 def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
-                      return_stats: bool = False, complexpair: bool = False):
+                      return_stats: bool = False, complexpair: bool = False,
+                      smem_limit: Optional[int] = None):
     """Launch a sweep kernel on a contiguous float32 CUDA panel
     (B, n, width) inside the window of :func:`fits_jacobi_sweep`: the real
     kernel (``csrc/jacobi_sweep.cu``), or with ``complexpair`` the complex
@@ -281,7 +352,15 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
     ``return_stats`` also each matrix's last measured gauge (B,) float32
     and its number of rotated pairs (B,) int32 (pairs skipped as orthogonal
     do not count).  ``jacobi_sweep_cuda.launches`` counts the real kernel's
-    launches, ``jacobi_sweep_cuda.launches_complex`` the complex one's."""
+    launches, ``jacobi_sweep_cuda.launches_complex`` the complex one's.
+
+    The real kernel's path is chosen before the launch by
+    :func:`sweep_cluster` from the shapes, the card's SM count and shared
+    memory (``smem_limit`` bytes a block where given; 0 forces the
+    device-memory path) and its occupancy query, and is recorded in
+    ``jacobi_sweep_cuda.last_cluster``: the cluster's CTAs a matrix, 0 for
+    the device-memory path.  A cluster the card cannot schedule, or a
+    launch it refuses, raises: nothing falls back to another path."""
     _check_panel(panel, "jacobi_sweep_cuda", complexpair)
     if not panel.is_cuda or panel.dtype != torch.float32 or not panel.is_contiguous():
         raise RuntimeError("jacobi_sweep_cuda: expected a contiguous float32 CUDA "
@@ -306,15 +385,30 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
     gauge = torch.empty(B, dtype=torch.float32, device=panel.device)
     rotations = torch.empty(B, dtype=torch.int32, device=panel.device)
     tol2 = tol * tol
-    if complexpair:
-        entry = _build.load("jacobi_sweep_complex", _SIGNATURES_COMPLEX).jacobi_sweep_c32
-    else:
-        entry = _build.load("jacobi_sweep", _SIGNATURES).jacobi_sweep_f32
     with torch.cuda.device(panel.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = entry(a.data_ptr(), g.data_ptr(), sweeps.data_ptr(), gauge.data_ptr(),
-                   rotations.data_ptr(), B, n, a.shape[-1], int(max_sweeps),
-                   tol2, tol2 * 0.01, _SMEM_PANEL, stream)
+        args = (a.data_ptr(), g.data_ptr(), sweeps.data_ptr(), gauge.data_ptr(),
+                rotations.data_ptr(), B, n, a.shape[-1], int(max_sweeps), tol2,
+                tol2 * 0.01)
+        if complexpair:
+            lib = _build.load("jacobi_sweep_complex", _SIGNATURES_COMPLEX)
+            rc = lib.jacobi_sweep_c32(*args, _SMEM_PANEL_COMPLEX, stream)
+        else:
+            lib = _build.load("jacobi_sweep", _SIGNATURES)
+            sms, smem = _card_limits(panel.device)
+            if smem_limit is not None:
+                smem = min(smem, int(smem_limit))
+            wa = a.shape[-1]
+            dev = torch.device("cuda", torch.cuda.current_device())
+            c = sweep_cluster(B, n, wa, sms, smem,
+                              lambda cc: _active_clusters(lib, dev, n, wa, cc))
+            if c and _active_clusters(lib, dev, n, wa, c) < 1:
+                raise RuntimeError(
+                    "jacobi_sweep_cuda: the card cannot schedule a cluster of %d "
+                    "CTAs with %d bytes of shared memory each for a (%d, %d) panel"
+                    % (c, cluster_smem_bytes(n, wa, c), n, wa))
+            jacobi_sweep_cuda.last_cluster = c
+            rc = lib.jacobi_sweep_f32(*args, c, stream)
     _build.check(rc, "jacobi_sweep_cuda")
     if complexpair:
         jacobi_sweep_cuda.launches_complex += 1
@@ -329,6 +423,7 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
 
 jacobi_sweep_cuda.launches = 0
 jacobi_sweep_cuda.launches_complex = 0
+jacobi_sweep_cuda.last_cluster = None
 
 
 def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float,
@@ -489,20 +584,18 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     means ``False``: on the card the warm start does not pay yet.  On an
     NVIDIA H100 80GB HBM3 (700 W), printed by ``chip_smoke.py``, figures
     rounded: at 64 matrices of 256 x 256 the warm start lowers the sweeps
-    from 8.8 to 2.5 a matrix, but ``jacobi_eigh`` takes about 144 ms warm
-    against 23 ms cold.  The single-shot DC kernel alone takes about 119
-    ms, slower than its own plain PyTorch version (54 ms) and than its 592
-    products as ``torch.bmm`` (29 ms): it fills 64 of the 132
-    multiprocessors with one block each.  And the sweeps left still take
-    22 ms: every matrix is its own block and all run at once, so the call
-    lasts as long as its slowest matrix, and the guard sent 4 of the 64
-    back to the cold start.  At 8 matrices of 512 x 512 (9 levels) the
-    per-level kernel takes about 67 ms and the warm call 204 ms against
-    134 ms cold; at 700 x 700 (768 padded, 10 levels) 289 ms and 651 ms
-    against 298 ms.  At both sizes the guard sent all 8 back to the cold
-    start (the rotational correction breaks these panels' G-invariant).  Until the
-    kernels are made faster, ``precondition=True`` pays that for fewer
-    sweeps and no time.
+    from 8.8 to 2.5 a matrix, but ``jacobi_eigh`` takes about 30 ms warm
+    against 7 ms cold: the single-shot DC kernel alone takes about 21 ms,
+    and the sweeps left still take 6 ms, as long as most of a cold sweep
+    (every matrix has its own exit, so the launch lasts as long as its
+    slowest matrix, and the guard sent 4 of the 64 back to the cold
+    start).  At 8 matrices of 512 x 512 (9 levels) the warm call takes
+    about 46 ms against 17 ms cold; at 700 x 700 (768 padded, 10 levels)
+    146 ms against 67 ms, the per-level kernel about 66 ms of it.  At both
+    sizes the guard sent all 8 back to the cold start (the rotational
+    correction breaks these panels' G-invariant).  Until the kernels are
+    made faster, ``precondition=True`` pays that for fewer sweeps and no
+    time.
 
     ``return_info`` also returns a dictionary with each matrix's executed
     sweep count (``sweeps``, (Bflat,) int32) and, on the warm path, the
@@ -553,8 +646,9 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
         # of the sort, or a divergent correction) falls back to the cold
         # start.  The reference then sorts the fall-backs together, because
         # its kernel stacks several matrices in one program with a common
-        # exit; here every matrix is its own block with its own exit, so
-        # there is nothing to cluster.
+        # exit; here every matrix has its own exit (its own thread-block
+        # cluster, or its own block on the device-memory path), so there is
+        # nothing to sort.
         g_in, bad = _guard_warm_start(a, g0)
         gt, sweeps = jacobi_sweep(g_in, max_sweeps, tol)
         info["guard_bad"] = bad
@@ -717,20 +811,22 @@ def in_jacobi_window(n: int, dtype) -> bool:
 # tabulated n (rows of the panel), the smallest batch at which the kernel's
 # whole function (jacobi_eigh cold, jacobi_svd) was faster than the gate's
 # library side (library_eigh / library_svd) of the same batch, None where it
-# lost at every batch measured (1 to 32).  The kernel runs one block a
-# matrix, so below the crossover it leaves most of the 132 multiprocessors
-# idle.  Measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's
-# sweep_gate_table: n = 64 to 512 in every run of the script (at batch 1
-# and n = 128, for instance, 4.6 ms against 2.9; at batch 32, 5.5 against
-# 61.0), n = 768 and 1024 by ``chip_smoke.py --gate-sizes 768,1024`` (one
-# call a cell; there torch.linalg.eigh costs 8-12 ms a matrix against the
-# kernel's 370-1120 ms a launch, and only the svd kinds cross by batch 32).
-# An n between rows takes the next larger row.
+# lost at every batch measured (1 to 32).  Measured on an NVIDIA H100 80GB
+# HBM3 at 700 W by chip_smoke.py's sweep_gate_table (n = 64 to 512 in every
+# run of the script, n = 768 and 1024 by ``chip_smoke.py --gate-sizes
+# 768,1024``).  The float32 rows since the real kernel splits a matrix over
+# a cluster of CTAs: it wins from batch 1 at n = 256 (4.8 ms against 5.4)
+# and from batch 2 up to 768; at n = 768 a cluster of 16 CTAs runs eight
+# matrices in two waves (the card holds seven such clusters at once), and at
+# 1024 no cluster holds the panel, so the kernel works in device memory
+# (0.8-1.1 s a launch against torch.linalg.eigh's 12-360 ms).  The complex
+# rows are the one-block-a-matrix kernel's.  An n between rows takes the
+# next larger row.
 _GATE_N = (64, 128, 256, 512, 768, 1024)
 _GATE_MIN_BATCH = {
-    "eigh": (4, 4, 8, 16, None, None),          # float32 symmetric
+    "eigh": (2, 2, 1, 2, 16, None),             # float32 symmetric
     "complex": (4, 4, 32, None, None, None),    # complex64 hermitian
-    "svd": (4, 4, 8, 16, 16, 32),               # float32 general, by its small side
+    "svd": (2, 2, 1, 2, 2, 32),                 # float32 general, by its small side
     "complex_svd": (4, 4, 8, 16, 32, None),     # complex64 general, by its small side
 }
 
