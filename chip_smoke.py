@@ -89,12 +89,15 @@ gate's rows above 512 come from this), without holding the gate to it.
     python3 chip_smoke.py --only dc
     python3 chip_smoke.py --only dc_level
     python3 chip_smoke.py --only sweep
+    python3 chip_smoke.py --only complex
 
 build the kernels and run only config 2's warm start phase (the
-single-shot DC kernel), only the per-level warm start's phase, or only
+single-shot DC kernel), only the per-level warm start's phase, only
 config 2's phase (the real sweep kernel, its path and cluster size) and
-the sweep gate's table, with the same last lines: development switches
-for work on those kernels.  The default run is the full script.
+the sweep gate's table, or only config 2's complex phase (the complex
+sweep kernel, its path, cluster size, waves and designs) and the sweep
+gate's table, with the same last lines: development switches for work
+on those kernels.  The default run is the full script.
 """
 from __future__ import annotations
 
@@ -127,7 +130,6 @@ DAVIDSON_OPTS = {"min_eps": 2e-3, "max_niter": 800}
 # bandwidth and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 
 # a shape outside the sweep kernels' window, where the default routing's
 # gate is measured; and the sizes beyond config 2 where the warm start is
@@ -250,12 +252,12 @@ def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0):
     return busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
 
 
-def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+def bound(nbytes: float, flops: float):
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and operations over their peak rates (``flops`` IEEE float32,
-    ``tf32_flops`` on the TF32 tensor cores), and which it is."""
+    memory rate and IEEE float32 operations over their peak rate, and which
+    it is."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -723,11 +725,9 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
     """Hold the DC kernel against its plain version one level at a time, from
     the kernel's own state, on the (B, n, n) float32 CUDA batch ``a``; with
     ``per_level`` the per-level kernel (``dc_level_cuda``, one launch a
-    level) against ``dc_level_plain``, whose float32 and float64 runs then
-    both follow the kernel's precision schedule (``fast="tf32"``: the
-    operands of the same products rounded to TF32), so that the float64
-    run's distance measures accumulation rounding and its amplification,
-    not the TF32 rounding itself.
+    level) against ``dc_level_plain`` in float32 and in float64, both with
+    the kernel's products in IEEE arithmetic, so that the float64 run's
+    distance measures accumulation rounding and its amplification.
 
     The sort is chaotic over its levels: a level whose projector is soft, or
     whose probe block has a tiny singular value, amplifies rounding (on
@@ -780,12 +780,9 @@ def dc_level_by_level(torch, a, levels, min_seg, refine=0, per_level=False):
             t_prev, s_prev = state if state is not None else (
                 0.5 * (a + a.mT), torch.zeros_like(a[..., :1], dtype=torch.int32))
             sk, tk, gk = dc_level_cuda(s_prev, t_prev, g_prev, min_seg=min_seg)
-            # the kernel's precision schedule in both runs: its 6 TF32
-            # products with TF32 operands, summed in float32 and in float64
-            sp, tp, gp = dc_level_plain(s_prev, t_prev, g_prev, min_seg=min_seg,
-                                        fast="tf32")
+            sp, tp, gp = dc_level_plain(s_prev, t_prev, g_prev, min_seg=min_seg)
             _, t6, g6 = dc_level_plain(s_prev, t_prev.double(), g_prev.double(), om=om64,
-                                       min_seg=min_seg, fast="tf32")
+                                       min_seg=min_seg)
         else:
             gk, tk, sk = dc_precondition_cuda(a, levels=level, **kw)
             gp, tp, sp = dc_precondition_plain(g_prev, levels=1, state=state, **kw)
@@ -1085,7 +1082,7 @@ def per_level_warm(torch, np, xt, device, card):
     launches on these warm paths."""
     from xitorch_tpu_torch.ops import jacobi_eigh as jmod
     from xitorch_tpu_torch.ops.dc_level import (
-        _PRODUCTS_PER_LEVEL, _TF32_PRODUCTS, dc_level_cuda, dc_level_plain,
+        _PRODUCTS_PER_LEVEL, dc_level_cuda, dc_level_plain,
         dc_precondition_per_level,
     )
     from xitorch_tpu_torch.ops.jacobi_eigh import (
@@ -1116,7 +1113,7 @@ def per_level_warm(torch, np, xt, device, card):
             s_, t_, g_ = torch.zeros_like(panel[..., :1], dtype=torch.int32), \
                 0.5 * (panel + panel.mT), panel
             for _ in range(levels):
-                s_, t_, g_ = dc_level_plain(s_, t_, g_, fast="tf32")
+                s_, t_, g_ = dc_level_plain(s_, t_, g_)
             return g_
 
         gp = plain_levels()
@@ -1125,26 +1122,23 @@ def per_level_warm(torch, np, xt, device, card):
         # are block-diagonal over the segments the level starts from, so 71
         # of a level's products need 2 m^3 a segment of m rows and
         # G0 <- Q^T G0 needs 2 m^2 n: per matrix, summed over rows,
-        # 142 sum(m^2) + 2 n sum(m); 6 of the 71 run on TF32 (3 cubic polar
-        # steps).  And the operations the kernel's tiles run,
+        # 142 sum(m^2) + 2 n sum(m), all IEEE float32.  And the operations
+        # the kernel's tiles run,
         # from the band ranges (level_tile_operations).
         # The kernel's own segments at each level are counted (its extra
         # launches here precede the counted run); frozen segments, at most 2
         # wide, are counted as live
         s_, t_, g_ = torch.zeros_like(panel[..., :1], dtype=torch.int32), \
             0.5 * (panel + panel.mT), panel
-        need_tf32 = need_ieee = run_tf32 = run_ieee = 0.0
+        flops = run_ops = 0.0
         for _ in range(levels):
             m = (s_ == s_.mT).sum(-1).double()
-            need_tf32 += _TF32_PRODUCTS * 2.0 * float((m * m).sum())
-            need_ieee += ((_PRODUCTS_PER_LEVEL - 1 - _TF32_PRODUCTS) * 2.0 * float((m * m).sum())
-                          + 2.0 * npad * float(m.sum()))
+            flops += ((_PRODUCTS_PER_LEVEL - 1) * 2.0 * float((m * m).sum())
+                      + 2.0 * npad * float(m.sum()))
             diag, rows = level_tile_operations(torch, s_)
-            run_tf32 += _TF32_PRODUCTS * diag
-            run_ieee += (_PRODUCTS_PER_LEVEL - 1 - _TF32_PRODUCTS) * diag + rows
+            run_ops += (_PRODUCTS_PER_LEVEL - 1) * diag + rows
             s_, t_, g_ = dc_level_cuda(s_, t_, g_, min_seg=2)
         del s_, t_, g_
-        flops = need_tf32 + need_ieee
         a64 = panel.double()
         a2 = a64 @ a64
         off2 = a2 - torch.diag_embed(torch.diagonal(a2, dim1=-2, dim2=-1))
@@ -1262,11 +1256,9 @@ def per_level_warm(torch, np, xt, device, card):
         bmm_ms = timed_ms(torch, products_as_bmm, reps=2, inner=1)
         dense = float(bsz) * n_products * 2.0 * npad ** 3
         # a read once, the probe read once, G0 written once; the operations
-        # as IEEE float32 throughout, and under the kernel's schedule (6
-        # products a level on the TF32 tensor cores)
+        # in IEEE float32
         nbytes = (2 * bsz * npad * npad + npad * npad) * 4
-        f32_bound, f32_by = bound(nbytes, flops)
-        k_bound, k_by = bound(nbytes, need_ieee, tf32_flops=need_tf32)
+        k_bound, k_by = bound(nbytes, flops)
         by_name = device_ms_by_name(
             torch, lambda: dc_precondition_per_level(panel, levels=levels, om=om), calls=2)
         prod_ms = sum(ms for nm, ms in by_name.items() if "level_gemm" in nm)
@@ -1279,17 +1271,12 @@ def per_level_warm(torch, np, xt, device, card):
               "bookkeeping %.3f ms (%.3f a level)"
               % (tag, card, k_ms, k_ms / levels, call_ms, plain_ms, prod_ms,
                  prod_ms / levels, pass_ms, pass_ms / levels))
-        print("  operations %s [%s]: needed by this run's segments %.4f TFLOP (%.4f on the "
-              "%d TF32 products a level, %.4f IEEE); run by the tiles (band ranges) %.4f "
-              "(%.4f TF32, %.4f IEEE); all %d products dense %.3f TFLOP; bound as IEEE "
-              "float32 %.4f ms (%s; the kernel %.1fx it, %.1f TFLOP/s of the needed "
-              "work), under the schedule %.4f ms (%s; the kernel %.1fx it); the same dense "
-              "products as torch.bmm %.3f ms"
-              % (tag, card, flops / 1e12, need_tf32 / 1e12, _TF32_PRODUCTS,
-                 need_ieee / 1e12, (run_tf32 + run_ieee) / 1e12, run_tf32 / 1e12,
-                 run_ieee / 1e12, n_products, dense / 1e12, f32_bound, f32_by,
-                 k_ms / f32_bound, flops / k_ms / 1e9, k_bound, k_by, k_ms / k_bound,
-                 bmm_ms))
+        print("  operations %s [%s]: needed by this run's segments %.4f TFLOP, run by the "
+              "tiles (band ranges) %.4f, all %d products dense %.3f TFLOP, all IEEE "
+              "float32; bound %.4f ms (%s; the kernel %.1fx it, %.1f TFLOP/s of the needed "
+              "work); the same dense products as torch.bmm %.3f ms"
+              % (tag, card, flops / 1e12, run_ops / 1e12, n_products, dense / 1e12,
+                 k_bound, k_by, k_ms / k_bound, flops / k_ms / 1e9, bmm_ms))
         print("  jacobi_eigh %s [%s]: warm %.3f ms, cold %.3f ms; faster: %s"
               % (tag, card, warm_ms, cold_ms, "warm" if warm_ms < cold_ms else "cold"))
         if npad == 768:
@@ -1381,11 +1368,45 @@ def sweep_gate_table(torch, device, card, batches=None, sizes=None, hold=True):
     return rows
 
 
+def config2_rng(np):
+    """The generator as config 2's phase leaves it (``config2_batch``'s SPD
+    batch, then ``config2``'s general batch, its gradient's rotation and its
+    two weights drawn and dropped): ``--only complex`` draws the complex
+    batches from the same state as the full run."""
+    rng = np.random.default_rng(SEED)
+    for shape in ((B2, N2, N2), (B2, N2, N2), (B2, N2, N2), (B2, NEIG), (B2, N2, N2)):
+        rng.standard_normal(shape)
+    return rng
+
+
+# the complex kernel's cluster designs measured at config 2: (CTAs a
+# matrix, threads a CTA)
+COMPLEX_DESIGNS = ((3, 1024), (4, 1024), (8, 1024), (3, 512), (8, 512))
+
+
+def complex_waves(torch, B, n, width, cluster, threads=1024):
+    """(clusters the card holds at once, waves) of the complex sweep kernel
+    for a (B, n, width) panel on clusters of ``cluster`` CTAs of ``threads``
+    (the occupancy query); (0, 1) for the device-memory path."""
+    from xitorch_tpu_torch.ops import _build
+    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+
+    if not cluster:
+        return 0, 1
+    lib = _build.load("jacobi_sweep_complex", jmod._SIGNATURES_COMPLEX)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    held = jmod._active_clusters(lib, dev, n, width, cluster, True, threads)
+    return held, -(-B // held)
+
+
 def config2_complex(torch, np, xt, device, card, shared):
     """Config 2 with complex64 input: the complex sweep kernel against its
-    plain version, then hermitian ``symeig`` (default routing), complex
-    ``svd`` and the gradient through the public API.  Returns the kernel's
-    record for the JSON line."""
+    plain version at config 2's panel, the Hestenes rectangle, batch 1, a
+    (8, 512, 1024) panel and the forced device-memory path, each with its
+    path, cluster size and waves; config 2's cluster designs and the
+    device-memory path timed on the same panel; then hermitian ``symeig``
+    (default routing), complex ``svd`` and the gradient through the public
+    API.  Returns the kernel's record for the JSON line."""
     import warnings
 
     from xitorch_tpu_torch.linalg.symeig import _auto_symeig_method
@@ -1411,31 +1432,91 @@ def config2_complex(torch, np, xt, device, card, shared):
     tol = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2)
     max_sweeps = 18
 
-    # ---- kernel vs plain: the hermitian panel and one rectangular panel ----
-    absa = herm.abs()
-    diag = torch.diagonal(herm, dim1=-2, dim2=-1).real
-    lower = (diag - (absa.sum(-1) - diag.abs())).amin(-1)
-    sigma = torch.clamp(-lower, min=0.0) + 0.01 * torch.linalg.norm(herm, dim=(-2, -1))
-    shifted = herm + sigma[:, None, None] * torch.eye(N2, device=device)
-    panel = torch.cat([shifted.real, -shifted.imag], dim=-1).contiguous()   # (B, n, 2n)
-    Gk, sk, gk, rk = jacobi_sweep_cuda(panel, max_sweeps, tol, return_stats=True,
-                                       complexpair=True)
-    Gp, sp = jacobi_sweep_plain(panel, max_sweeps, tol, complexpair=True)
-    torch.cuda.synchronize()
+    def hermitian_panel(h):
+        """The packed panel jacobi_eigh hands the complex kernel, and the
+        shifted matrix (the one-sided Gershgorin shift plus 1%)."""
+        absa = h.abs()
+        diag = torch.diagonal(h, dim1=-2, dim2=-1).real
+        lower = (diag - (absa.sum(-1) - diag.abs())).amin(-1)
+        sigma = torch.clamp(-lower, min=0.0) + 0.01 * torch.linalg.norm(h, dim=(-2, -1))
+        sh = h + sigma[:, None, None] * torch.eye(h.shape[-1], device=device)
+        # the panel's rows hold the columns of A: (Re A, -Im A)
+        return torch.cat([sh.real, -sh.imag], dim=-1).contiguous(), sh
+
+    def held(name, P, tol_p, spectrum, smem_limit=None):
+        """The kernel against plain on the packed panel P, its path and
+        waves printed; returns (kernel outputs, cluster, waves)."""
+        out = jacobi_sweep_cuda(P, max_sweeps, tol_p, return_stats=True, complexpair=True,
+                                smem_limit=smem_limit)
+        cl = jacobi_sweep_cuda.last_cluster
+        Gp, sp = jacobi_sweep_plain(P, max_sweeps, tol_p, complexpair=True)
+        torch.cuda.synchronize()
+        at_once, waves = complex_waves(torch, *P.shape, cl)
+        err = sweep_checks(torch, "jacobi_sweep_complex %s %s" % (name, tuple(P.shape)), P,
+                           out[0], Gp, out[1], sp, out[2], tol_p, spectrum, complexpair=True,
+                           cluster=cl)
+        if cl:
+            print("  (%d clusters held at once: %d wave%s)" % (at_once, waves,
+                                                               "s" if waves > 1 else ""))
+        return out, cl, waves, err
+
+    # ---- kernel vs plain: config 2's hermitian panel, the rectangle, batch 1,
+    # the device-memory path, n = 512 ----
+    panel, shifted = hermitian_panel(herm)                                   # (B, n, 2n)
     spectrum = torch.linalg.eigvalsh(shifted.to(torch.complex128))
-    sq_err = sweep_checks(torch, "jacobi_sweep_complex (%d, %d, %d)" % (B2, N2, 2 * N2),
-                          panel, Gk, Gp, sk, sp, gk, tol, spectrum, complexpair=True)
+    (Gk, sk, gk, rk), cl2, waves2, sq_err = held("config 2", panel, tol, spectrum)
+    check(cl2 >= 1, "config 2: the complex kernel took the device-memory path, not a "
+          "cluster")
     # rows = the first 128 columns of the general batch: Hestenes' complex SVD
     cols = gen_c[:, :, :N2 // 2].mT
     rect = torch.cat([cols.real, cols.imag], dim=-1).contiguous()           # (B, 128, 512)
     tol_r = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2 // 2)
-    Rk, rsk, rgk, _ = jacobi_sweep_cuda(rect, max_sweeps, tol_r, return_stats=True,
-                                        complexpair=True)
-    Rp, rsp = jacobi_sweep_plain(rect, max_sweeps, tol_r, complexpair=True)
-    torch.cuda.synchronize()
-    sweep_checks(torch, "jacobi_sweep_complex (%d, %d, %d)" % (B2, N2 // 2, 2 * N2), rect,
-                 Rk, Rp, rsk, rsp, rgk, tol_r,
-                 torch.linalg.svdvals(cols.to(torch.complex128)).flip(-1), complexpair=True)
+    held("rectangle", rect, tol_r, torch.linalg.svdvals(cols.to(torch.complex128)).flip(-1))
+    # batch 1, and the forced device-memory path (PR 4's design)
+    held("batch 1", panel[:1].contiguous(), tol, spectrum[:1])
+    held("device memory", panel[:4].contiguous(), tol, spectrum[:4], smem_limit=0)
+    # n = 512: the clusters of 16 CTAs
+    gen5 = torch.Generator(device=device).manual_seed(512)
+    z5 = torch.complex(torch.randn((8, 512, 512), generator=gen5, device=device),
+                       torch.randn((8, 512, 512), generator=gen5, device=device)) \
+        / math.sqrt(2 * 512)
+    panel5, shifted5 = hermitian_panel(z5 @ z5.mH + 2.0 * torch.eye(512, device=device))
+    tol5 = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(512)
+    held("n = 512", panel5, tol5, torch.linalg.eigvalsh(shifted5.to(torch.complex128)))
+
+    # ---- the designs at each shape, the device-memory path (PR 4's design)
+    # among them: the chooser's is the fastest within the spread of one call
+    # to the next ----
+    def designs_at(name, P, tol_p, designs):
+        times = {}
+        for d in designs + (None,):
+            at_once, waves = complex_waves(torch, *P.shape, *(d or (0, 1024)))
+            if d is not None and not at_once:
+                continue
+            ms = timed_ms(torch, lambda: jacobi_sweep_cuda(
+                P, max_sweeps, tol_p, complexpair=True, design=d,
+                smem_limit=0 if d is None else None), reps=3, inner=1)
+            times[d] = (ms, at_once, waves)
+        jacobi_sweep_cuda(P, max_sweeps, tol_p, complexpair=True)
+        chosen = (jacobi_sweep_cuda.last_cluster, 1024)
+        print("complex kernel designs, %s %s [%s], CUDA events (median of 3): %s; the "
+              "chooser's: %d CTAs" % (name, tuple(P.shape), card, "; ".join(
+                  "%s %.3f ms (%s)" % ("device memory" if d is None else
+                                       "%d CTAs x %d threads" % d, ms,
+                                       "one block a matrix" if d is None else
+                                       "%d clusters at once, %d wave%s"
+                                       % (at_once, waves, "s" if waves > 1 else ""))
+                  for d, (ms, at_once, waves) in times.items()), chosen[0]))
+        best = min(ms for ms, _, _ in times.values())
+        check(chosen in times and times[chosen][0] <= 1.1 * best,
+              "complex kernel at %s: the chooser's cluster of %d CTAs is not the fastest "
+              "design (%.3f ms)" % (name, chosen[0], best))
+        return times
+
+    designs_at("config 2", panel, tol, COMPLEX_DESIGNS)
+    designs_at("batch 1", panel[:1].contiguous(), tol, ((3, 1024), (4, 1024), (8, 1024)))
+    designs_at("rectangle", rect, tol_r, ((2, 1024), (3, 1024), (4, 1024)))
+    designs_at("n = 512", panel5, tol5, ((16, 1024),))
 
     counts = {"fwd": 0, "svd": 0, "grad": 0}
 
@@ -2379,12 +2460,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
-    parser.add_argument("--only", choices=("dc", "dc_level", "sweep"), default=None,
+    parser.add_argument("--only", choices=("dc", "dc_level", "sweep", "complex"),
+                        default=None,
                         help="dc: build, then run only config 2's warm start phase "
                              "(config2_warm, row 4); dc_level: only the per-level warm "
                              "start's phase (per_level_warm, row 7); sweep: only config "
                              "2's phase (config2, row 3) and the sweep gate's table; "
-                             "development switches")
+                             "complex: only config 2's complex phase (config2_complex, "
+                             "row 5) and the sweep gate's table; development switches")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2435,6 +2518,14 @@ def main(argv=None) -> int:
         jacobi_record, _ = config2(torch, np, xt, device, card)
         sweep_gate_table(torch, device, card)
         print(json.dumps({"kernels": [jacobi_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "complex":
+        complex_record = config2_complex(torch, np, xt, device, card,
+                                         {"rng": config2_rng(np)})
+        sweep_gate_table(torch, device, card)
+        print(json.dumps({"kernels": [complex_record]}))
         print("total: %.1f s" % (time.perf_counter() - t_start))
         print_device(torch)
         return 0

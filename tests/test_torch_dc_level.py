@@ -2,9 +2,8 @@
 launch, ``ops/dc_level.py``) against the JAX package's per-level Pallas
 kernel in interpret mode, on the same numpy inputs with the reference's own
 probe carried across; the kernel's zero-block rule (products over the band
-ranges of the level's segments give the dense level) and its precision
-schedule (TF32 operands, rounded as ``cvt.rna`` does, on the 6 products it
-runs on the tensor cores) through the plain version; the routing and
+ranges of the level's segments give the dense level) and its order of
+products, all in IEEE arithmetic, through the plain version; the routing and
 padding of ``jacobi_eigh`` on that path; and the sweep-kernel gate of
 ``ops/jacobi_eigh.py``, which the card's measured table makes a function of
 batch and n.  On the CPU the plain
@@ -29,7 +28,7 @@ from xitorch_tpu_torch.ops import dc_level as dlmod
 from xitorch_tpu_torch.ops import jacobi_eigh as jmod
 from xitorch_tpu_torch.ops.dc_kernel import dc_precondition
 from xitorch_tpu_torch.ops.dc_level import (
-    band_ranges, dc_level_cuda, dc_level_plain, dc_precondition_per_level, tf32_round,
+    band_ranges, dc_level_cuda, dc_level_plain, dc_precondition_per_level,
 )
 
 torch.set_num_threads(1)
@@ -144,32 +143,32 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 
 
 def test_level_by_level_check_of_the_card_run(monkeypatch):
-    # chip_smoke.py holds the per-level kernel against dc_level_plain (with
-    # the kernel's TF32 schedule) one level at a time from the kernel's own
-    # state; with that plain version standing in for the kernel every
+    # chip_smoke.py holds the per-level kernel against dc_level_plain one
+    # level at a time from the kernel's own state; with that plain version
+    # standing in for the kernel every
     # difference is 0 and the check passes, and a kernel with a wrong level
     # (G0 rotated at level 2) fails it
     smoke = _smoke()
     a = torch.as_tensor(_spd(32, 2, 48))
     monkeypatch.setattr(dlmod, "dc_level_cuda",
-                        lambda *x, **k: dc_level_plain(*x, fast="tf32", **k))
+                        lambda *x, **k: dc_level_plain(*x, **k))
     (g, t, s), max_abs, rows = smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
     s_, t_, g_ = torch.zeros((2, 48, 1), dtype=torch.int32), 0.5 * (a + a.mT), a
     for _ in range(4):
-        s_, t_, g_ = dc_level_plain(s_, t_, g_, fast="tf32")
+        s_, t_, g_ = dc_level_plain(s_, t_, g_)
     assert torch.equal(g, g_) and torch.equal(s, s_)
     assert max_abs == 0.0 and len(rows) == 4
     depth = []
 
     def wrong(seg, T, G0, **kw):
-        s_, t_, g_ = dc_level_plain(seg, T, G0, fast="tf32", **kw)
+        s_, t_, g_ = dc_level_plain(seg, T, G0, **kw)
         depth.append(1)
         return s_, t_, (g_ + 1e-3 * g_.roll(1, -2)) if len(depth) == 2 else g_
 
     monkeypatch.setattr(dlmod, "dc_level_cuda", wrong)
-    # plain's float64 run rounds the same operands to TF32, so its distance
-    # from the float32 run measures accumulation rounding only and the
-    # entrywise check catches this rotation, at level 2
+    # plain's float64 run takes the same products, so its distance from the
+    # float32 run measures accumulation rounding only and the entrywise
+    # check catches this rotation, at level 2
     with pytest.raises(AssertionError, match="G0 of the kernel and of the plain version "
                                              "differ after level 2"):
         smoke.dc_level_by_level(torch, a, 4, 2, per_level=True)
@@ -225,131 +224,32 @@ def test_banded_products_give_the_dense_level(n, tile, levels, dtype, tol):
 
 
 # ------------------------------------------------------------------
-# the kernel's precision schedule: 6 products on TF32 (the first 3 cubic
-# polar steps), 66 in IEEE float32
+# the kernel's order of products: all 72 in IEEE arithmetic
 # ------------------------------------------------------------------
 
-def _f32(bits):
-    return np.array(bits, dtype=np.uint32).view(np.float32)
-
-
-def test_tf32_round_as_cvt_rna():
-    # cvt.rna.tf32.f32: to nearest, ties away from zero, 10 mantissa bits
-    cases = [
-        (0x3F800000, 0x3F800000),   # 1.0: exact
-        (0x3F801000, 0x3F802000),   # 1 + 2^-11, a tie: away (to even would stay at 1)
-        (0xBF801000, 0xBF802000),   # its negative: away from zero too
-        (0x3F800FFF, 0x3F800000),   # just below the tie: down
-        (0x3F801001, 0x3F802000),   # just above: up
-        (0x3F803000, 0x3F804000),   # a tie above an odd TF32 mantissa
-        (0x3FFFF000, 0x40000000),   # the carry runs into the exponent
-        (0x4B7FFFFF, 0x4B800000),   # 2^24 - 1 rounds up to 2^24
-        (0x00000000, 0x00000000),   # +0
-        (0x80000000, 0x80000000),   # -0
-        (0x7F800000, 0x7F800000),   # inf
-        (0xFF800000, 0xFF800000),   # -inf
-    ]
-    x = torch.as_tensor(_f32([c[0] for c in cases]))
-    got = tf32_round(x).numpy().view(np.uint32).tolist()
-    assert got == [c[1] for c in cases]
-    assert bool(torch.isnan(tf32_round(torch.tensor([float("nan")]))).all())
-    # every result has its low 13 bits clear and lies within half a TF32 ulp
-    y = torch.as_tensor(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
-    r = tf32_round(y)
-    assert not bool((r.view(torch.int32) & 0x1FFF).any())
-    assert bool(((r - y).abs() <= y.abs() * 2.0 ** -11 * (1 + 1e-6)).all())
-
-
-@pytest.mark.parametrize("dtype, fast, n_tf32", [
-    (torch.float32, "tf32", 6), (torch.float32, "ieee", 0), (torch.float64, "tf32", 6),
-    (torch.float64, "ieee", 0)])
-def test_tf32_touches_only_the_kernels_tf32_products(monkeypatch, dtype, fast, n_tf32):
-    # the order of a level's 72 products and which of them take TF32
-    # operands: 14 IEEE sign steps, the IEEE probe, 10 IEEE quintic polar
-    # steps, 3 TF32 + 2 IEEE cubic polar steps, then T Q, Q^T (T Q), Q^T G0
-    flags = []
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_level_runs_its_72_products_in_order(monkeypatch, dtype):
+    # the reference's order of a level's products, none with a precision
+    # switch: 14 cubic sign steps (X X, X X^2), the probe, 10 quintic polar
+    # steps (Q^T Q, G G, Q W), 5 cubic polar steps (Q^T Q, Q G), then T Q,
+    # Q^T (T Q) and Q^T G0 (k over the row band only)
+    calls = []
     product = dlmod._product
 
     def record(a, b, **kw):
-        flags.append(kw.get("tf32", False))
+        calls.append((kw.get("ta", False), kw.get("k_by", "both"),
+                      sorted(set(kw) - {"ta", "k_by", "bands"})))
         return product(a, b, **kw)
 
     monkeypatch.setattr(dlmod, "_product", record)
     a = torch.as_tensor(_spd(7, 2, 48)).to(dtype)
-    dc_level_plain(torch.zeros((2, 48, 1), dtype=torch.int32), 0.5 * (a + a.mT), a,
-                   fast=fast)
-    on = n_tf32 > 0
-    want = [False] * 28 + [False] + [False] * 30 + [on] * 6 + [False] * 4 + [False] * 3
-    assert len(flags) == dlmod._PRODUCTS_PER_LEVEL == 72
-    assert flags == want and sum(flags) == n_tf32
-    assert dlmod._TF32_PRODUCTS == 6
-
-
-def test_tf32_level_rounds_and_stays_close():
-    # "tf32" changes the level by TF32 rounding, not more: ids equal, the
-    # G-invariant kept by the two IEEE polar steps; "ieee" is the default
-    a = torch.as_tensor(_spd(9, 2, 64))
-    seg = torch.zeros((2, 64, 1), dtype=torch.int32)
-    s0, t0, g0 = dc_level_plain(seg, 0.5 * (a + a.mT), a)
-    s1, t1, g1 = dc_level_plain(seg, 0.5 * (a + a.mT), a, fast="tf32")
-    assert torch.equal(s0, s1)
-    assert 0 < float((g1 - g0).abs().max()) < 1e-2 * float(g0.abs().max())
-    a2 = (a @ a).double()
-    assert float((g1.double().mT @ g1.double() - a2).abs().max() / a2.abs().max()) < 1e-5
-    assert torch.equal(dc_level_plain(seg, 0.5 * (a + a.mT), a, fast="ieee")[2], g0)
-    with pytest.raises(ValueError, match="tf32"):
-        dc_level_plain(seg, a, a, fast="bf16")
-
-
-@pytest.mark.parametrize("bits, want", [
-    (0x3FF0000000000000, 0x3FF0000000000000),   # 1.0: exact
-    (0x3FF0020000000000, 0x3FF0040000000000),   # 1 + 2^-11, a tie: away from zero
-    (0xBFF0020000000000, 0xBFF0040000000000),   # its negative
-    (0x3FF001FFFFFFFFFF, 0x3FF0000000000000),   # just below the tie: down
-    (0x3FF0020000000001, 0x3FF0040000000000),   # just above: up
-    (0x3FFFFE0000000000, 0x4000000000000000),   # the carry runs into the exponent
-    (0x7FF0000000000000, 0x7FF0000000000000),   # inf
-])
-def test_tf32_round_float64_by_hand(bits, want):
-    # in float64 the same rounding, to 10 mantissa bits, stays float64
-    x = torch.as_tensor(np.array([bits], dtype=np.uint64).view(np.float64))
-    r = tf32_round(x)
-    assert r.dtype == torch.float64
-    assert r.numpy().view(np.uint64).tolist() == [want]
-
-
-def test_tf32_round_float64_agrees_with_float32():
-    # a float32 value rounds to the same TF32 value in either dtype, and a
-    # float64 one within half a TF32 ulp
-    y = torch.as_tensor(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
-    assert torch.equal(tf32_round(y.double()), tf32_round(y).double())
-    z = torch.as_tensor(np.random.default_rng(2).standard_normal(4096))
-    r = tf32_round(z)
-    assert not bool((r.view(torch.int64) & ((1 << 42) - 1)).any())
-    assert bool(((r - z).abs() <= z.abs() * 2.0 ** -11).all())
-
-
-@pytest.mark.parametrize("seed, n", [(2, 48), (5, 96)])
-def test_float64_tf32_run_takes_the_kernels_operands(seed, n):
-    # the card check's float64 run rounds the operands of the kernel's TF32
-    # products as the float32 run does, then sums in float64: the TF32
-    # rounding moves it off the all-IEEE float64 level, and it stays within
-    # accumulation rounding of the float32 run, with the same ids
-    from xitorch_tpu_torch.ops.spectral_dc import default_probe
-
-    a = torch.as_tensor(_spd(seed, 2, n))
-    s, t = torch.zeros((2, n, 1), dtype=torch.int32), 0.5 * (a + a.mT)
-    om64 = default_probe(n, torch.float32, a.device).double()
-    s32, _, g32 = dc_level_plain(s, t, a, fast="tf32")
-    s64, _, g64 = dc_level_plain(s, t.double(), a.double(), om=om64, fast="tf32")
-    _, _, gi = dc_level_plain(s, t.double(), a.double(), om=om64)
-    assert torch.equal(s32, s64)
-
-    def dist(x, y):
-        return float(((x - y).abs().amax(dim=(-2, -1)) / y.abs().amax(dim=(-2, -1))).max())
-
-    assert 1e-7 < dist(g64, gi) < 1e-2
-    assert dist(g32.double(), g64) < 1e-3
+    _, _, g = dc_level_plain(torch.zeros((2, 48, 1), dtype=torch.int32), 0.5 * (a + a.mT), a)
+    assert g.dtype == dtype
+    nn, tn = (False, "both", []), (True, "both", [])
+    want = ([nn] * 28 + [nn] + [tn, nn, nn] * 10 + [tn, nn] * 5
+            + [nn, tn, (True, "rows", [])])
+    assert len(calls) == dlmod._PRODUCTS_PER_LEVEL == 72
+    assert calls == want
 
 
 def test_tile_operations_follow_the_band_ranges():
@@ -386,17 +286,24 @@ def test_gate_follows_the_table(kind):
             # a batch given in several dims counts as their product
             assert jmod._kernel_wins(kind, (1, batch, 1), n) == want
     rows = [b if b is not None else math.inf for b in jmod._GATE_MIN_BATCH[kind]]
-    if kind.startswith("complex"):
-        # the complex kernel runs one block a matrix: its crossover never
-        # falls as n grows
-        assert rows == sorted(rows)
+    if kind == "complex":
+        # the library's complex eigh is fast at small batch, so the cluster
+        # kernel's crossover rises with n, and at 768 and 1024 (the
+        # device-memory path, one block a matrix) it never wins
+        assert rows == sorted(rows) and rows[-2:] == [math.inf, math.inf]
+    elif kind == "complex_svd":
+        # on clusters (n <= 512) it wins from batch 1 to 4, on the
+        # device-memory path (768 and 1024) latest or never
+        assert all(b <= 4 for n, b in zip(jmod._GATE_N, rows) if n <= 512)
+        assert rows[-1] >= rows[-2] >= max(rows[:-2])
     else:
         # the real kernel splits a matrix over a cluster of CTAs wherever
         # the panel's slices fit one (n <= 768): there it wins from batch 1
-        # or 2, at 768 (two waves of clusters of 16) later, and at 1024 (the
-        # device-memory path, one block a matrix) latest or never
-        assert all(b <= 2 for n, b in zip(jmod._GATE_N, rows) if n <= 512)
-        assert rows[-1] >= rows[-2] >= max(rows[:-2])
+        # to 4 (at n = 64 both sides are a few ms of host time), at 768 (two
+        # waves of clusters of 16) no earlier than at 256 and 512, and at
+        # 1024 (the device-memory path, one block a matrix) latest or never
+        assert all(b <= 4 for n, b in zip(jmod._GATE_N, rows) if n <= 512)
+        assert rows[-1] >= max(rows[:-1]) and rows[-2] >= max(rows[2:4])
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 64), (64, 256, 256), (32, 512, 512), (256, 128, 96)])

@@ -250,6 +250,83 @@ def test_sweep_cluster_chooser_limits():
     assert jmod.sweep_cluster(4, 128, 128, active_clusters=lambda c: 3) == 1
 
 
+# the complex kernel's chooser: each CTA holds the same columns of both
+# planes, so a packed (n, 2 hw) panel needs the slices of an (n, 2 hw) real
+# one, plus the gauge's tile of two planes and two words a pair of partials
+@pytest.mark.parametrize("B, n, width, expect", [
+    (64, 256, 512, 3),     # config 2: 184 KB slices on 3 CTAs, 192 CTAs
+    (64, 128, 512, 2),     # the Hestenes rectangle of chip_smoke.py
+    (1, 256, 512, 8),      # batch 1: 3 grown to 4 and 8
+    (8, 512, 1024, 16),    # 139 KB slices only at 16 CTAs
+    (1, 768, 1536, 0),     # 307 KB slices even at 16: device memory
+    (32, 256, 512, 4),     # 32 x 8 CTAs would pass the 132 SMs
+    (16, 256, 512, 8),     # 16 x 8 = 128 CTAs
+    (1, 64, 128, 8),       # two float4 of each plane a CTA
+    (3, 32, 64, 8),        # one float4 of each plane a CTA
+    (2, 128, 256, 8),      # fits one CTA, grown to 8
+    (2, 16, 1000, 8),      # wide rows
+    (4, 1024, 2048, 0),    # beyond every cluster
+])
+def test_complex_sweep_cluster_chooser(B, n, width, expect):
+    c = jmod.sweep_cluster(B, n, width, complexpair=True)
+    assert c == expect
+    fit = [cc for cc in (1, 2, 3, 4, 8, 16)
+           if jmod.cluster_smem_bytes(n, width, cc, complexpair=True) <= 232448]
+    if c:
+        # the slices fit the shared memory a block may opt in to on the
+        # H100, and the next smaller cluster's do not (or it is 1)
+        assert jmod.cluster_smem_bytes(n, width, c, complexpair=True) <= 232448
+        assert fit[0] == 1 or jmod.cluster_smem_bytes(
+            n, width, fit[0] // 2, complexpair=True) > 232448
+        assert B * c <= 132 or c == fit[0]
+    else:
+        assert not fit
+    # a shared-memory limit of 0 forces the device-memory path
+    assert jmod.sweep_cluster(B, n, width, smem_block=0, complexpair=True) == 0
+
+
+def test_complex_cluster_smem_bytes_by_hand():
+    # the formula of csrc/jacobi_sweep_complex.cu with one tile buffer: 256
+    # rows of 16 + 16 float4 at the odd stride 33; one 64 x 64 tile of two
+    # planes (more than the 2 x 4 x 128 x 2 partials); the norms, 4
+    # coefficients a pair, 64 words
+    assert jmod.cluster_smem_bytes(256, 512, 4, complexpair=True) == \
+        256 * 33 * 16 + (2 * 64 * 64 + 256 + 4 * 128 + 64) * 4
+    # config 2 on 3 CTAs: 22 + 22 float4 at stride 45, inside 227 KB
+    assert jmod.cluster_smem_bytes(256, 512, 3, complexpair=True) == \
+        256 * 45 * 16 + (2 * 64 * 64 + 3 * 256 + 64) * 4 <= 232448
+    # at 512 rows on 16 CTAs: 8 + 8 float4 at stride 17, and the partials
+    # (2 x 16 x 256 x 2 words) larger than the tile
+    assert jmod.cluster_smem_bytes(512, 1024, 16, complexpair=True) == \
+        512 * 17 * 16 + (2 * 16 * 512 + 3 * 512 + 64) * 4
+    # CTAs of 512 threads take 32 x 32 tiles, here smaller than the
+    # 2 x 8 x 128 x 2 partials: two CTAs an SM at config 2 on 8
+    assert jmod.cluster_smem_bytes(256, 512, 8, complexpair=True, threads=512) == \
+        256 * 17 * 16 + (2 * 8 * 256 + 3 * 256 + 64) * 4
+    assert 2 * jmod.cluster_smem_bytes(256, 512, 8, complexpair=True, threads=512) < 232448
+    # the real layout is unchanged by the new argument
+    assert jmod.cluster_smem_bytes(256, 256, 2, complexpair=False) == \
+        jmod.cluster_smem_bytes(256, 256, 2)
+
+
+@pytest.mark.parametrize("kw, expect", [
+    ({"sm_count": 15}, 4),                                  # 2 x 8 CTAs pass 15 SMs
+    ({"smem_block": 150000}, 8),                            # 4 no longer fits: 8 at once
+    ({"active_clusters": lambda c: 30 if c <= 4 else 0}, 4),  # the card holds no cluster of 8
+    ({"active_clusters": lambda c: 1}, 3),                  # nor two of any size
+])
+def test_complex_sweep_cluster_limits(kw, expect):
+    # the SM count, the shared memory a block and the occupancy query act
+    # on the complex choice as on the real one: 2 matrices of config 2
+    assert jmod.sweep_cluster(2, 256, 512, complexpair=True, **kw) == expect
+    assert jmod.sweep_cluster(2, 256, 512, complexpair=True) == 8
+    # 32 matrices: the card holds 39 clusters of 3 but 30 of 4 (the H100's
+    # occupancy query), so they stay on 3, in one wave
+    held = {3: 39, 4: 30, 8: 15}
+    assert jmod.sweep_cluster(32, 256, 512, complexpair=True,
+                              active_clusters=held.get) == 3
+
+
 # ------------------------------------------------------------------
 # the warm start: correction, guard, and the whole route
 # ------------------------------------------------------------------

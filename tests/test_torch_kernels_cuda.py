@@ -11,8 +11,8 @@ need not have; this file imports no JAX.)
 (``python3 chip_smoke.py`` covers the BASELINE config-3 and config-2
 shapes; these cases cover odd sizes, several bands, other ranks, float64
 Thomas, the real Jacobi sweep kernel on every cluster size its chooser
-picks and on its device-memory path, the complex one on both of its memory
-paths, the divide-and-conquer kernel with its exports, the per-level
+picks and on its device-memory path, the complex one likewise and on its
+CTAs of 512 threads, the divide-and-conquer kernel with its exports, the per-level
 divide-and-conquer kernel one level at a time, the sweep gate by batch, and
 the fused dense CG kernel over odd sizes, every group size, float64 and a
 broadcast A.)
@@ -458,7 +458,7 @@ def test_warm_jacobi_eigh_on_card(cuda, n):
 @pytest.mark.parametrize("B, n, levels", [
     (2, 96, 5),      # down to frozen segments
     (3, 200, 4),     # n not a multiple of the product tile
-    (2, 130, 4),     # n not a multiple of 4: the TF32 tile stages single floats
+    (2, 130, 4),     # n not a multiple of 4: the IEEE tile's single-float staging
     (2, 640, 3),     # the per-level window
 ])
 def test_dc_level_kernel_level_by_level(cuda, B, n, levels):
@@ -514,7 +514,11 @@ def test_sweep_gate_by_batch_on_card(cuda):
     assert not use_jacobi_svd_for(torch.zeros(1, 128, 300, device=cuda))
     assert use_jacobi_svd_for(torch.zeros(2, 128, 300, device=cuda))
     assert use_jacobi_svd_for(torch.zeros(64, 128, 300, device=cuda))
-    assert not use_jacobi_for(torch.zeros(64, 512, 512, dtype=torch.complex64, device=cuda))
+    # complex: from batch 4 at 256, from 32 at 512
+    assert not use_jacobi_for(torch.zeros(2, 256, 256, dtype=torch.complex64, device=cuda))
+    assert use_jacobi_for(torch.zeros(4, 256, 256, dtype=torch.complex64, device=cuda))
+    assert not use_jacobi_for(torch.zeros(16, 512, 512, dtype=torch.complex64, device=cuda))
+    assert use_jacobi_for(torch.zeros(64, 512, 512, dtype=torch.complex64, device=cuda))
     # the library side of the gate meets the kernel side's orthogonality: a
     # 128-point Laplacian (gaps ~2e-3 at its bottom) through degen_eigh
     from xitorch_tpu_torch._impls.linalg.symeig import degen_eigh
@@ -543,24 +547,44 @@ def _hgauge(G, hw):
     return float(ratio.masked_fill(eye, 0.0).max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B, n, hw", [
-    (3, 32, 32),      # hermitian, shared-memory path, one float4 a half a lane
-    (2, 64, 150),     # rectangular, half-width not a multiple of 4
-    (2, 256, 256),    # the complex config: 512 KB a panel, device-memory path
-    (1, 16, 500),     # four float4 a half a lane in registers
-    (1, 32, 1030),    # wider than the register cache: rows read again
-])
-def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw):
-    rng = np.random.default_rng(6)
+def _herm_panel(B, n, hw, device, seed=6):
+    rng = np.random.default_rng(seed)
     z = rng.standard_normal((B, n, hw)) + 1j * rng.standard_normal((B, n, hw))
     if n == hw:
         z = z @ z.conj().transpose(0, 2, 1) / np.sqrt(n) + 2.0 * np.eye(n)
     z[-1, 1] = 0.0  # a zero row must stay dead
-    P = torch.tensor(np.concatenate([z.real, z.imag], -1), dtype=torch.float32, device=cuda)
+    return torch.tensor(np.concatenate([z.real, z.imag], -1), dtype=torch.float32,
+                        device=device)
+
+
+def _hermitian_invariant(G, hw):
+    z = torch.complex(G[..., :hw].double(), G[..., hw:].double())
+    return z.mH @ z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n, hw, smem_limit, design, cluster", [
+    (3, 32, 32, None, None, 8),     # hermitian, one float4 of each plane a CTA
+    (2, 64, 150, None, None, 8),    # rectangular, half-width not a multiple of 4
+    (2, 48, 149, None, None, 8),    # an odd half-width
+    (64, 256, 256, None, None, 3),  # config 2: 184 KB slices on 3 CTAs, two waves
+    (16, 256, 256, None, None, 4),  # 16 clusters of 4 at once
+    (1, 256, 256, None, None, 8),   # batch 1
+    (2, 512, 512, None, None, 16),  # 139 KB slices only on the cluster of 16
+    (1, 16, 500, None, None, 8),    # wide rows
+    (4, 256, 256, None, (8, 512), 8),   # CTAs of 512 threads, two an SM
+    (4, 256, 256, None, (3, 512), 3),   # 512 threads, three CTAs
+    (2, 256, 256, 0, None, 0),      # the device-memory path, forced
+    (1, 16, 500, 0, None, 0),       # device memory, four float4 a half a lane
+    (1, 32, 1030, 0, None, 0),      # device memory, wider than the register cache
+])
+def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw, smem_limit, design, cluster):
+    P = _herm_panel(B, n, hw, cuda)
     tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(n)
     jacobi_sweep_cuda.launches = jacobi_sweep_cuda.launches_complex = 0
-    Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True, complexpair=True)
+    Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True, complexpair=True,
+                                       smem_limit=smem_limit, design=design)
+    assert jacobi_sweep_cuda.last_cluster == cluster
     Gp, sp = jacobi_sweep_plain(P, 18, tol, complexpair=True)
     torch.cuda.synchronize()
     assert jacobi_sweep_cuda.launches_complex == 1 and jacobi_sweep_cuda.launches == 0
@@ -571,11 +595,9 @@ def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw):
     assert float(_max_cos2(Gp, True).max()) <= tol2
     assert _hgauge(Gk, hw) <= 1.5 * tol2
     # rows are only rotated and re-phased: G^H G is invariant
-    z0 = torch.complex(P[..., :hw].double(), P[..., hw:].double())
-    ref = z0.mH @ z0
+    ref = _hermitian_invariant(P, hw)
     for name, G in (("kernel", Gk), ("plain", Gp)):
-        zz = torch.complex(G[..., :hw].double(), G[..., hw:].double())
-        inv = torch.linalg.norm(zz.mH @ zz - ref) / torch.linalg.norm(ref)
+        inv = torch.linalg.norm(_hermitian_invariant(G, hw) - ref) / torch.linalg.norm(ref)
         assert float(inv) <= 1e-5, name
     nk, np_ = _sorted_row_norms(Gk), _sorted_row_norms(Gp)
     assert float((nk - np_).abs().max() / np_.max()) <= 1e-5
@@ -585,6 +607,40 @@ def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw):
     # the dispatcher takes the complex kernel
     jacobi_sweep(P, 18, tol, complexpair=True)
     assert jacobi_sweep_cuda.launches_complex == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, cluster", [(3, 8), (40, 3)])
+def test_complex_sweep_clusters_exit_on_their_own(cuda, B, cluster):
+    # one launch: an orthogonal panel (no sweep), random ones, one with a
+    # dead zero row; every cluster leaves on its own gauge and none hangs
+    # (40 matrices on clusters of 3: the card holds 39 at once, so a second
+    # wave starts as the first clusters leave)
+    n = 256
+    rng = np.random.default_rng(8)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    z = (rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))) / np.sqrt(2 * n)
+    z = z @ z.conj().transpose(0, 2, 1) + 2.0 * np.eye(n)
+    z[0] = q * np.arange(1, n + 1)[:, None]
+    z[-1, 5] = 0.0
+    P = torch.tensor(np.concatenate([z.real, z.imag], -1), dtype=torch.float32, device=cuda)
+    tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(n)
+    G, sweeps, gauge, rot = jacobi_sweep_cuda(P, 18, tol, return_stats=True, complexpair=True)
+    torch.cuda.synchronize()
+    assert jacobi_sweep_cuda.last_cluster == cluster
+    assert int(sweeps[0]) == 0 and int(rot[0]) == 0 and bool(torch.equal(G[0], P[0]))
+    assert bool((sweeps[1:] >= 5).all()) and bool((sweeps <= 18).all())
+    assert float(G[-1, 5].abs().max()) == 0.0
+    tol2 = tol * tol
+    assert bool((gauge <= tol2).all()) and float(_max_cos2(G, True).max()) <= tol2
+    ref = _hermitian_invariant(P, n)
+    inv = torch.linalg.norm(_hermitian_invariant(G, n) - ref, dim=(-2, -1)) \
+        / torch.linalg.norm(ref, dim=(-2, -1))
+    assert float(inv.max()) <= 1e-5
+    # max_sweeps = 0 measures the gauge and leaves, on every cluster
+    G0, s0, g0, _ = jacobi_sweep_cuda(P, 0, tol, return_stats=True, complexpair=True)
+    assert bool((s0 == 0).all()) and bool(torch.equal(G0, P))
+    assert float(((g0.double() / _max_cos2(P, True).double())[1:] - 1.0).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda

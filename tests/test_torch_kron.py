@@ -37,7 +37,8 @@ def _spd(rng, n, batch=()):
 
 def _ops(kind, factors, is_hermitian=True):
     Aj = CLASSES[kind][0](*map(jnp.asarray, factors), is_hermitian=is_hermitian)
-    At = operator_from_numpy(kind, {"factors": factors}, is_hermitian=is_hermitian)
+    At = operator_from_numpy(kind, {"factors": factors}, device="cpu",
+                             is_hermitian=is_hermitian)
     assert type(At) is CLASSES[kind][1]
     return Aj, At
 
@@ -114,7 +115,7 @@ def test_kron_promotes_dtypes_and_rejects_bad_factors():
     with pytest.raises(RuntimeError, match="two factors"):
         xt.KronSumOperator(torch.eye(3))
     with pytest.raises(ValueError, match="unknown operator kind"):
-        operator_from_numpy("Kron", {"factors": [np.eye(2), np.eye(2)]})
+        operator_from_numpy("Kron", {"factors": [np.eye(2), np.eye(2)]}, device="cpu")
 
 
 @pytest.mark.parametrize("kind", list(CLASSES))

@@ -31,7 +31,7 @@ def _tridiag(case, seed=0):
     params = {k: np.asarray(getattr(Aj, k)) for k in ("d", "c")}
     if V is not None:
         params["V"] = np.asarray(Aj.V)
-    return Aj, operator_from_numpy("TridiagLowRankOperator", params)
+    return Aj, operator_from_numpy("TridiagLowRankOperator", params, device="cpu")
 
 
 def _banded(case, seed=1):
@@ -46,7 +46,8 @@ def _banded(case, seed=1):
     params = {"d": np.asarray(Aj.d), "band_vals": [np.asarray(c) for c in Aj.band_vals]}
     if V is not None:
         params["V"] = np.asarray(Aj.V)
-    return Aj, operator_from_numpy("BandedLowRankOperator", params, offsets=Aj.offsets)
+    return Aj, operator_from_numpy("BandedLowRankOperator", params, device="cpu",
+                                   offsets=Aj.offsets)
 
 
 TRIDIAG_CASES = [(c, v) for c in ("array", "scalar", "none") for v in (True, False)]
@@ -119,7 +120,25 @@ def test_convert_matrix_and_dtype_device():
     assert isinstance(A, xt.MatrixLinearOperator) and A.is_hermitian
     assert A.dtype == torch.float32 and A.device.type == "cpu"
     with pytest.raises(ValueError):
-        operator_from_numpy("KronOperator", {"mat": h})
+        operator_from_numpy("KronOperator", {"mat": h}, device="cpu")
     with pytest.raises(ValueError):
         operator_from_numpy("BandedLowRankOperator",
-                            {"d": np.ones(5), "band_vals": [np.ones(4)]})
+                            {"d": np.ones(5), "band_vals": [np.ones(4)]}, device="cpu")
+
+
+def test_convert_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    # with no device named the tensors go to the card; with no card the
+    # carry-across raises instead of building on the CPU
+    from xitorch_tpu_torch.convert import pencil_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    h = np.eye(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        operator_from_numpy("MatrixLinearOperator", {"mat": h})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        operator_from_numpy("TridiagLowRankOperator", {"d": np.ones((2, 8)), "c": np.ones(7)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pencil_from_numpy(h, h)
+    # a device named is taken as it is
+    A, M = pencil_from_numpy(h, h, device="cpu")
+    assert A.device.type == M.device.type == "cpu"

@@ -62,7 +62,7 @@ def test_symeig_matches_jax_f64(method, with_m, mode):
     m = m if with_m else None
     ej, vj = xj.linalg.symeig(*(_jops(a, m)[:1]), K, mode, M=_jops(a, m)[1],
                               method=method, **ITER_OPTS[method])
-    At, Mt = pencil_from_numpy(a, m)
+    At, Mt = pencil_from_numpy(a, m, device="cpu")
     et, vt = xt.linalg.symeig(At, K, mode, M=Mt, method=method, **ITER_OPTS[method])
     assert et.shape == (B, K) and vt.shape == (B, N, K) and et.dtype == torch.float64
     # float64 values to 1e-6 (far tighter in practice); projectors because
@@ -83,7 +83,8 @@ def test_symeig_matches_jax_f32(method):
     if opts:
         opts["min_eps"] = 1e-4
     ej, _ = xj.linalg.symeig(_jops(a)[0], K, "lowest", method=method, **opts)
-    et, vt = xt.linalg.symeig(pencil_from_numpy(a)[0], K, "lowest", method=method, **opts)
+    et, vt = xt.linalg.symeig(pencil_from_numpy(a, device="cpu")[0], K, "lowest",
+                              method=method, **opts)
     e0 = np.linalg.eigvalsh(a.astype(np.float64))[:, :K]
     # float32: eps*||A||-grade values (the gate of the reference's tests)
     scale = np.abs(e0).max()
@@ -95,7 +96,7 @@ def test_symeig_matches_jax_f32(method):
 def test_aliases_full_spectrum_and_batch_broadcast():
     a, m = _pencil(seed=2, n=8, batch=(2, 1))
     m = m[0]  # M (1, 8, 8) against A (2, 1, 8, 8)
-    At, Mt = pencil_from_numpy(a, m)
+    At, Mt = pencil_from_numpy(a, m, device="cpu")
     Aj, Mj = _jops(a, m)
     el, vl = xt.linalg.lsymeig(At, 2, M=Mt, method="exacteig")
     eu, vu = xt.linalg.usymeig(At, 2, M=Mt, method="exacteig")
@@ -113,7 +114,7 @@ def test_return_info(method):
     a, _ = _pencil(seed=3)
     ej = xj.linalg.symeig(_jops(a)[0], K, method=method, return_info=True,
                           **ITER_OPTS[method])
-    et = xt.linalg.symeig(pencil_from_numpy(a)[0], K, method=method, return_info=True,
+    et = xt.linalg.symeig(pencil_from_numpy(a, device="cpu")[0], K, method=method, return_info=True,
                           **ITER_OPTS[method])
     assert len(et) == 3 and set(et[2]) == set(ej[2]) == {
         "converged", "iterations", "resid", "resid_rel"}
@@ -125,7 +126,7 @@ def test_return_info(method):
 
 def test_nonconvergence_warns_and_returns_best_iterate():
     a, _ = _pencil(seed=4)
-    A = pencil_from_numpy(a)[0]
+    A = pencil_from_numpy(a, device="cpu")[0]
     with pytest.warns(ConvergenceWarning, match="did not converge"):
         e, v, info = xt.linalg.symeig(A, K, method="davidson", max_niter=1,
                                       min_eps=1e-12, return_info=True)
@@ -139,7 +140,7 @@ def test_nonconvergence_warns_and_returns_best_iterate():
 
 def test_errors_and_routing():
     a, m = _pencil(seed=5, n=8)
-    A, M = pencil_from_numpy(a, m)
+    A, M = pencil_from_numpy(a, m, device="cpu")
     with pytest.raises(RuntimeError, match="Hermitian"):
         xt.linalg.symeig(xt.LinearOperator.m(torch.as_tensor(a), is_hermitian=False), 2)
     with pytest.raises(RuntimeError, match="Hermitian"):
@@ -397,7 +398,7 @@ def test_symeig_complex_matches_jax(method):
     a = _herm_c(0, n, (2,))
     opts = {} if method == "exacteig" else {"min_eps": 1e-10, "max_niter": 2000}
     ej, vj = xj.linalg.symeig(_jops(a)[0], neig, "lowest", method=method, **opts)
-    At, _ = pencil_from_numpy(a)
+    At, _ = pencil_from_numpy(a, device="cpu")
     assert At.dtype == torch.complex128
     et, vt = xt.linalg.symeig(At, neig, "lowest", method=method, **opts)
     assert et.dtype == torch.float64 and vt.dtype == torch.complex128
@@ -513,14 +514,15 @@ def test_degen_eigh_complex_gradient_against_torch_eigh():
 def test_convert_carries_complex_operators():
     a = _herm_c(4, 8)
     m = _herm_c(5, 8) / 8
-    A, M = pencil_from_numpy(a.astype(np.complex64), m.astype(np.complex64))
+    A, M = pencil_from_numpy(a.astype(np.complex64), m.astype(np.complex64), device="cpu")
     assert A.dtype == torch.complex64 and M.dtype == torch.complex64
     assert A.is_hermitian and M.is_hermitian
     e, v = xt.linalg.symeig(A, 2, M=M, method="exacteig")
     import scipy.linalg
     e0 = scipy.linalg.eigh(a, m, eigvals_only=True)[:2]
     assert np.abs(e.numpy() - e0).max() <= 1e-4 * np.abs(e0).max()
-    A128, _ = pencil_from_numpy(a.astype(np.complex64), dtype=torch.complex128)
+    A128, _ = pencil_from_numpy(a.astype(np.complex64), device="cpu",
+                                dtype=torch.complex128)
     assert A128.dtype == torch.complex128
     with pytest.raises(ValueError, match="complex"):
-        pencil_from_numpy(a, dtype=torch.float64)
+        pencil_from_numpy(a, device="cpu", dtype=torch.float64)

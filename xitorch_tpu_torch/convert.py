@@ -5,7 +5,9 @@ keyed by the JAX operator's ``_getparamnames`` (``np.asarray(A.d)`` and so
 on), so both packages compute on identical inputs; :func:`pencil_from_numpy`
 builds the dense hermitian operator A, and the metric M of a generalized
 pencil ``(A, M)``, that ``symeig`` takes.  This module imports no JAX:
-the arrays are plain numpy.
+the arrays are plain numpy.  The tensors go to the card unless the caller
+names another device (``device="cpu"``, as the CPU tests do); with no card
+and no device named, both functions raise.
 """
 from __future__ import annotations
 
@@ -26,6 +28,16 @@ _KINDS = ("TridiagLowRankOperator", "BandedLowRankOperator", "MatrixLinearOperat
           "KronOperator", "KronSumOperator")
 
 
+def _device(device) -> torch.device:
+    """``device``, or the current CUDA device where it is None."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's operators go to the card unless "
+                           "a device is named (device=\"cpu\")")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
                         dtype: Optional[torch.dtype] = None, *,
                         offsets: Optional[Sequence[int]] = None,
@@ -38,10 +50,13 @@ def operator_from_numpy(kind: str, params: Mapping[str, object], device=None,
     "MatrixLinearOperator" (``mat``; ``is_hermitian`` as in
     ``LinearOperator.m``), "KronOperator" or "KronSumOperator" (``factors``,
     a sequence of square arrays; ``is_hermitian`` as the class takes it, so
-    ``None`` means not hermitian for raw arrays).  ``dtype`` defaults to each array's own; complex
-    arrays (complex hermitian operators and pencils) come across as complex
-    tensors, and a real ``dtype`` for a complex array is an error.
+    ``None`` means not hermitian for raw arrays).  ``dtype`` defaults to
+    each array's own; complex arrays (complex hermitian operators and
+    pencils) come across as complex tensors, and a real ``dtype`` for a
+    complex array is an error.  ``device``: the current CUDA device where
+    None (a RuntimeError without one).
     """
+    device = _device(device)
 
     def t(a):
         if a is None:
@@ -84,7 +99,9 @@ def pencil_from_numpy(a, m=None, device=None, dtype: Optional[torch.dtype] = Non
     """Dense hermitian operators of the eigenproblem ``A X = M X E`` from
     numpy arrays: ``(A, M)`` with ``M = None`` for the standard problem.
     Both are declared hermitian (``LinearOperator.m(..., is_hermitian=True)``
-    on the JAX side), so nothing is inferred from the values."""
+    on the JAX side), so nothing is inferred from the values.  ``device`` as
+    in :func:`operator_from_numpy`."""
+    device = _device(device)
     A = operator_from_numpy("MatrixLinearOperator", {"mat": a}, device, dtype,
                             is_hermitian=True)
     M = None if m is None else operator_from_numpy(

@@ -28,15 +28,13 @@
 // That is 72 (n, n) products a level: 28 sign, 1 probe, 30 quintic and 10
 // cubic polar, 2 for Q^T T Q and 1 for G0.  The reference runs 61 of them at
 // default precision (12 of the 14 sign steps, the probe, the 10 quintic and
-// 3 of the 5 cubic polar steps) and 11 at HIGHEST.  This card runs 6 on the
-// TF32 tensor cores, the first 3 cubic polar steps, and the other 66 in
+// 3 of the 5 cubic polar steps) and 11 at HIGHEST.  This card runs all 72 in
 // IEEE float32.  The level-by-level check (chip_smoke.py: ids equal, G0 and
 // T within 1e-4 or 4x the distance of the plain version's float32 run from
-// its float64 run, both with the same TF32 operands) decided it, over 41
-// random batches at 8 x 512^2 to 8 x 768^2: the reference's 61 on TF32
-// fail it on 22, the probe alone on 12 (the script's own 700^2 batch among
-// them), the cubic polar steps alone on 5, all 72 in IEEE float32 on none
-// (PERF.md, PR 8).  The schedule is fixed here; there is no other.
+// its float64 run) decided it, over 41 random batches at 8 x 512^2 to
+// 8 x 768^2: the reference's 61 on TF32 fail it on 22, the probe alone on
+// 12, the first 3 cubic polar steps alone on 5, all 72 in IEEE float32 on
+// none (PERF.md, PRs 8 and 11).
 //
 // Design.  The host runs the levels (ops/dc_level.py), one call of
 // dc_level_f32 a level, which puts a fixed sequence of kernels on the
@@ -68,23 +66,19 @@
 // reads: Q^T (T Q) reads T Q inside them only, and T is masked to them.
 // Every level takes the same 128-wide tile.
 //
-// Tiles.  The TF32 products run on csrc/dc_tf32.cuh: mma.sync m16n8k8 with
-// operands rounded by cvt.rna, float32 accumulation, 32-deep k stages in a
-// three-stage cp.async ring.  The IEEE products run on the SIMT tile of
-// csrc/dc_common.cuh (8 x 8 float32 multiply-adds a thread), which the
-// single-shot kernel (csrc/dc_kernel.cu) shares.
+// Tiles.  Every product runs on the SIMT tile of csrc/dc_common.cuh (8 x 8
+// float32 multiply-adds a thread), which the single-shot kernel
+// (csrc/dc_kernel.cu) shares.
 //
 // What bounds it on the H100: operations.  The segments of a run need
 // 142 sum(m^2) + 2 n sum(m) operations a matrix and level (m: each row's
-// segment size), 12 sum(m^2) of it on the TF32 products; at 8 x 768^2 and
-// 10 levels 0.766 TFLOP, 10.6 ms under this schedule (TF32 at 495 TFLOP/s,
-// IEEE float32 at 67) against T and G0 read and written once (~40 MB a
+// segment size); at 8 x 768^2 and 10 levels 0.766 TFLOP, 11.4 ms at IEEE
+// float32's 67 TFLOP/s, against T and G0 read and written once (~40 MB a
 // level).  The tiles run more than the segments need (a band's range covers
 // whole segments: ~1.0 TFLOP there), and at deep levels only the tiles near
 // the diagonal have work.  chip_smoke.py prints the operations needed and
 // run, the bounds and the split between products and passes.
 #include "dc_common.cuh"
-#include "dc_tf32.cuh"
 
 namespace {
 
@@ -96,11 +90,10 @@ constexpr int kIvec = 5;          // int vectors a matrix: size, start, low, lo,
 constexpr int kFvec = 5;          // float vectors: sigma, col, bound, rsum, scale
 
 constexpr float kBeta = 0.02f;    // rank-safety probe blend (per-level)
-// Newton-Schulz steps; the first kCubicPolar cubic polar steps take TF32
-// products, the rest IEEE
+// Newton-Schulz steps
 constexpr int kCubicSign = 14;
 constexpr int kQuinticPolar = 10;
-constexpr int kCubicPolar = 3, kCubicPolarHi = 2;
+constexpr int kCubicPolar = 5;
 
 // kLo, kHi: per BM-row band, the k-range of the band's segments (the first
 // entry of the segment of its first row, one past the end of that of its
@@ -129,8 +122,6 @@ struct Level {
 // rotate, so no tile may keep a stale value.
 // ---------------------------------------------------------------------------
 enum { kBlockDiag = 0, kRowBand = 1 };
-// the precision of a product (the reference's default and HIGHEST)
-enum { kTf32 = 0, kIeee = 1 };
 
 __device__ __forceinline__ void band_k(const Level& L, int b, int bi, int bj, int kRange,
                                        int& k_lo, int& k_hi) {
@@ -177,36 +168,6 @@ level_gemm(Level L, const float* A, const float* B, float* C, const float* aux) 
     ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiCubic{aux + off, n}, tiles);
   else
     ieee_tile<TA>(L, kRange, A + off, B + off, C + off, EpiStore{}, tiles);
-}
-
-// the same product on the TF32 tensor cores (csrc/dc_tf32.cuh), for the
-// block-diagonal products of the schedule's TF32 steps (the cubic polar
-// steps: the Gram matrix stored, then the cubic epilogue)
-template <bool TA, bool V16, class Epi>
-__device__ __forceinline__ void tf32_level_tile(const Level& L, const float* A,
-                                                const float* B, float* C, Epi epi,
-                                                float* smem) {
-  const int b = blockIdx.z, n = L.n;
-  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
-  int k_lo, k_hi;
-  band_k(L, b, blockIdx.y, blockIdx.x, kBlockDiag, k_lo, k_hi);
-  if (k_lo >= k_hi)
-    store_empty_tile(C, n, bm, bn, epi);
-  else
-    tf32_tile<TA, V16>(A, B, C, n, bm, bn, epi, smem, k_lo, k_hi);
-}
-
-template <bool TA, int kMode, bool V16>
-__global__ void __launch_bounds__(kThreads, 2)
-level_gemm_tf32(Level L, const float* A, const float* B, float* C, const float* aux) {
-  static_assert(kMode != 1, "the quintic steps run on the IEEE tile");
-  extern __shared__ __align__(16) float smem[];
-  const int n = L.n;
-  const size_t off = (size_t)blockIdx.z * n * n;
-  if (kMode == 2)
-    tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiCubic{aux + off, n}, smem);
-  else
-    tf32_level_tile<TA, V16>(L, A + off, B + off, C + off, EpiStore{}, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -451,32 +412,13 @@ struct Launcher {
     if (err == cudaSuccess) err = cudaGetLastError();
     return err == cudaSuccess;
   }
-  // one product of the schedule: kTf32 on the tensor cores (block-diagonal
-  // operands only), kIeee on the IEEE float32 tile
-  template <int kPrec, bool TA, int kMode, int kRange = kBlockDiag>
+  // one product on the IEEE float32 tile
+  template <bool TA, int kMode, int kRange = kBlockDiag>
   void gemm(const Level& L, const float* A, const float* Bm, float* C,
             const float* aux = nullptr) {
-    static_assert(kPrec == kIeee || kRange == kBlockDiag, "TF32 products are block-diagonal");
     if (err != cudaSuccess) return;
     const dim3 grid((n + BN - 1) / BN, (n + BM - 1) / BM, B);
-    if constexpr (kPrec == kTf32) {
-      if (n % 4 == 0)
-        tf32<TA, kMode, true>(grid, L, A, Bm, C, aux);
-      else
-        tf32<TA, kMode, false>(grid, L, A, Bm, C, aux);
-    } else {
-      level_gemm<TA, kMode, kRange><<<grid, kThreads, 0, stream>>>(L, A, Bm, C, aux);
-      ok();
-    }
-  }
-  template <bool TA, int kMode, bool V16>
-  void tf32(dim3 grid, const Level& L, const float* A, const float* Bm, float* C,
-            const float* aux) {
-    // above 48 KB, dynamic shared memory must be asked for (per device)
-    err = cudaFuncSetAttribute(level_gemm_tf32<TA, kMode, V16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTf32Smem);
-    if (err != cudaSuccess) return;
-    level_gemm_tf32<TA, kMode, V16><<<grid, kThreads, kTf32Smem, stream>>>(L, A, Bm, C, aux);
+    level_gemm<TA, kMode, kRange><<<grid, kThreads, 0, stream>>>(L, A, Bm, C, aux);
     ok();
   }
   template <int kStep>
@@ -528,10 +470,10 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   float *X = p[0], *S = p[1], *Xn = p[2];
   run.elementwise<kSignInit>(L, X, t_in);
 
-  // ---- E ~ sign(X): cubic steps only, IEEE ----
+  // ---- E ~ sign(X): cubic steps only ----
   for (int it = 0; it < kCubicSign; ++it) {
-    run.gemm<kIeee, false, 0>(L, X, X, S);
-    run.gemm<kIeee, false, 2>(L, X, S, Xn, X);
+    run.gemm<false, 0>(L, X, X, S);
+    run.gemm<false, 2>(L, X, S, Xn, X);
     float* t = X;
     X = Xn;
     Xn = t;
@@ -546,7 +488,7 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // ---- probe, blended slot columns, scaling ----
   float *Y = S, *POm = Xn;
   run.elementwise<kProbe>(L, Y, Y, om);
-  run.gemm<kIeee, false, 0>(L, P, Y, POm);
+  run.gemm<false, 0>(L, P, Y, POm);
   run.elementwise<kBlend>(L, Y, POm);
   run.col_reduce<kColNorm2>(L, Y, kCol);
   run.elementwise<kDivColn>(L, Y, Y);
@@ -562,24 +504,19 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   }
   run.elementwise<kDivScale>(L, Y, Y);
 
-  // ---- Q = polar factor: 10 quintic IEEE, 3 cubic TF32, 2 cubic IEEE ----
+  // ---- Q = polar factor: 10 quintic, 5 cubic ----
   float *Q = Y, *Gm = POm, *W = P, *Qn = p[3];
   for (int it = 0; it < kQuinticPolar; ++it) {
-    run.gemm<kIeee, true, 0>(L, Q, Q, Gm);
-    run.gemm<kIeee, false, 1>(L, Gm, Gm, W, Gm);
-    run.gemm<kIeee, false, 0>(L, Q, W, Qn);
+    run.gemm<true, 0>(L, Q, Q, Gm);
+    run.gemm<false, 1>(L, Gm, Gm, W, Gm);
+    run.gemm<false, 0>(L, Q, W, Qn);
     float* t = Q;
     Q = Qn;
     Qn = t;
   }
-  for (int it = 0; it < kCubicPolar + kCubicPolarHi; ++it) {
-    if (it < kCubicPolar) {
-      run.gemm<kTf32, true, 0>(L, Q, Q, Gm);
-      run.gemm<kTf32, false, 2>(L, Q, Gm, Qn, Q);
-    } else {
-      run.gemm<kIeee, true, 0>(L, Q, Q, Gm);
-      run.gemm<kIeee, false, 2>(L, Q, Gm, Qn, Q);
-    }
+  for (int it = 0; it < kCubicPolar; ++it) {
+    run.gemm<true, 0>(L, Q, Q, Gm);
+    run.gemm<false, 2>(L, Q, Gm, Qn, Q);
     float* t = Q;
     Q = Qn;
     Qn = t;
@@ -590,10 +527,10 @@ extern "C" int dc_level_f32(const int* seg_in, int* seg_out, const float* om,
   // level's ids leave T Q short outside the level's diagonal blocks; but
   // Q^T (T Q) on those blocks reads T Q only inside them, where the range
   // holds every nonzero term, and kSymMask keeps only them
-  run.gemm<kIeee, false, 0>(L, t_in, Q, Gm);
-  run.gemm<kIeee, true, 0>(L, Q, Gm, W);
+  run.gemm<false, 0>(L, t_in, Q, Gm);
+  run.gemm<true, 0>(L, Q, Gm, W);
   run.elementwise<kSymMask>(L, t_out, W);
-  run.gemm<kIeee, true, 0, kRowBand>(L, Q, g_in, g_out);
+  run.gemm<true, 0, kRowBand>(L, Q, g_in, g_out);
   if (run.err == cudaSuccess) {
     level_split<<<B, kVecThreads, 0, run.stream>>>(L, seg_out);
     run.ok();

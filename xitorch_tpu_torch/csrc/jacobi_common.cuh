@@ -1,10 +1,10 @@
 // What the real and the complex one-sided Jacobi sweep kernels share
 // (csrc/jacobi_sweep.cu, csrc/jacobi_sweep_complex.cu): the block shape, the
 // warp reduction, the rotation and the ring tournament; and the machinery
-// of the real kernel's cluster path (rank, cluster barrier, rank-ordered
-// sums through distributed shared memory, words pushed into other CTAs
-// with st.async and counted on mbarriers, the column slice), which the
-// complex kernel does not use yet.
+// of their cluster paths (rank, cluster barrier, rank-ordered sums through
+// distributed shared memory, words pushed into other CTAs with st.async and
+// counted on mbarriers, the column slice, the threads a pair, the launch
+// configuration, the kernel attributes and the occupancy query).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -139,6 +139,14 @@ __device__ __forceinline__ void push_word(unsigned ra, float v, unsigned rbar) {
                :: "r"(ra), "r"(__float_as_uint(v)), "r"(rbar) : "memory");
 }
 
+// the words (v0, v1) to cluster address `ra` (8-byte aligned), their 8
+// bytes completed on the mbarrier at cluster address `rbar`
+__device__ __forceinline__ void push_pair(unsigned ra, float v0, float v1, unsigned rbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+               :: "r"(ra), "r"(__float_as_uint(v0)), "r"(__float_as_uint(v1)), "r"(rbar)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(void* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
                : "memory");
@@ -181,5 +189,57 @@ __host__ __device__ __forceinline__ int slice_w4(int w4, int C) {
   return (w4 + C - 1) / C;
 }
 __host__ __device__ __forceinline__ int slice_stride(int s4) { return s4 | 1; }
+
+// Threads a pair in the vector work of a round: 8, so that 8 threads read
+// 128 contiguous bytes of a row (one conflict-free access), or fewer where
+// the slice row is shorter
+__host__ __device__ __forceinline__ int pair_threads(int s4) {
+  int tpp = 8;
+  while (tpp > 1 && tpp >= 2 * s4) tpp >>= 1;
+  return tpp;
+}
+
+// ---- launching a cluster kernel (host) ----
+
+// `clusters` clusters of C CTAs of `threads` threads, `smem` bytes of
+// dynamic shared memory each; attr: one cudaLaunchAttribute the config
+// points to
+inline cudaLaunchConfig_t cluster_config(int C, int clusters, int threads, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the kernel's dynamic shared memory, and above 8 CTAs the non-portable
+// cluster size
+template <class Kernel>
+cudaError_t cluster_attributes(Kernel kernel, int C, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// how many clusters of the kernel the card holds at once, into *out (0: it
+// cannot schedule one)
+template <class Kernel>
+cudaError_t active_clusters_of(Kernel kernel, int C, int threads, size_t smem, int* out) {
+  cudaError_t e = cluster_attributes(kernel, C, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(C, 1, threads, smem, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
 
 }  // namespace

@@ -319,15 +319,6 @@ __host__ __device__ __forceinline__ size_t cluster_smem_bytes(int n, int w4, int
          (size_t)(shared_area(n, C) + 2 * n + kMisc) * sizeof(float);
 }
 
-// Threads a pair in the vector work of a round: 8, so that 8 threads read
-// 128 contiguous bytes of a row (one conflict-free access), or fewer where
-// the slice row is shorter
-__host__ __device__ __forceinline__ int pair_threads(int s4) {
-  int tpp = 8;
-  while (tpp > 1 && tpp >= 2 * s4) tpp >>= 1;
-  return tpp;
-}
-
 // float4 of each row a thread keeps in registers from the pair dots to the
 // rotation, where a round is one pass of the pairs over the threads and a
 // thread holds 2 to kKeep float4 of a row (at one, the registers cost more
@@ -597,43 +588,14 @@ jacobi_sweep_cluster_kernel(const float* __restrict__ a_g, float* g_g,
 }
 
 template <int C, bool KEEP>
-cudaError_t cluster_attributes(int n, int w4, size_t* smem) {
-  *smem = cluster_smem_bytes(n, w4, C);
-  cudaError_t e = cudaFuncSetAttribute(jacobi_sweep_cluster_kernel<C, KEEP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)*smem);
-  if (e == cudaSuccess && C > 8)
-    e = cudaFuncSetAttribute(jacobi_sweep_cluster_kernel<C, KEEP>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return e;
-}
-
-template <int C>
-cudaLaunchConfig_t cluster_config(int clusters, size_t smem, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * C, 1, 1);
-  cfg.blockDim = dim3(kCThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <int C, bool KEEP>
 cudaError_t launch_cluster_as(const float* a, float* g, int* sweeps, float* gauge_out,
                               int* rot, int B, int n, int w4, int max_sweeps,
                               float tol2, float live_thresh, cudaStream_t stream) {
-  size_t smem;
-  cudaError_t e = cluster_attributes<C, KEEP>(n, w4, &smem);
+  const size_t smem = cluster_smem_bytes(n, w4, C);
+  cudaError_t e = cluster_attributes(jacobi_sweep_cluster_kernel<C, KEEP>, C, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config<C>(B, smem, stream, attr);
+  cudaLaunchConfig_t cfg = cluster_config(C, B, kCThreads, smem, stream, attr);
   e = cudaLaunchKernelEx(&cfg, jacobi_sweep_cluster_kernel<C, KEEP>, a, g, sweeps,
                          gauge_out, rot, n, w4, max_sweeps, tol2, live_thresh);
   if (e != cudaSuccess) return e;
@@ -653,12 +615,8 @@ cudaError_t launch_cluster(const float* a, float* g, int* sweeps, float* gauge_o
 
 template <int C, bool KEEP>
 cudaError_t active_clusters_as(int n, int w4, int* out) {
-  size_t smem;
-  cudaError_t e = cluster_attributes<C, KEEP>(n, w4, &smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config<C>(1, smem, nullptr, attr);
-  return cudaOccupancyMaxActiveClusters(out, jacobi_sweep_cluster_kernel<C, KEEP>, &cfg);
+  return active_clusters_of(jacobi_sweep_cluster_kernel<C, KEEP>, C, kCThreads,
+                            cluster_smem_bytes(n, w4, C), out);
 }
 
 template <int C>

@@ -21,28 +21,24 @@ and ``T`` is masked to the level's blocks after ``T <- sym(Q^T T Q)``.
 Of a level's 72 products the reference runs 61 at default precision (12 of
 the 14 sign steps, the probe, the 10 quintic and 3 of the 5 cubic polar
 steps) and 11 at HIGHEST (the last 2 sign and 2 polar steps, ``T Q``,
-``Q^T (T Q)``, ``Q^T G0``).  The kernel runs 6 on the TF32 tensor cores,
-the first 3 cubic polar steps, and 66 in IEEE float32.  With other step
-groups on TF32 too, its level and this module's emulation of its rounding
-part, at the levels where the sort amplifies rounding, by more than the
-level-by-level check allows on more of 41 random batches (all 61 on TF32:
-22 fail it; the probe alone: 12; the cubic polar steps alone: 5; all
-IEEE: none; ``PERF.md``, PR 8).  And it runs each product only over the k-ranges of
-the level's segments (:func:`band_ranges`), which gives the dense result
-on every entry the level reads.
+``Q^T (T Q)``, ``Q^T G0``).  The kernel runs all 72 in IEEE float32: with
+any step group on TF32, its level parts from this module's, at the levels
+where the sort amplifies rounding, by more than the level-by-level check
+allows on some of 41 random batches (all 61 on TF32: 22 fail it; the probe
+alone: 12; the first 3 cubic polar steps alone: 5; all IEEE: none;
+``PERF.md``, PRs 8 and 11).  And it runs each product only over the
+k-ranges of the level's segments (:func:`band_ranges`), which gives the
+dense result on every entry the level reads.
 
 * :func:`dc_level_cuda` launches one level of the hand-written kernel
   sequence ``csrc/dc_level.cu`` on CUDA tensors and counts one launch;
 * :func:`dc_level_plain` is the same level, step by step, in batched
-  PyTorch: every product in IEEE arithmetic (``fast="ieee"``, as JAX on the
-  CPU computes default-precision products), or with the operands of the
-  kernel's 6 TF32 products rounded to TF32 first as its ``cvt.rna`` does
-  (``fast="tf32"``, in float32 or float64), and dense or over the kernel's
-  k-ranges (``tile``);
+  PyTorch, every product in IEEE arithmetic of the state's dtype (float32,
+  or float64 for a reference run), dense or over the kernel's k-ranges
+  (``tile``);
 * :func:`dc_precondition_per_level` runs ``levels`` levels from
   ``T = sym(a)``, ``G0 = a``, ids 0, and returns ``G0``: the kernel for a
-  CUDA tensor (or an error), the plain version (``fast="ieee"``) for a CPU
-  tensor.
+  CUDA tensor (or an error), the plain version for a CPU tensor.
 
 Segment ids are (B, n, 1) int32, non-decreasing along the index.
 """
@@ -60,7 +56,7 @@ from xitorch_tpu_torch.ops.tridiag import use_kernel
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["band_ranges", "dc_level_cuda", "dc_level_plain", "dc_precondition_per_level",
-           "fits_dc_level", "tf32_round"]
+           "fits_dc_level"]
 
 # above this padded n the warm start runs one level a launch (the
 # reference's threshold: its single-shot kernel's working set stops fitting
@@ -71,15 +67,12 @@ _PER_LEVEL_MIN_N = 448
 # the cold sweep
 _PER_LEVEL_MAX_N = 768
 _RANK_SAFE_BETA_LEAN = 0.02
-# the steps: 14 cubic sign, 10 quintic polar, 3 + 2 cubic polar (the first 3
-# on TF32 products)
+# the steps: 14 cubic sign, 10 quintic polar, 5 cubic polar
 _N_CUBIC_SIGN = 14
 _N_QUINTIC_POLAR = 10
-_N_CUBIC_POLAR, _N_CUBIC_POLAR_HI = 3, 2
+_N_CUBIC_POLAR = 5
 _PRODUCTS_PER_LEVEL = (2 * _N_CUBIC_SIGN + 1 + 3 * _N_QUINTIC_POLAR
-                       + 2 * (_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI) + 3)
-# the kernel's TF32 products: the first 3 cubic polar steps
-_TF32_PRODUCTS = 2 * _N_CUBIC_POLAR
+                       + 2 * _N_CUBIC_POLAR + 3)
 # rows of an output tile of the kernel's products: the width of a band
 _TILE = 128
 
@@ -160,36 +153,18 @@ def _banded(a, b, lo, hi, tile: int, ta: bool, k_by: str) -> torch.Tensor:
     return out
 
 
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to TF32's 10 mantissa bits as ``cvt.rna.tf32.f32``
-    does: to nearest with ties away from zero (the low 13 bits of a float32
-    word cleared, the low 42 of a float64 word, which stays float64);
-    infinities and NaNs pass unchanged."""
-    if x.dtype == torch.float64:
-        bits, drop = x.contiguous().view(torch.int64), 42
-    else:
-        bits, drop = x.contiguous().view(torch.int32), 13
-    # on the magnitude bits, + half a TF32 ulp then truncation rounds half
-    # away from zero; a carry into the exponent is the correct rounding up
-    r = ((bits + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(x.dtype)
-    return torch.where(torch.isfinite(x), r, x)
-
-
-def _product(a, b, *, ta: bool = False, k_by: str = "both", tf32: bool = False,
+def _product(a, b, *, ta: bool = False, k_by: str = "both",
              bands=None) -> torch.Tensor:
     """One product of a level, ``op(a) @ b`` (op = transpose when ``ta``) in
-    IEEE arithmetic, of operands rounded to TF32 first when ``tf32``: dense,
-    or with ``bands = (lo, hi, tile)`` only over the k-ranges the kernel's
-    tiles run (``k_by``: see :func:`_banded`)."""
-    if tf32:
-        a, b = tf32_round(a), tf32_round(b)
+    IEEE arithmetic: dense, or with ``bands = (lo, hi, tile)`` only over the
+    k-ranges the kernel's tiles run (``k_by``: see :func:`_banded`)."""
     if bands is None:
         return dot_hi(a.mT if ta else a, b)
     return _banded(a, b, *bands, ta, k_by)
 
 
 def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
-                   om=None, min_seg: int = 2, tile=None, fast: str = "ieee"
+                   om=None, min_seg: int = 2, tile=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of one level of the kernel, in its order of
     steps: ``(seg, T, G0)`` before the level to ``(seg, T, G0)`` after it.
@@ -197,18 +172,12 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     ``tile``: None runs every product dense; a width runs each product only
     over the k-ranges that the kernel's tiles of that width run
     (:func:`band_ranges`), which gives the dense result on every entry the
-    level reads.  ``fast``: ``"ieee"`` runs every product in IEEE
-    arithmetic; ``"tf32"`` rounds the operands of the kernel's TF32
-    products to TF32 (:func:`tf32_round`), as the kernel does, and sums
-    them in the state's dtype (in float64 the products of the kernel's
-    TF32 operands without its float32 rounding)."""
+    level reads.  Every product runs in IEEE arithmetic of the state's
+    dtype."""
     _check_state(seg, T, G0, "dc_level_plain")
-    if fast not in ("ieee", "tf32"):
-        raise ValueError('fast must be "ieee" or "tf32", got %r' % (fast,))
     B, n, _ = T.shape
     bands = None if tile is None else (*band_ranges(seg, tile), tile)
     mm = functools.partial(_product, bands=bands)
-    tf32 = fast == "tf32"
     dt, dev = T.dtype, T.device
     om = as_probe(om, n, dt, dev)
     qa, qb, qc = _QUINTIC
@@ -262,10 +231,9 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     for _ in range(_N_QUINTIC_POLAR):
         Gm = mm(Q, Q, ta=True)
         Q = mm(Q, qa * eye + qb * Gm + qc * mm(Gm, Gm))
-    for it in range(_N_CUBIC_POLAR + _N_CUBIC_POLAR_HI):
-        f = tf32 and it < _N_CUBIC_POLAR
-        Gm = mm(Q, Q, ta=True, tf32=f)
-        Q = 1.5 * Q - 0.5 * mm(Q, Gm, tf32=f)
+    for _ in range(_N_CUBIC_POLAR):
+        Gm = mm(Q, Q, ta=True)
+        Q = 1.5 * Q - 0.5 * mm(Q, Gm)
 
     # T is block-diagonal over the parent ids only: with bands, T Q is short
     # outside the level's blocks, which Q^T (T Q) on the blocks never reads

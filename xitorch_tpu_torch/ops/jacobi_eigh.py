@@ -36,7 +36,9 @@ real planes ``[Re G^T | Im G^T]`` (``complexpair=True``): the pair dot is
 the hermitian inner product, the bottom row of a pair is phase-aligned by
 ``exp(-i arg gamma)`` so that the rotation itself stays real and applies
 to both planes, and the gauge is the hermitian ``re^2 + im^2``.  On the
-card that is the kernel in ``csrc/jacobi_sweep_complex.cu``.
+card that is the kernel in ``csrc/jacobi_sweep_complex.cu``, on the same
+cluster design as the real one (each CTA holds the same columns of both
+planes), with its one-block kernel as the device-memory path.
 
 The warm start (``precondition=True``): the spectral divide-and-conquer
 sort (``ops/dc_kernel.py``) hands the sweep ``G0 = Q^T A_shift`` instead of
@@ -86,16 +88,18 @@ _W_MAX = 4096
 # device does not report it)
 _SMEM_BLOCK = 232448
 _SM_COUNT = 132
-# the cluster path (csrc/jacobi_sweep.cu): cluster sizes, the largest one
-# the chooser grows to (16 CTAs is not portable and is taken only where a
-# panel needs it), the gauge's output tile and the kernel's other words
+# the cluster paths (csrc/jacobi_sweep.cu, csrc/jacobi_sweep_complex.cu):
+# cluster sizes (the complex kernel's also 3: config 2's 512 KB panels on
+# clusters of 3 run in two waves where clusters of 4 take three), the
+# largest one the chooser grows to (16 CTAs is not portable and is taken
+# only where a panel needs it), the threads of a CTA, the gauge's output
+# tile and the kernels' other words
 _CLUSTERS = (1, 2, 4, 8, 16)
+_CLUSTERS_COMPLEX = (1, 2, 3, 4, 8, 16)
 _CLUSTER_GROW_MAX = 8
+_CTA_THREADS = 1024
 _SWEEP_TILE = 64
 _SWEEP_MISC = 64
-# largest packed panel the complex kernel keeps in shared memory (its
-# block's static arrays and headroom taken off)
-_SMEM_PANEL_COMPLEX = _SMEM_BLOCK - 8192
 
 _NEXT_SLICE = ("the last slice of the port (the deflated path of the "
                "reference's _finisher_lab; see ROADMAP.md, queue 1)")
@@ -113,7 +117,9 @@ _SWEEP_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P]
 _SIGNATURES = {"jacobi_sweep_f32": _SWEEP_ARGS,
                "jacobi_sweep_f32_clusters": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]}
-_SIGNATURES_COMPLEX = {"jacobi_sweep_c32": _SWEEP_ARGS}
+_SIGNATURES_COMPLEX = {
+    "jacobi_sweep_c32": _SWEEP_ARGS[:-1] + [ctypes.c_int, _P],
+    "jacobi_sweep_c32_clusters": [ctypes.c_int] * 4 + [_P]}
 
 
 def _eps_floor(dtype) -> float:
@@ -285,37 +291,65 @@ def _pad_halves(panel: torch.Tensor, hw: int, hw4: int) -> torch.Tensor:
                       F.pad(panel[..., hw:], (0, hw4 - hw))], dim=-1)
 
 
-def cluster_smem_bytes(n: int, width: int, c: int) -> int:
-    """Shared memory one CTA of the real sweep kernel's cluster path takes
-    for an (n, width) panel split over ``c`` CTAs (``cluster_smem_bytes`` in
-    ``csrc/jacobi_sweep.cu``): its slice of ceil(ceil(width/4)/c) float4
-    columns at an odd row stride, an area that holds the gauge's two 64 x 64
-    tiles or the pair partials received from every CTA (2 x c x n/2), the
-    carried norms, the round's coefficients (2 x n/2) and a few words."""
+def _complex_tile(threads: int) -> int:
+    """The complex kernel's gauge tile edge for a CTA of ``threads``."""
+    return _SWEEP_TILE if threads >= 1024 else _SWEEP_TILE // 2
+
+
+def cluster_smem_bytes(n: int, width: int, c: int, complexpair: bool = False,
+                       threads: int = _CTA_THREADS) -> int:
+    """Shared memory one CTA of a sweep kernel's cluster path takes for an
+    (n, width) panel split over ``c`` CTAs.
+
+    Real (``cluster_smem_bytes`` in ``csrc/jacobi_sweep.cu``): its slice of
+    ceil(ceil(width/4)/c) float4 columns at an odd row stride, an area that
+    holds the gauge's two 64 x 64 tiles or the pair partials received from
+    every CTA (2 x c x n/2), the carried norms, the round's coefficients
+    (2 x n/2) and a few words.  Complex, ``complexpair`` (``complex_smem_bytes``
+    in ``csrc/jacobi_sweep_complex.cu``; ``width`` the packed width
+    ``[Re | Im]``): the same columns of both planes, s4 = ceil(ceil(width/8)/c)
+    float4 of each, at an odd stride of 2 s4; an area that holds the gauge's
+    tile of two planes (64 x 64 at 1,024 ``threads``, 32 x 32 at 512) or the
+    partials (re, im) from every CTA (2 x c x n/2 x 2); the norms; 4
+    coefficients a pair (s, tau, the phase) and a few words: the least the
+    kernel takes (it takes a second tile buffer where that fits too)."""
+    if complexpair:
+        s4 = -(-(-(-(width // 2) // 4)) // c)
+        kt = _complex_tile(threads)
+        area = max(2 * kt * kt, 2 * c * n)
+        return n * ((2 * s4) | 1) * 16 + (area + 3 * n + _SWEEP_MISC) * 4
     s4 = -(-(-(-width // 4)) // c)
     area = max(2 * _SWEEP_TILE ** 2, c * n)
     return n * (s4 | 1) * 16 + (area + 2 * n + _SWEEP_MISC) * 4
 
 
 def sweep_cluster(B: int, n: int, width: int, sm_count: int = _SM_COUNT,
-                  smem_block: int = _SMEM_BLOCK, active_clusters=None) -> int:
-    """How many CTAs the real sweep kernel splits each matrix of a
-    (B, n, width) panel over: the smallest cluster (1, 2, 4, 8 or 16) whose
-    slices fit ``smem_block`` bytes of shared memory a block, then doubled
-    while it stays at most 8, each CTA keeps at least one float4 column,
-    the B clusters keep to one CTA an SM (B C <= ``sm_count``) and, where
+                  smem_block: int = _SMEM_BLOCK, active_clusters=None,
+                  complexpair: bool = False, threads: int = _CTA_THREADS) -> int:
+    """How many CTAs a sweep kernel splits each matrix of a (B, n, width)
+    panel over (``complexpair``: packed complex planes, each CTA holding the
+    same columns of both): the smallest cluster (1, 2, 4, 8 or 16; complex
+    also 3) whose slices fit ``smem_block`` bytes of shared memory a block
+    (:func:`cluster_smem_bytes`), then grown to the next size while it stays
+    at most 8, each CTA keeps at least one float4 column (of each plane), the
+    B clusters keep to one CTA an SM (B C <= ``sm_count``) and, where
     ``active_clusters(c)`` (the card's occupancy query) is given, the card
     holds B clusters of that size at once.  0: no cluster holds the slices
     (or ``smem_block`` is 0), the device-memory path.  Shapes only, so a CPU
     test can ask it."""
-    fit = [c for c in _CLUSTERS if cluster_smem_bytes(n, width, c) <= smem_block]
+    sizes = _CLUSTERS_COMPLEX if complexpair else _CLUSTERS
+    fit = [c for c in sizes
+           if cluster_smem_bytes(n, width, c, complexpair, threads) <= smem_block]
     if not fit:
         return 0
+    w4 = -(-(width // 2) // 4) if complexpair else -(-width // 4)
+    grow = [c for c in sizes if c > fit[0]]
     c = fit[0]
-    w4 = -(-width // 4)
-    while (2 * c <= _CLUSTER_GROW_MAX and 2 * c <= w4 and B * 2 * c <= sm_count
-           and (active_clusters is None or active_clusters(2 * c) >= B)):
-        c *= 2
+    for nc in grow:
+        if not (nc <= _CLUSTER_GROW_MAX and nc <= w4 and B * nc <= sm_count
+                and (active_clusters is None or active_clusters(nc) >= B)):
+            break
+        c = nc
     return c
 
 
@@ -329,21 +363,27 @@ def _card_limits(device) -> Tuple[int, int]:
 _ACTIVE_CLUSTERS = {}
 
 
-def _active_clusters(lib, device, n: int, width: int, c: int) -> int:
-    """The card's occupancy query: how many clusters of ``c`` CTAs of the
-    real kernel it holds at once for an (n, width) panel (cached)."""
-    key = (device.index, n, width, c)
+def _active_clusters(lib, device, n: int, width: int, c: int, complexpair: bool = False,
+                     threads: int = _CTA_THREADS) -> int:
+    """The card's occupancy query: how many clusters of ``c`` CTAs of a
+    sweep kernel (the complex one with ``complexpair``, its CTAs of
+    ``threads``) it holds at once for an (n, width) panel (cached)."""
+    key = (device.index, n, width, c, complexpair, threads)
     if key not in _ACTIVE_CLUSTERS:
         out = ctypes.c_int(0)
-        _build.check(lib.jacobi_sweep_f32_clusters(n, width, c, ctypes.addressof(out)),
-                     "jacobi_sweep_cuda: cluster occupancy query")
+        if complexpair:
+            rc = lib.jacobi_sweep_c32_clusters(n, width, c, threads, ctypes.addressof(out))
+        else:
+            rc = lib.jacobi_sweep_f32_clusters(n, width, c, ctypes.addressof(out))
+        _build.check(rc, "jacobi_sweep_cuda: cluster occupancy query")
         _ACTIVE_CLUSTERS[key] = out.value
     return _ACTIVE_CLUSTERS[key]
 
 
 def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
                       return_stats: bool = False, complexpair: bool = False,
-                      smem_limit: Optional[int] = None):
+                      smem_limit: Optional[int] = None,
+                      design: Optional[Tuple[int, int]] = None):
     """Launch a sweep kernel on a contiguous float32 CUDA panel
     (B, n, width) inside the window of :func:`fits_jacobi_sweep`: the real
     kernel (``csrc/jacobi_sweep.cu``), or with ``complexpair`` the complex
@@ -354,12 +394,14 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
     do not count).  ``jacobi_sweep_cuda.launches`` counts the real kernel's
     launches, ``jacobi_sweep_cuda.launches_complex`` the complex one's.
 
-    The real kernel's path is chosen before the launch by
+    Either kernel's path is chosen before the launch by
     :func:`sweep_cluster` from the shapes, the card's SM count and shared
     memory (``smem_limit`` bytes a block where given; 0 forces the
     device-memory path) and its occupancy query, and is recorded in
     ``jacobi_sweep_cuda.last_cluster``: the cluster's CTAs a matrix, 0 for
-    the device-memory path.  A cluster the card cannot schedule, or a
+    the device-memory path.  ``design = (C, threads)`` (complex panels
+    only) forces clusters of C CTAs of 1,024 or 512 threads, to measure one
+    design against another.  A cluster the card cannot schedule, or a
     launch it refuses, raises: nothing falls back to another path."""
     _check_panel(panel, "jacobi_sweep_cuda", complexpair)
     if not panel.is_cuda or panel.dtype != torch.float32 or not panel.is_contiguous():
@@ -371,6 +413,8 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
             "jacobi_sweep_cuda: a (%d, %d, %d) panel is outside the kernel's "
             "window (1 <= B, n even <= %d, width <= %d%s)"
             % (B, n, width, _N_MAX, _W_MAX, ", even" if complexpair else ""))
+    if design is not None and not complexpair:
+        raise RuntimeError("jacobi_sweep_cuda: design is taken for complex panels only")
     # the kernels read rows (each half of a packed row) as float4: zero
     # columns change no dot product
     if complexpair:
@@ -392,22 +436,33 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
                 tol2 * 0.01)
         if complexpair:
             lib = _build.load("jacobi_sweep_complex", _SIGNATURES_COMPLEX)
-            rc = lib.jacobi_sweep_c32(*args, _SMEM_PANEL_COMPLEX, stream)
         else:
             lib = _build.load("jacobi_sweep", _SIGNATURES)
-            sms, smem = _card_limits(panel.device)
-            if smem_limit is not None:
-                smem = min(smem, int(smem_limit))
-            wa = a.shape[-1]
-            dev = torch.device("cuda", torch.cuda.current_device())
+        sms, smem = _card_limits(panel.device)
+        if smem_limit is not None:
+            smem = min(smem, int(smem_limit))
+        wa = a.shape[-1]
+        dev = torch.device("cuda", torch.cuda.current_device())
+        c, threads = design if design is not None else (None, _CTA_THREADS)
+        if c is None:
             c = sweep_cluster(B, n, wa, sms, smem,
-                              lambda cc: _active_clusters(lib, dev, n, wa, cc))
-            if c and _active_clusters(lib, dev, n, wa, c) < 1:
-                raise RuntimeError(
-                    "jacobi_sweep_cuda: the card cannot schedule a cluster of %d "
-                    "CTAs with %d bytes of shared memory each for a (%d, %d) panel"
-                    % (c, cluster_smem_bytes(n, wa, c), n, wa))
-            jacobi_sweep_cuda.last_cluster = c
+                              lambda cc: _active_clusters(lib, dev, n, wa, cc, complexpair,
+                                                          threads),
+                              complexpair, threads)
+        elif c not in _CLUSTERS_COMPLEX or threads not in (512, 1024) \
+                or cluster_smem_bytes(n, wa, c, True, threads) > smem:
+            raise RuntimeError(
+                "jacobi_sweep_cuda: design %r does not hold a (%d, %d) panel in %d bytes "
+                "a block" % (design, n, wa, smem))
+        if c and _active_clusters(lib, dev, n, wa, c, complexpair, threads) < 1:
+            raise RuntimeError(
+                "jacobi_sweep_cuda: the card cannot schedule a cluster of %d "
+                "CTAs with %d bytes of shared memory each for a (%d, %d) panel"
+                % (c, cluster_smem_bytes(n, wa, c, complexpair, threads), n, wa))
+        jacobi_sweep_cuda.last_cluster = c
+        if complexpair:
+            rc = lib.jacobi_sweep_c32(*args, c, threads, stream)
+        else:
             rc = lib.jacobi_sweep_f32(*args, c, stream)
     _build.check(rc, "jacobi_sweep_cuda")
     if complexpair:
@@ -816,18 +871,23 @@ def in_jacobi_window(n: int, dtype) -> bool:
 # run of the script, n = 768 and 1024 by ``chip_smoke.py --gate-sizes
 # 768,1024``).  The float32 rows since the real kernel splits a matrix over
 # a cluster of CTAs: it wins from batch 1 at n = 256 (4.8 ms against 5.4)
-# and from batch 2 up to 768; at n = 768 a cluster of 16 CTAs runs eight
-# matrices in two waves (the card holds seven such clusters at once), and at
-# 1024 no cluster holds the panel, so the kernel works in device memory
-# (0.8-1.1 s a launch against torch.linalg.eigh's 12-360 ms).  The complex
-# rows are the one-block-a-matrix kernel's.  An n between rows takes the
-# next larger row.
+# and from batch 2 up to 768 (svd at n = 64 from batch 4: below that both
+# sides take a few ms of host time); at n = 768 a cluster of 16 CTAs runs
+# eight matrices in two waves (the card holds seven such clusters at once),
+# and at 1024 no cluster holds the panel, so the kernel works in device
+# memory (0.8-1.1 s a launch against torch.linalg.eigh's 12-360 ms).  The
+# complex rows since the complex kernel splits a matrix over a cluster too
+# (up to n = 512; at 768 and 1024 its device-memory path, one block a
+# matrix): eigh from batch 2 up to n = 128, 4 at 256 and 32 at 512, where
+# the library's complex eigh is fast at small batch (6.4 ms at batch 1
+# against the kernel's 27); svd from batch 1 at n = 128 and 256 and 2 at
+# 512.  An n between rows takes the next larger row.
 _GATE_N = (64, 128, 256, 512, 768, 1024)
 _GATE_MIN_BATCH = {
     "eigh": (2, 2, 1, 2, 16, None),             # float32 symmetric
-    "complex": (4, 4, 32, None, None, None),    # complex64 hermitian
-    "svd": (2, 2, 1, 2, 2, 32),                 # float32 general, by its small side
-    "complex_svd": (4, 4, 8, 16, 32, None),     # complex64 general, by its small side
+    "complex": (2, 2, 4, 32, None, None),       # complex64 hermitian
+    "svd": (4, 2, 1, 2, 2, 32),                 # float32 general, by its small side
+    "complex_svd": (4, 1, 1, 2, 32, None),      # complex64 general, by its small side
 }
 
 
