@@ -1379,15 +1379,10 @@ def config2_rng(np):
     return rng
 
 
-# the complex kernel's cluster designs measured at config 2: (CTAs a
-# matrix, threads a CTA)
-COMPLEX_DESIGNS = ((3, 1024), (4, 1024), (8, 1024), (3, 512), (8, 512))
-
-
-def complex_waves(torch, B, n, width, cluster, threads=1024):
+def complex_waves(torch, B, n, width, cluster):
     """(clusters the card holds at once, waves) of the complex sweep kernel
-    for a (B, n, width) panel on clusters of ``cluster`` CTAs of ``threads``
-    (the occupancy query); (0, 1) for the device-memory path."""
+    for a (B, n, width) panel on clusters of ``cluster`` CTAs (the
+    occupancy query); (0, 1) for the device-memory path."""
     from xitorch_tpu_torch.ops import _build
     from xitorch_tpu_torch.ops import jacobi_eigh as jmod
 
@@ -1395,7 +1390,7 @@ def complex_waves(torch, B, n, width, cluster, threads=1024):
         return 0, 1
     lib = _build.load("jacobi_sweep_complex", jmod._SIGNATURES_COMPLEX)
     dev = torch.device("cuda", torch.cuda.current_device())
-    held = jmod._active_clusters(lib, dev, n, width, cluster, True, threads)
+    held = jmod._active_clusters(lib, dev, n, width, cluster, True)
     return held, -(-B // held)
 
 
@@ -1403,10 +1398,11 @@ def config2_complex(torch, np, xt, device, card, shared):
     """Config 2 with complex64 input: the complex sweep kernel against its
     plain version at config 2's panel, the Hestenes rectangle, batch 1, a
     (8, 512, 1024) panel and the forced device-memory path, each with its
-    path, cluster size and waves; config 2's cluster designs and the
-    device-memory path timed on the same panel; then hermitian ``symeig``
-    (default routing), complex ``svd`` and the gradient through the public
-    API.  Returns the kernel's record for the JSON line."""
+    path, cluster size and waves; at each shape the cluster sizes and the
+    device-memory path timed on the same panel, the chooser's held to the
+    fastest; then hermitian ``symeig`` (default routing), complex ``svd``
+    and the gradient through the public API.  Returns the kernel's record
+    for the JSON line."""
     import warnings
 
     from xitorch_tpu_torch.linalg.symeig import _auto_symeig_method
@@ -1472,7 +1468,7 @@ def config2_complex(torch, np, xt, device, card, shared):
     rect = torch.cat([cols.real, cols.imag], dim=-1).contiguous()           # (B, 128, 512)
     tol_r = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(N2 // 2)
     held("rectangle", rect, tol_r, torch.linalg.svdvals(cols.to(torch.complex128)).flip(-1))
-    # batch 1, and the forced device-memory path (PR 4's design)
+    # batch 1, and the forced device-memory path (one block a matrix)
     held("batch 1", panel[:1].contiguous(), tol, spectrum[:1])
     held("device memory", panel[:4].contiguous(), tol, spectrum[:4], smem_limit=0)
     # n = 512: the clusters of 16 CTAs
@@ -1484,39 +1480,37 @@ def config2_complex(torch, np, xt, device, card, shared):
     tol5 = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(512)
     held("n = 512", panel5, tol5, torch.linalg.eigvalsh(shifted5.to(torch.complex128)))
 
-    # ---- the designs at each shape, the device-memory path (PR 4's design)
+    # ---- the designs at each shape, the device-memory path (one block a matrix)
     # among them: the chooser's is the fastest within the spread of one call
     # to the next ----
-    def designs_at(name, P, tol_p, designs):
+    def designs_at(name, P, tol_p, clusters):
         times = {}
-        for d in designs + (None,):
-            at_once, waves = complex_waves(torch, *P.shape, *(d or (0, 1024)))
-            if d is not None and not at_once:
+        for c in clusters + (0,):
+            at_once, waves = complex_waves(torch, *P.shape, c)
+            if c and not at_once:
                 continue
             ms = timed_ms(torch, lambda: jacobi_sweep_cuda(
-                P, max_sweeps, tol_p, complexpair=True, design=d,
-                smem_limit=0 if d is None else None), reps=3, inner=1)
-            times[d] = (ms, at_once, waves)
+                P, max_sweeps, tol_p, complexpair=True, cluster=c or None,
+                smem_limit=None if c else 0), reps=3, inner=1)
+            times[c] = (ms, at_once, waves)
         jacobi_sweep_cuda(P, max_sweeps, tol_p, complexpair=True)
-        chosen = (jacobi_sweep_cuda.last_cluster, 1024)
+        chosen = jacobi_sweep_cuda.last_cluster
         print("complex kernel designs, %s %s [%s], CUDA events (median of 3): %s; the "
               "chooser's: %d CTAs" % (name, tuple(P.shape), card, "; ".join(
-                  "%s %.3f ms (%s)" % ("device memory" if d is None else
-                                       "%d CTAs x %d threads" % d, ms,
-                                       "one block a matrix" if d is None else
+                  "%s %.3f ms (%s)" % ("%d CTAs" % c if c else "device memory", ms,
                                        "%d clusters at once, %d wave%s"
-                                       % (at_once, waves, "s" if waves > 1 else ""))
-                  for d, (ms, at_once, waves) in times.items()), chosen[0]))
+                                       % (at_once, waves, "s" if waves > 1 else "")
+                                       if c else "one block a matrix")
+                  for c, (ms, at_once, waves) in times.items()), chosen))
         best = min(ms for ms, _, _ in times.values())
         check(chosen in times and times[chosen][0] <= 1.1 * best,
               "complex kernel at %s: the chooser's cluster of %d CTAs is not the fastest "
-              "design (%.3f ms)" % (name, chosen[0], best))
-        return times
+              "design (%.3f ms)" % (name, chosen, best))
 
-    designs_at("config 2", panel, tol, COMPLEX_DESIGNS)
-    designs_at("batch 1", panel[:1].contiguous(), tol, ((3, 1024), (4, 1024), (8, 1024)))
-    designs_at("rectangle", rect, tol_r, ((2, 1024), (3, 1024), (4, 1024)))
-    designs_at("n = 512", panel5, tol5, ((16, 1024),))
+    designs_at("config 2", panel, tol, (3, 4, 8))
+    designs_at("batch 1", panel[:1].contiguous(), tol, (3, 4, 8))
+    designs_at("rectangle", rect, tol_r, (2, 3, 4))
+    designs_at("n = 512", panel5, tol5, (16,))
 
     counts = {"fwd": 0, "svd": 0, "grad": 0}
 

@@ -299,11 +299,6 @@ def test_complex_cluster_smem_bytes_by_hand():
     # (2 x 16 x 256 x 2 words) larger than the tile
     assert jmod.cluster_smem_bytes(512, 1024, 16, complexpair=True) == \
         512 * 17 * 16 + (2 * 16 * 512 + 3 * 512 + 64) * 4
-    # CTAs of 512 threads take 32 x 32 tiles, here smaller than the
-    # 2 x 8 x 128 x 2 partials: two CTAs an SM at config 2 on 8
-    assert jmod.cluster_smem_bytes(256, 512, 8, complexpair=True, threads=512) == \
-        256 * 17 * 16 + (2 * 8 * 256 + 3 * 256 + 64) * 4
-    assert 2 * jmod.cluster_smem_bytes(256, 512, 8, complexpair=True, threads=512) < 232448
     # the real layout is unchanged by the new argument
     assert jmod.cluster_smem_bytes(256, 256, 2, complexpair=False) == \
         jmod.cluster_smem_bytes(256, 256, 2)

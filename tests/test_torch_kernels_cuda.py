@@ -11,8 +11,8 @@ need not have; this file imports no JAX.)
 (``python3 chip_smoke.py`` covers the BASELINE config-3 and config-2
 shapes; these cases cover odd sizes, several bands, other ranks, float64
 Thomas, the real Jacobi sweep kernel on every cluster size its chooser
-picks and on its device-memory path, the complex one likewise and on its
-CTAs of 512 threads, the divide-and-conquer kernel with its exports, the per-level
+picks and on its device-memory path, the complex one likewise and on
+forced cluster sizes, the divide-and-conquer kernel with its exports, the per-level
 divide-and-conquer kernel one level at a time, the sweep gate by batch, and
 the fused dense CG kernel over odd sizes, every group size, float64 and a
 broadcast A.)
@@ -563,7 +563,7 @@ def _hermitian_invariant(G, hw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, n, hw, smem_limit, design, cluster", [
+@pytest.mark.parametrize("B, n, hw, smem_limit, forced, cluster", [
     (3, 32, 32, None, None, 8),     # hermitian, one float4 of each plane a CTA
     (2, 64, 150, None, None, 8),    # rectangular, half-width not a multiple of 4
     (2, 48, 149, None, None, 8),    # an odd half-width
@@ -572,18 +572,18 @@ def _hermitian_invariant(G, hw):
     (1, 256, 256, None, None, 8),   # batch 1
     (2, 512, 512, None, None, 16),  # 139 KB slices only on the cluster of 16
     (1, 16, 500, None, None, 8),    # wide rows
-    (4, 256, 256, None, (8, 512), 8),   # CTAs of 512 threads, two an SM
-    (4, 256, 256, None, (3, 512), 3),   # 512 threads, three CTAs
+    (4, 256, 256, None, 3, 3),      # 3 CTAs forced where 8 would be chosen
+    (4, 256, 256, None, 4, 4),      # 4 CTAs forced: two tile buffers
     (2, 256, 256, 0, None, 0),      # the device-memory path, forced
     (1, 16, 500, 0, None, 0),       # device memory, four float4 a half a lane
     (1, 32, 1030, 0, None, 0),      # device memory, wider than the register cache
 ])
-def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw, smem_limit, design, cluster):
+def test_complex_sweep_kernel_matches_plain(cuda, B, n, hw, smem_limit, forced, cluster):
     P = _herm_panel(B, n, hw, cuda)
     tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(n)
     jacobi_sweep_cuda.launches = jacobi_sweep_cuda.launches_complex = 0
     Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True, complexpair=True,
-                                       smem_limit=smem_limit, design=design)
+                                       smem_limit=smem_limit, cluster=forced)
     assert jacobi_sweep_cuda.last_cluster == cluster
     Gp, sp = jacobi_sweep_plain(P, 18, tol, complexpair=True)
     torch.cuda.synchronize()

@@ -34,7 +34,7 @@
 // its float64 run) decided it, over 41 random batches at 8 x 512^2 to
 // 8 x 768^2: the reference's 61 on TF32 fail it on 22, the probe alone on
 // 12, the first 3 cubic polar steps alone on 5, all 72 in IEEE float32 on
-// none (PERF.md, PRs 8 and 11).
+// none (PERF.md, section 6, row 7).
 //
 // Design.  The host runs the levels (ops/dc_level.py), one call of
 // dc_level_f32 a level, which puts a fixed sequence of kernels on the

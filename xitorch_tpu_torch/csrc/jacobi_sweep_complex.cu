@@ -67,16 +67,15 @@
 // (two).  No CTA leaves while another may read its shared memory or push
 // into it: the kernel ends with a cluster barrier after the last remote
 // access, and every CTA takes the exit decision from the same rank-ordered
-// sums.  Two shapes of CTA: 1,024 threads with 64 x 64 gauge tiles, one CTA
-// an SM, the chooser's; or 512 threads with 32 x 32 tiles, small enough
-// for two CTAs an SM (slower at config 2, kept to measure against).
+// sums.
 //
 // The cluster sizes are 1, 2, 3, 4, 8 and 16.  Config 2's 64 panels of
 // 512 KB are 32 MB, more than the card's 132 x 227 KB of shared memory, so
 // no design holds the batch in one wave: on clusters of 4 (135 KB slices)
 // the card holds 30 matrices at once, three waves; on clusters of 3 (184
 // KB slices, the gauge's tile single-buffered to fit) 39, two waves, and
-// the batch is faster though each matrix is slower (PERF.md, PR 11).
+// the batch is faster though each matrix is slower.  CTAs of 512 threads,
+// two an SM, were slower at every batch measured (PERF.md, section 6, row 5).
 //
 // The device-memory path (a panel whose slices no cluster holds, such as
 // n = 768 at half-width 768, or asked for with cluster = 0): one block of
@@ -358,10 +357,8 @@ cudaError_t launch_device_memory(const float* a, float* g, int* sweeps, float* g
 
 // =============================== cluster path ===============================
 
-// a CTA of NT threads: the gauge's tile edge (64 at 1,024 threads, 32 at
-// 512, so that two CTAs fit an SM)
-__host__ __device__ constexpr int complex_tile(int threads) { return threads >= 1024 ? 64 : 32; }
-
+constexpr int kCThreads = 1024;
+constexpr int kTile = 64;  // gauge tiles of kTile x kTile outputs
 // words after the slice, the shared area, the norms and the coefficients:
 // two mbarriers, the per-warp maxima, this CTA's max and the rotation count
 constexpr int kMisc = 64;
@@ -372,9 +369,8 @@ constexpr int kKeep = 2;
 // The shared area of a CTA: `bufs` buffers of the gauge's tile of two
 // planes, or (in the rounds) the pair partials (re, im) received from every
 // rank, part[2][C][n/2][2]
-__host__ __device__ __forceinline__ int complex_area(int n, int C, int threads, int bufs) {
-  const int kt = complex_tile(threads);
-  return 2 * bufs * kt * kt > 2 * C * n ? 2 * bufs * kt * kt : 2 * C * n;
+__host__ __device__ __forceinline__ int complex_area(int n, int C, int bufs) {
+  return 2 * bufs * kTile * kTile > 2 * C * n ? 2 * bufs * kTile * kTile : 2 * C * n;
 }
 
 // dynamic shared memory of one CTA: the slice (n x slice_stride(2 s4)
@@ -383,28 +379,26 @@ __host__ __device__ __forceinline__ int complex_area(int n, int C, int threads, 
 // ops/jacobi_eigh.py::cluster_smem_bytes(complexpair=True) is the same
 // formula with one tile buffer, the least the kernel takes.
 __host__ __device__ __forceinline__ size_t complex_smem_bytes(int n, int hw4, int C,
-                                                              int threads, int bufs) {
+                                                              int bufs) {
   return (size_t)n * slice_stride(2 * slice_w4(hw4, C)) * sizeof(float4) +
-         (size_t)(complex_area(n, C, threads, bufs) + 3 * n + kMisc) * sizeof(float);
+         (size_t)(complex_area(n, C, bufs) + 3 * n + kMisc) * sizeof(float);
 }
 
 // The gauge's tile buffers: two (one cluster barrier a tile) where they fit
-// the shared memory a block may opt in to, else one (two barriers a tile:
-// on an NVIDIA H100 80GB HBM3 at 700 W, one buffer cost 6 % at 8 x 512^2
-// on clusters of 16, nothing measurable at config 2)
-int tile_buffers(int n, int hw4, int C, int threads) {
+// the shared memory a block may opt in to, else one (two barriers a tile;
+// the same bits): config 2's clusters of 3 fit only with one
+int tile_buffers(int n, int hw4, int C) {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess)
     return 1;
-  return complex_smem_bytes(n, hw4, C, threads, 2) <= (size_t)limit ? 2 : 1;
+  return complex_smem_bytes(n, hw4, C, 2) <= (size_t)limit ? 2 : 1;
 }
 
-__host__ __device__ __forceinline__ bool complex_keeps_rows(int n, int hw4, int C,
-                                                            int threads) {
+__host__ __device__ __forceinline__ bool complex_keeps_rows(int n, int hw4, int C) {
   const int s4 = slice_w4(hw4, C), tpp = pair_threads(s4);
-  return n / 2 <= threads / tpp && s4 <= kKeep * tpp;
+  return n / 2 <= kCThreads / tpp && s4 <= kKeep * tpp;
 }
 
 // re += xr.yr + xi.yi, im += xr.yi - xi.yr over one float4 of each plane
@@ -436,14 +430,14 @@ __device__ __forceinline__ void phase_rot4(float4 xr, float4 xi, float4 yr, floa
 // The hermitian gauge and the refreshed norms of the panel held by the
 // cluster; every thread of every CTA returns the same value.  S: this
 // CTA's slice (a row: s4 float4 of Re, then s4 of Im, at stride sp).
-template <int C, int NT>
+template <int C>
 __device__ float complex_cluster_gauge(const float4* S, int n, int s4, int sp, float* tiles,
                                        int bufs, float* nrm, float* red, float* gmax,
                                        unsigned rank, int tid) {
-  constexpr int kT = complex_tile(NT);
-  constexpr int TY = NT / 32;   // rows of threads
-  constexpr int RM = kT / TY;   // output rows a thread
-  constexpr int CN = kT / 32;   // output columns a thread
+  constexpr int kT = kTile;
+  constexpr int TY = kCThreads / 32;  // rows of threads
+  constexpr int RM = kT / TY;         // output rows a thread
+  constexpr int CN = kT / 32;         // output columns a thread
   constexpr int share = (kT * kT + C - 1) / C;  // entries of a tile a CTA sums
   const int ty = tid >> 5, tx = tid & 31;
   const int T = (n + kT - 1) / kT;
@@ -511,7 +505,7 @@ __device__ float complex_cluster_gauge(const float4* S, int n, int s4, int sp, f
       __syncthreads();
     }
     const int e_end = min((int)(rank + 1) * share, kT * kT);
-    for (int e = rank * share + tid; e < e_end; e += NT) {
+    for (int e = rank * share + tid; e < e_end; e += kCThreads) {
       const int a = e / kT, b = e % kT;
       const int i = i0 + a, j = j0 + b;
       if (i < n && j < n && (I != J || a < b)) {
@@ -525,7 +519,7 @@ __device__ float complex_cluster_gauge(const float4* S, int n, int s4, int sp, f
   __syncthreads();
   if (tid == 0) {
     float m = 0.f;
-    for (int w = 0; w < NT / 32; ++w) m = fmaxf(m, red[w]);
+    for (int w = 0; w < kCThreads / 32; ++w) m = fmaxf(m, red[w]);
     *gmax = m;
   }
   cluster_sync();
@@ -535,8 +529,8 @@ __device__ float complex_cluster_gauge(const float4* S, int n, int s4, int sp, f
 // KEEP (complex_keeps_rows): the thread's columns of its pair stay in
 // registers from step 1 to step 4, so a round reads the slice once and
 // writes it once
-template <int C, int NT, bool KEEP>
-__global__ void __launch_bounds__(NT, 1024 / NT)
+template <int C, bool KEEP>
+__global__ void __launch_bounds__(kCThreads, 1)
 jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
                                     int* sweeps_g, float* gauge_g, int* rot_g, int n,
                                     int hw4, int max_sweeps, float tol2,
@@ -548,14 +542,14 @@ jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
   const int m = n - 1;  // length of the ring
   float4* S = smem4;
   float* area = reinterpret_cast<float*>(S + (size_t)n * sp);
-  float* nrm = area + complex_area(n, C, NT, bufs);
+  float* nrm = area + complex_area(n, C, bufs);
   float* coef_s = nrm + n;       // the round's s of each pair
   float* coef_tau = coef_s + h;  // tau = s / (1 + c)
   float* coef_pc = coef_tau + h;  // the phase exp(-i arg gamma)
   float* coef_ps = coef_pc + h;
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(coef_ps + h);
   float* red = coef_ps + h + 4;
-  float* gmax = red + NT / 32;
+  float* gmax = red + kCThreads / 32;
   int* rotations = reinterpret_cast<int*>(gmax + 1);
 
   const int tid = threadIdx.x;
@@ -569,7 +563,7 @@ jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
   float4* out = reinterpret_cast<float4*>(g_g) + mat * n * w4;
 
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = tid; e < n * s4; e += NT) {
+  for (int e = tid; e < n * s4; e += kCThreads) {
     const int i = e / s4, k = e - i * s4;
     S[(size_t)i * sp + k] = k < cw ? src[(size_t)i * w4 + c0 + k] : zero;
     S[(size_t)i * sp + s4 + k] = k < cw ? src[(size_t)i * w4 + hw4 + c0 + k] : zero;
@@ -583,13 +577,13 @@ jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
   __syncthreads();
   // its cluster barriers also make the mbarriers' inits visible to every
   // CTA before the first push
-  float worst = complex_cluster_gauge<C, NT>(S, n, s4, sp, area, bufs, nrm, red, gmax, rank, tid);
+  float worst = complex_cluster_gauge<C>(S, n, s4, sp, area, bufs, nrm, red, gmax, rank, tid);
 
   // the vector work of a round: a group of tpp threads a pair, thread
   // `sub` taking columns sub, sub + tpp, ... of each plane; group `grp`
   // takes pairs grp, grp + groups, ...
   const int tpp = pair_threads(s4);
-  const int groups = NT / tpp;
+  const int groups = kCThreads / tpp;
   const int grp = tid / tpp;
   const int sub = tid & (tpp - 1);
   const int passes = (h + groups - 1) / groups;  // the same in every warp
@@ -644,7 +638,7 @@ jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
       mbar_wait(bar + par, (phase >> 1) & 1);
       // ---- 3. one thread a pair: gamma in rank order, the phase, the
       // rotation's coefficients and the carried norms ----
-      for (int pv = tid; pv < h; pv += NT) {
+      for (int pv = tid; pv < h; pv += kCThreads) {
         float re = part[2 * pv], im = part[2 * pv + 1];
 #pragma unroll
         for (int rr = 1; rr < C; ++rr) {
@@ -694,13 +688,13 @@ jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
       shift = shift + 1 == m ? 0 : shift + 1;
     }
     ++sweep;
-    worst = complex_cluster_gauge<C, NT>(S, n, s4, sp, area, bufs, nrm, red, gmax, rank, tid);
+    worst = complex_cluster_gauge<C>(S, n, s4, sp, area, bufs, nrm, red, gmax, rank, tid);
   }
 
   // every CTA's last remote read (the gauge's maximum) is behind this
   // barrier: no CTA leaves while another may still read its shared memory
   cluster_sync();
-  for (int e = tid; e < n * cw; e += NT) {
+  for (int e = tid; e < n * cw; e += kCThreads) {
     const int i = e / cw, k = e - i * cw;
     out[(size_t)i * w4 + c0 + k] = S[(size_t)i * sp + k];
     out[(size_t)i * w4 + hw4 + c0 + k] = S[(size_t)i * sp + s4 + k];
@@ -715,72 +709,45 @@ jacobi_sweep_complex_cluster_kernel(const float* __restrict__ a_g, float* g_g,
   }
 }
 
-template <int C, int NT, bool KEEP>
+template <int C, bool KEEP>
 cudaError_t launch_cluster_as(const float* a, float* g, int* sweeps, float* gauge_out,
                               int* rot, int B, int n, int hw4, int max_sweeps, float tol2,
                               float live_thresh, cudaStream_t stream) {
-  const int bufs = tile_buffers(n, hw4, C, NT);
-  const size_t smem = complex_smem_bytes(n, hw4, C, NT, bufs);
-  cudaError_t e = cluster_attributes(jacobi_sweep_complex_cluster_kernel<C, NT, KEEP>, C, smem);
+  const int bufs = tile_buffers(n, hw4, C);
+  const size_t smem = complex_smem_bytes(n, hw4, C, bufs);
+  cudaError_t e = cluster_attributes(jacobi_sweep_complex_cluster_kernel<C, KEEP>, C, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(C, B, NT, smem, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, jacobi_sweep_complex_cluster_kernel<C, NT, KEEP>, a, g, sweeps,
+  cudaLaunchConfig_t cfg = cluster_config(C, B, kCThreads, smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, jacobi_sweep_complex_cluster_kernel<C, KEEP>, a, g, sweeps,
                          gauge_out, rot, n, hw4, max_sweeps, tol2, live_thresh, bufs);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <int C, int NT>
+template <int C>
 cudaError_t launch_cluster(const float* a, float* g, int* sweeps, float* gauge_out, int* rot,
                            int B, int n, int hw4, int max_sweeps, float tol2,
                            float live_thresh, cudaStream_t stream) {
-  if (complex_keeps_rows(n, hw4, C, NT))
-    return launch_cluster_as<C, NT, true>(a, g, sweeps, gauge_out, rot, B, n, hw4,
-                                          max_sweeps, tol2, live_thresh, stream);
-  return launch_cluster_as<C, NT, false>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps,
-                                         tol2, live_thresh, stream);
+  if (complex_keeps_rows(n, hw4, C))
+    return launch_cluster_as<C, true>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps,
+                                      tol2, live_thresh, stream);
+  return launch_cluster_as<C, false>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps,
+                                     tol2, live_thresh, stream);
 }
 
-template <int C, int NT>
+template <int C>
 cudaError_t active_clusters(int n, int hw4, int* out) {
-  const size_t smem = complex_smem_bytes(n, hw4, C, NT, tile_buffers(n, hw4, C, NT));
-  if (complex_keeps_rows(n, hw4, C, NT))
-    return active_clusters_of(jacobi_sweep_complex_cluster_kernel<C, NT, true>, C, NT, smem,
-                              out);
-  return active_clusters_of(jacobi_sweep_complex_cluster_kernel<C, NT, false>, C, NT, smem,
+  const size_t smem = complex_smem_bytes(n, hw4, C, tile_buffers(n, hw4, C));
+  if (complex_keeps_rows(n, hw4, C))
+    return active_clusters_of(jacobi_sweep_complex_cluster_kernel<C, true>, C, kCThreads,
+                              smem, out);
+  return active_clusters_of(jacobi_sweep_complex_cluster_kernel<C, false>, C, kCThreads, smem,
                             out);
 }
 
-template <int NT>
-cudaError_t launch_threads(const float* a, float* g, int* sweeps, float* gauge_out, int* rot,
-                           int B, int n, int hw4, int max_sweeps, float tol2,
-                           float live_thresh, int cluster, cudaStream_t s) {
-  switch (cluster) {
-    case 1: return launch_cluster<1, NT>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
-    case 2: return launch_cluster<2, NT>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
-    case 3: return launch_cluster<3, NT>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
-    case 4: return launch_cluster<4, NT>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
-    case 8: return launch_cluster<8, NT>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
-    default: return launch_cluster<16, NT>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
-  }
-}
-
-template <int NT>
-cudaError_t active_threads(int n, int hw4, int cluster, int* out) {
-  switch (cluster) {
-    case 1: return active_clusters<1, NT>(n, hw4, out);
-    case 2: return active_clusters<2, NT>(n, hw4, out);
-    case 3: return active_clusters<3, NT>(n, hw4, out);
-    case 4: return active_clusters<4, NT>(n, hw4, out);
-    case 8: return active_clusters<8, NT>(n, hw4, out);
-    default: return active_clusters<16, NT>(n, hw4, out);
-  }
-}
-
-bool valid(int n, int width, int cluster, int threads) {
+bool valid(int n, int width, int cluster) {
   return n >= 2 && !(n & 1) && n <= kMaxN && width >= 8 && !(width & 7) &&
-         (threads == 1024 || threads == 512) &&
          (cluster == 0 || cluster == 1 || cluster == 2 || cluster == 3 || cluster == 4 ||
           cluster == 8 || cluster == 16);
 }
@@ -792,25 +759,26 @@ bool valid(int n, int width, int cluster, int threads) {
 // and a multiple of 4, so width is a multiple of 8; n even and <= 1024.
 // sweeps (B,) int32, gauge (B,) f32 and rot (B,) int32 receive each matrix's
 // executed sweep count, last measured gauge and number of pairs rotated.
-// cluster: C (1, 2, 3, 4, 8 or 16) CTAs of `threads` (1024 or 512) threads a
-// matrix on the cluster path, whose slices must fit the shared memory a
-// block may opt in to (complex_smem_bytes), or 0 for the device-memory path
-// (threads then ignored).  Returns a cudaError_t (0 on success); a cluster
-// launch the card refuses returns its error.
+// cluster: C (1, 2, 3, 4, 8 or 16) CTAs a matrix on the cluster path,
+// whose slices must fit the shared memory a block may opt in to
+// (complex_smem_bytes with one tile buffer), or 0 for the device-memory
+// path.  Returns a cudaError_t (0 on success); a cluster launch the card
+// refuses returns its error.
 extern "C" int jacobi_sweep_c32(const float* a, float* g, int* sweeps, float* gauge_out,
                                 int* rot, int B, int n, int width, int max_sweeps,
-                                float tol2, float live_thresh, int cluster, int threads,
-                                void* stream) {
-  if (B <= 0 || !valid(n, width, cluster, threads) || max_sweeps < 0)
+                                float tol2, float live_thresh, int cluster, void* stream) {
+  if (B <= 0 || !valid(n, width, cluster) || max_sweeps < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int hw4 = width / 8;  // float4 of a half
-  if (cluster != 0) {
-    if (threads == 1024)
-      return (int)launch_threads<1024>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps,
-                                       tol2, live_thresh, cluster, s);
-    return (int)launch_threads<512>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps,
-                                    tol2, live_thresh, cluster, s);
+  switch (cluster) {
+    case 1: return (int)launch_cluster<1>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
+    case 2: return (int)launch_cluster<2>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
+    case 3: return (int)launch_cluster<3>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
+    case 4: return (int)launch_cluster<4>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
+    case 8: return (int)launch_cluster<8>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
+    case 16: return (int)launch_cluster<16>(a, g, sweeps, gauge_out, rot, B, n, hw4, max_sweeps, tol2, live_thresh, s);
+    default: break;
   }
   const int nv = (hw4 + 31) / 32;  // float4 values of a half a lane
   cudaError_t e;
@@ -829,13 +797,18 @@ extern "C" int jacobi_sweep_c32(const float* a, float* g, int* sweeps, float* ga
   return (int)e;
 }
 
-// How many clusters of `cluster` CTAs of `threads` threads of the cluster
-// path the card holds at once for an (n, width) panel
-// (cudaOccupancyMaxActiveClusters), into *out; 0 means it cannot schedule
-// one.  Returns a cudaError_t.
-extern "C" int jacobi_sweep_c32_clusters(int n, int width, int cluster, int threads, int* out) {
-  if (!valid(n, width, cluster, threads) || cluster == 0) return (int)cudaErrorInvalidValue;
+// How many clusters of `cluster` CTAs of the cluster path the card holds at
+// once for an (n, width) panel (cudaOccupancyMaxActiveClusters), into *out;
+// 0 means it cannot schedule one.  Returns a cudaError_t.
+extern "C" int jacobi_sweep_c32_clusters(int n, int width, int cluster, int* out) {
+  if (!valid(n, width, cluster) || cluster == 0) return (int)cudaErrorInvalidValue;
   const int hw4 = width / 8;
-  if (threads == 1024) return (int)active_threads<1024>(n, hw4, cluster, out);
-  return (int)active_threads<512>(n, hw4, cluster, out);
+  switch (cluster) {
+    case 1: return (int)active_clusters<1>(n, hw4, out);
+    case 2: return (int)active_clusters<2>(n, hw4, out);
+    case 3: return (int)active_clusters<3>(n, hw4, out);
+    case 4: return (int)active_clusters<4>(n, hw4, out);
+    case 8: return (int)active_clusters<8>(n, hw4, out);
+    default: return (int)active_clusters<16>(n, hw4, out);
+  }
 }

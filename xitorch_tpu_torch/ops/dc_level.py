@@ -26,7 +26,7 @@ any step group on TF32, its level parts from this module's, at the levels
 where the sort amplifies rounding, by more than the level-by-level check
 allows on some of 41 random batches (all 61 on TF32: 22 fail it; the probe
 alone: 12; the first 3 cubic polar steps alone: 5; all IEEE: none;
-``PERF.md``, PRs 8 and 11).  And it runs each product only over the
+``PERF.md`` §6, row 7).  And it runs each product only over the
 k-ranges of the level's segments (:func:`band_ranges`), which gives the
 dense result on every entry the level reads.
 

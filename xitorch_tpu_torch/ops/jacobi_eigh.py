@@ -92,12 +92,11 @@ _SM_COUNT = 132
 # cluster sizes (the complex kernel's also 3: config 2's 512 KB panels on
 # clusters of 3 run in two waves where clusters of 4 take three), the
 # largest one the chooser grows to (16 CTAs is not portable and is taken
-# only where a panel needs it), the threads of a CTA, the gauge's output
-# tile and the kernels' other words
+# only where a panel needs it), the gauge's output tile and the kernels'
+# other words
 _CLUSTERS = (1, 2, 4, 8, 16)
 _CLUSTERS_COMPLEX = (1, 2, 3, 4, 8, 16)
 _CLUSTER_GROW_MAX = 8
-_CTA_THREADS = 1024
 _SWEEP_TILE = 64
 _SWEEP_MISC = 64
 
@@ -117,9 +116,9 @@ _SWEEP_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P]
 _SIGNATURES = {"jacobi_sweep_f32": _SWEEP_ARGS,
                "jacobi_sweep_f32_clusters": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]}
-_SIGNATURES_COMPLEX = {
-    "jacobi_sweep_c32": _SWEEP_ARGS[:-1] + [ctypes.c_int, _P],
-    "jacobi_sweep_c32_clusters": [ctypes.c_int] * 4 + [_P]}
+_SIGNATURES_COMPLEX = {"jacobi_sweep_c32": _SWEEP_ARGS,
+                       "jacobi_sweep_c32_clusters": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                     _P]}
 
 
 def _eps_floor(dtype) -> float:
@@ -291,13 +290,7 @@ def _pad_halves(panel: torch.Tensor, hw: int, hw4: int) -> torch.Tensor:
                       F.pad(panel[..., hw:], (0, hw4 - hw))], dim=-1)
 
 
-def _complex_tile(threads: int) -> int:
-    """The complex kernel's gauge tile edge for a CTA of ``threads``."""
-    return _SWEEP_TILE if threads >= 1024 else _SWEEP_TILE // 2
-
-
-def cluster_smem_bytes(n: int, width: int, c: int, complexpair: bool = False,
-                       threads: int = _CTA_THREADS) -> int:
+def cluster_smem_bytes(n: int, width: int, c: int, complexpair: bool = False) -> int:
     """Shared memory one CTA of a sweep kernel's cluster path takes for an
     (n, width) panel split over ``c`` CTAs.
 
@@ -309,14 +302,13 @@ def cluster_smem_bytes(n: int, width: int, c: int, complexpair: bool = False,
     in ``csrc/jacobi_sweep_complex.cu``; ``width`` the packed width
     ``[Re | Im]``): the same columns of both planes, s4 = ceil(ceil(width/8)/c)
     float4 of each, at an odd stride of 2 s4; an area that holds the gauge's
-    tile of two planes (64 x 64 at 1,024 ``threads``, 32 x 32 at 512) or the
-    partials (re, im) from every CTA (2 x c x n/2 x 2); the norms; 4
-    coefficients a pair (s, tau, the phase) and a few words: the least the
-    kernel takes (it takes a second tile buffer where that fits too)."""
+    64 x 64 tile of two planes or the partials (re, im) from every CTA
+    (2 x c x n/2 x 2); the norms; 4 coefficients a pair (s, tau, the phase)
+    and a few words: the least the kernel takes (it takes a second tile
+    buffer where that fits too)."""
     if complexpair:
         s4 = -(-(-(-(width // 2) // 4)) // c)
-        kt = _complex_tile(threads)
-        area = max(2 * kt * kt, 2 * c * n)
+        area = max(2 * _SWEEP_TILE ** 2, 2 * c * n)
         return n * ((2 * s4) | 1) * 16 + (area + 3 * n + _SWEEP_MISC) * 4
     s4 = -(-(-(-width // 4)) // c)
     area = max(2 * _SWEEP_TILE ** 2, c * n)
@@ -325,7 +317,7 @@ def cluster_smem_bytes(n: int, width: int, c: int, complexpair: bool = False,
 
 def sweep_cluster(B: int, n: int, width: int, sm_count: int = _SM_COUNT,
                   smem_block: int = _SMEM_BLOCK, active_clusters=None,
-                  complexpair: bool = False, threads: int = _CTA_THREADS) -> int:
+                  complexpair: bool = False) -> int:
     """How many CTAs a sweep kernel splits each matrix of a (B, n, width)
     panel over (``complexpair``: packed complex planes, each CTA holding the
     same columns of both): the smallest cluster (1, 2, 4, 8 or 16; complex
@@ -339,7 +331,7 @@ def sweep_cluster(B: int, n: int, width: int, sm_count: int = _SM_COUNT,
     test can ask it."""
     sizes = _CLUSTERS_COMPLEX if complexpair else _CLUSTERS
     fit = [c for c in sizes
-           if cluster_smem_bytes(n, width, c, complexpair, threads) <= smem_block]
+           if cluster_smem_bytes(n, width, c, complexpair) <= smem_block]
     if not fit:
         return 0
     w4 = -(-(width // 2) // 4) if complexpair else -(-width // 4)
@@ -363,27 +355,24 @@ def _card_limits(device) -> Tuple[int, int]:
 _ACTIVE_CLUSTERS = {}
 
 
-def _active_clusters(lib, device, n: int, width: int, c: int, complexpair: bool = False,
-                     threads: int = _CTA_THREADS) -> int:
+def _active_clusters(lib, device, n: int, width: int, c: int,
+                     complexpair: bool = False) -> int:
     """The card's occupancy query: how many clusters of ``c`` CTAs of a
-    sweep kernel (the complex one with ``complexpair``, its CTAs of
-    ``threads``) it holds at once for an (n, width) panel (cached)."""
-    key = (device.index, n, width, c, complexpair, threads)
+    sweep kernel (the complex one with ``complexpair``) it holds at once
+    for an (n, width) panel (cached)."""
+    key = (device.index, n, width, c, complexpair)
     if key not in _ACTIVE_CLUSTERS:
         out = ctypes.c_int(0)
-        if complexpair:
-            rc = lib.jacobi_sweep_c32_clusters(n, width, c, threads, ctypes.addressof(out))
-        else:
-            rc = lib.jacobi_sweep_f32_clusters(n, width, c, ctypes.addressof(out))
-        _build.check(rc, "jacobi_sweep_cuda: cluster occupancy query")
+        query = lib.jacobi_sweep_c32_clusters if complexpair else lib.jacobi_sweep_f32_clusters
+        _build.check(query(n, width, c, ctypes.addressof(out)),
+                     "jacobi_sweep_cuda: cluster occupancy query")
         _ACTIVE_CLUSTERS[key] = out.value
     return _ACTIVE_CLUSTERS[key]
 
 
 def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
                       return_stats: bool = False, complexpair: bool = False,
-                      smem_limit: Optional[int] = None,
-                      design: Optional[Tuple[int, int]] = None):
+                      smem_limit: Optional[int] = None, cluster: Optional[int] = None):
     """Launch a sweep kernel on a contiguous float32 CUDA panel
     (B, n, width) inside the window of :func:`fits_jacobi_sweep`: the real
     kernel (``csrc/jacobi_sweep.cu``), or with ``complexpair`` the complex
@@ -399,10 +388,10 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
     memory (``smem_limit`` bytes a block where given; 0 forces the
     device-memory path) and its occupancy query, and is recorded in
     ``jacobi_sweep_cuda.last_cluster``: the cluster's CTAs a matrix, 0 for
-    the device-memory path.  ``design = (C, threads)`` (complex panels
-    only) forces clusters of C CTAs of 1,024 or 512 threads, to measure one
-    design against another.  A cluster the card cannot schedule, or a
-    launch it refuses, raises: nothing falls back to another path."""
+    the device-memory path.  ``cluster`` (complex panels only) forces
+    clusters of that many CTAs, to measure one design against another.  A
+    cluster the card cannot schedule, or a launch it refuses, raises:
+    nothing falls back to another path."""
     _check_panel(panel, "jacobi_sweep_cuda", complexpair)
     if not panel.is_cuda or panel.dtype != torch.float32 or not panel.is_contiguous():
         raise RuntimeError("jacobi_sweep_cuda: expected a contiguous float32 CUDA "
@@ -413,8 +402,8 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
             "jacobi_sweep_cuda: a (%d, %d, %d) panel is outside the kernel's "
             "window (1 <= B, n even <= %d, width <= %d%s)"
             % (B, n, width, _N_MAX, _W_MAX, ", even" if complexpair else ""))
-    if design is not None and not complexpair:
-        raise RuntimeError("jacobi_sweep_cuda: design is taken for complex panels only")
+    if cluster is not None and not complexpair:
+        raise RuntimeError("jacobi_sweep_cuda: cluster is taken for complex panels only")
     # the kernels read rows (each half of a packed row) as float4: zero
     # columns change no dot product
     if complexpair:
@@ -443,27 +432,23 @@ def jacobi_sweep_cuda(panel: torch.Tensor, max_sweeps: int, tol: float,
             smem = min(smem, int(smem_limit))
         wa = a.shape[-1]
         dev = torch.device("cuda", torch.cuda.current_device())
-        c, threads = design if design is not None else (None, _CTA_THREADS)
+        c = cluster
         if c is None:
             c = sweep_cluster(B, n, wa, sms, smem,
-                              lambda cc: _active_clusters(lib, dev, n, wa, cc, complexpair,
-                                                          threads),
-                              complexpair, threads)
-        elif c not in _CLUSTERS_COMPLEX or threads not in (512, 1024) \
-                or cluster_smem_bytes(n, wa, c, True, threads) > smem:
+                              lambda cc: _active_clusters(lib, dev, n, wa, cc, complexpair),
+                              complexpair)
+        elif c not in _CLUSTERS_COMPLEX or cluster_smem_bytes(n, wa, c, True) > smem:
             raise RuntimeError(
-                "jacobi_sweep_cuda: design %r does not hold a (%d, %d) panel in %d bytes "
-                "a block" % (design, n, wa, smem))
-        if c and _active_clusters(lib, dev, n, wa, c, complexpair, threads) < 1:
+                "jacobi_sweep_cuda: a cluster of %r CTAs does not hold a (%d, %d) panel "
+                "in %d bytes a block" % (cluster, n, wa, smem))
+        if c and _active_clusters(lib, dev, n, wa, c, complexpair) < 1:
             raise RuntimeError(
                 "jacobi_sweep_cuda: the card cannot schedule a cluster of %d "
                 "CTAs with %d bytes of shared memory each for a (%d, %d) panel"
-                % (c, cluster_smem_bytes(n, wa, c, complexpair, threads), n, wa))
+                % (c, cluster_smem_bytes(n, wa, c, complexpair), n, wa))
         jacobi_sweep_cuda.last_cluster = c
-        if complexpair:
-            rc = lib.jacobi_sweep_c32(*args, c, threads, stream)
-        else:
-            rc = lib.jacobi_sweep_f32(*args, c, stream)
+        entry = lib.jacobi_sweep_c32 if complexpair else lib.jacobi_sweep_f32
+        rc = entry(*args, c, stream)
     _build.check(rc, "jacobi_sweep_cuda")
     if complexpair:
         jacobi_sweep_cuda.launches_complex += 1
