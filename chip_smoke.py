@@ -47,7 +47,10 @@ paths give it, and drives these configurations through the public API:
   32 and n = 64 to 512, with the gate's choice;
 * dense operators (path A): the fused dense CG kernel against its plain
   version at (64, 700, 700) with 50 right-hand sides and at the nine points
-  of the upstream solve benchmark's grid that go through it, then that grid (hermitian or not, four
+  of the upstream solve benchmark's grid that go through it, each with its
+  design (clusters, columns a CTA, waves), timed in turns beside its
+  device-memory path and, at the batched shape, against Cholesky over four
+  eigenvalue ranges; then that grid (hermitian or not, four
   eigenvalue ranges, n = 100, 350, 700, 50 right-hand sides, float32)
   through ``linalg.solve`` by fused_cg, cg, cg_ir, bicgstab, gmres and the
   default routing (the non-hermitian float32 points held to the residual
@@ -159,6 +162,8 @@ GRID_RANGES = ((-1.0, 1.0), (0.0, 1.0), (0.2, 1.0), (0.5, 1.0))
 GRID_NCOLS, GRID_SEED, GRID_MINABS = 50, 12, 0.1
 GRID_RTOL, GRID_ATOL = 1e-5, 1e-7
 DENSE_BATCH, DENSE_N, DENSE_RANGE = 64, 700, (0.2, 1.0)
+# cluster sizes the fused CG kernel is also timed on at the grid point
+GRID_CLUSTERS = (7, 10, 13, 16)
 # the fused kernel stops on the recurrence residual; the measured residual
 # differs from it by the rounding of the steps taken (about
 # steps * eps * |A| |x|, a few percent of the stop at these shapes)
@@ -1663,14 +1668,15 @@ def random_square_matrix(np, n, is_hermitian, lo, hi, minabs=GRID_MINABS, seed=G
     return np.linalg.solve(a, eivals[:, None] * a)
 
 
-def dense_batch(torch, np, device):
+def dense_batch(torch, np, device, lo=DENSE_RANGE[0]):
     """The batched dense point: 64 hermitian matrices of the benchmark's
-    recipe (eigenvalues ``linspace(0.2, 1, 700)``), the normals drawn with
-    numpy and the float64 QR and products done on the card, then cast."""
+    recipe (eigenvalues ``linspace(0.2, 1, 700)``, or from ``lo``), the
+    normals drawn with numpy and the float64 QR and products done on the
+    card, then cast."""
     rng = np.random.default_rng(GRID_SEED)
     g = torch.as_tensor(rng.standard_normal((DENSE_BATCH, DENSE_N, DENSE_N)), device=device)
     q = torch.linalg.qr(g)[0]
-    ev = torch.linspace(*DENSE_RANGE, DENSE_N, dtype=torch.float64, device=device)
+    ev = torch.linspace(lo, DENSE_RANGE[1], DENSE_N, dtype=torch.float64, device=device)
     mats = (q * ev) @ q.mT
     mats = ((mats + mats.mT) * 0.5).float().contiguous()
     B = torch.as_tensor(rng.standard_normal((DENSE_BATCH, DENSE_N, GRID_NCOLS)),
@@ -1689,17 +1695,39 @@ def resid_over_stop(torch, A, x, B, rtol=GRID_RTOL, atol=GRID_ATOL):
     return float((r / stop).max())
 
 
+def design_text(d, waves):
+    if not d.cluster:
+        return "the device-memory path: blocks of %d columns" % d.cols
+    return ("clusters of %d CTAs, up to %d columns a CTA, stop groups of %d columns, %d "
+            "column groups x %d halves of k (bands of %d rows), %d stages, r and x %s, %d "
+            "wave(s)" % (d.cluster, d.cols, d.group, d.cgroups, d.khalves,
+                         64 // (d.cgroups * d.khalves), d.stages,
+               "on chip" if d.rx else "in the scratch", waves))
+
+
+def fused_cg_flops(d, it, nc, n):
+    """2 n^2 operations a column and step, for the steps each stop group
+    took (every column of a group runs its group's steps)."""
+    widths = [sum(g) for g in d.cta_columns(nc)]
+    return sum(float(it[:, j].sum()) * w for j, w in enumerate(widths)) * 2.0 * n * n
+
+
 def fused_cg_kernel_phase(torch, np, xt, device, card):
-    """The fused dense CG kernel against its plain version (same per-group
-    stop rule) at the batched point and at every point of the grid that
-    path A sends through it, and its time beside its bound and the PyTorch
-    calls for the same function (``library_ms``: the faster of the two).
-    Returns the kernel's record and the batched point's tensors."""
-    from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_plain, group_size
+    """The fused dense CG kernel against its plain version (the same stop
+    groups: the reference's joint rule where one cluster holds a system's
+    columns) at the batched point and at every point of the grid that path
+    A sends through it, each with its design; the device-memory path
+    (forced, the design the cluster path replaced) timed in turns with the chosen one at the
+    batched point and at a grid point; the kernel against Cholesky +
+    ``cholesky_solve`` at the batched shape over four eigenvalue ranges; and
+    its time beside its bound and the PyTorch calls for the same function
+    (``library_ms``: the faster of the two).  Returns the kernel's record and
+    the batched point's tensors."""
+    from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_plain
 
     mats, B, w = dense_batch(torch, np, device)
     # every shape path A hands the kernel: the batched point, and the grid's
-    # hermitian points with lo >= 0 (one matrix a call, one column a block)
+    # hermitian points with lo >= 0 (one matrix a call)
     points = [("batched", mats, B)]
     rng = np.random.default_rng(0)
     for lo, hi in GRID_RANGES:
@@ -1713,37 +1741,43 @@ def fused_cg_kernel_phase(torch, np, xt, device, card):
     results = {}
     for name, A3, B3 in points:
         nb, n, nc = B3.shape
-        group = group_size(nb, n, nc, torch.float32)
-        kw = dict(rtol=GRID_RTOL, atol=GRID_ATOL, max_niter=int(1.5 * n), group=group)
+        kw = dict(rtol=GRID_RTOL, atol=GRID_ATOL, max_niter=int(1.5 * n))
         a_idx = torch.arange(nb, device=device)
         xk, itk = fused_cg_cuda(A3, a_idx, B3, **kw)
-        xp, itp = fused_cg_plain(A3, B3, **kw)
+        d, waves = fused_cg_cuda.last_design, fused_cg_cuda.last_waves
+        xp, itp = fused_cg_plain(A3, B3, group=None if d.group >= nc else d.group, **kw)
         torch.cuda.synchronize()
         rel = float((xk - xp).abs().max() / xp.abs().max())
         dsteps = int((itk - itp).abs().max())
         rk, rp = resid_over_stop(torch, A3, xk, B3), resid_over_stop(torch, A3, xp, B3)
-        print("fused_cg kernel vs plain, %s (%d, %d, %d, nc %d), %d columns a block, %d "
-              "blocks: max |x_k - x_p| / max |x| %.2e, steps %d..%d (max |diff| %d), measured "
-              "|Ax-b| / max(rtol |b|, atol) kernel %.3f, plain %.3f"
-              % (name, nb, n, n, nc, group, itk.numel(), rel, int(itk.min()), int(itk.max()),
-                 dsteps, rk, rp))
+        print("fused_cg kernel vs plain, %s (%d, %d, %d, nc %d), %s: max |x_k - x_p| / max "
+              "|x| %.2e, steps %d..%d (max |diff| %d), measured |Ax-b| / max(rtol |b|, atol) "
+              "kernel %.3f, plain %.3f"
+              % (name, nb, n, n, nc, design_text(d, waves), rel, int(itk.min()),
+                 int(itk.max()), dsteps, rk, rp))
         check(bool(torch.isfinite(xk).all()), "fused_cg kernel returned non-finite values")
-        # sums in another order (warp tree vs cuBLAS), so the iterates drift
-        # apart by a few ulps a step
+        # sums in another order (shuffles and warps vs cuBLAS), so the
+        # iterates drift apart by a few ulps a step
         check(rel <= 1e-4, "fused_cg kernel disagrees with plain at %s: %.3e" % (name, rel))
         check(dsteps <= 2, "fused_cg step counts differ by %d at %s" % (dsteps, name))
         check(max(rk, rp) <= RESID_DRIFT, "fused_cg measured residual above the stop at %s: "
               "kernel %.3f, plain %.3f" % (name, rk, rp))
-        results[name] = (A3, a_idx, B3, kw, itk, float((xk - xp).abs().max()))
+        check(d.cluster >= 1, "fused_cg took the device-memory path at %s" % name)
+        results[name] = (A3, a_idx, B3, kw, itk, float((xk - xp).abs().max()), d)
     # timed below: the widest range at the middle size
     n_mid = GRID_SIZES[len(GRID_SIZES) // 2]
     results["grid"] = results["grid (0, 1) n=%d" % n_mid]
 
-    A3, a_idx, B3, kw, itk, _ = results["batched"]
+    A3, a_idx, B3, kw, itk, _, d = results["batched"]
     abs_err = max(r[5] for r in results.values())
     nb, n, nc = B3.shape
-    group = kw["group"]
-    k_ms = timed_ms(torch, lambda: fused_cg_cuda(A3, a_idx, B3, **kw), reps=3, inner=3)
+    # the chosen design and the device-memory path, in turns
+    turns = {"new": [], "dm": []}
+    for which in ("new", "dm", "dm", "new"):
+        turns[which].append(timed_ms(
+            torch, lambda: fused_cg_cuda(A3, a_idx, B3, cluster=0 if which == "dm" else None,
+                                         **kw), reps=3, inner=3))
+    k_ms, dm_ms = statistics.median(turns["new"]), statistics.median(turns["dm"])
     plain_ms = timed_ms(torch, lambda: fused_cg_plain(A3, B3, **kw), reps=3, inner=1)
     solve_ms = timed_ms(torch, lambda: torch.linalg.solve(A3, B3), reps=3, inner=1)
     chol_ms = timed_ms(torch, lambda: torch.cholesky_solve(B3, torch.linalg.cholesky(A3)),
@@ -1751,32 +1785,79 @@ def fused_cg_kernel_phase(torch, np, xt, device, card):
     A_op = xt.LinearOperator.m(A3, is_hermitian=True)
     cg_ms = timed_ms(torch, lambda: xt.linalg.solve(A_op, B3, method="cg", rtol=GRID_RTOL,
                                                     atol=GRID_ATOL), reps=3, inner=1)
-    g1, a1, b1, kw1 = results["grid"][0], results["grid"][1], results["grid"][2], \
-        results["grid"][3]
-    grid_ms = timed_ms(torch, lambda: fused_cg_cuda(g1, a1, b1, **kw1), reps=3, inner=3)
+    g1, a1, b1, kw1 = results["grid"][:4]
+    gturns = {"new": [], "dm": []}
+    for which in ("new", "dm", "dm", "new"):
+        gturns[which].append(timed_ms(
+            torch, lambda: fused_cg_cuda(g1, a1, b1, cluster=0 if which == "dm" else None,
+                                         **kw1), reps=3, inner=3))
+    grid_ms, grid_dm_ms = statistics.median(gturns["new"]), statistics.median(gturns["dm"])
     grid_lib_ms = timed_ms(torch, lambda: torch.linalg.solve(g1, b1), reps=3, inner=3)
+    # the grid point on other cluster sizes (the chooser's columns-a-CTA rule)
+    grid_sizes = {}
+    for c in GRID_CLUSTERS:
+        grid_sizes[c] = timed_ms(torch, lambda: fused_cg_cuda(g1, a1, b1, cluster=c, **kw1),
+                                 reps=3, inner=3)
+        grid_sizes[c] = (grid_sizes[c], fused_cg_cuda.last_design.cols)
     # the bound on this run's data: every matrix and B read once, x written
-    # once; 2 n^2 operations a column and step, for the steps each block took
-    cols = torch.full((itk.shape[1],), group, device=device)
-    cols[-1] = nc - group * (itk.shape[1] - 1)
-    flops = float((itk * cols).sum()) * 2.0 * n * n
+    # once; 2 n^2 operations a column and step, for the steps each stop
+    # group took
+    flops = fused_cg_flops(d, itk, nc, n)
     k_bound, k_by = bound((nb * n * n + 2 * nb * n * nc) * 4, flops)
     print("timing, fused dense CG [%s], CUDA events after warm-up (median):" % card)
-    print("  fused_cg kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s: %.1f GFLOP over the "
-          "steps taken, %.1f MB); torch.linalg.solve %.3f ms, torch.linalg.cholesky + "
-          "cholesky_solve %.3f ms, the port's cg (Python loop) %.3f ms (%d x %d x %d, nc "
-          "%d, %d columns a block) [%s]"
-          % (k_ms, plain_ms, k_bound, k_by, flops / 1e9,
+    print("  fused_cg kernel %.3f ms (%s), the device-memory path %.3f ms, in turns (new %s, "
+          "device memory %s); "
+          "plain %.3f ms, bound %.4f ms (%s: %.1f GFLOP over the steps taken, %.1f MB); "
+          "torch.linalg.solve %.3f ms, torch.linalg.cholesky + cholesky_solve %.3f ms, the "
+          "port's cg (Python loop) %.3f ms (%d x %d x %d, nc %d) [%s]"
+          % (k_ms, design_text(d, 1), dm_ms, ["%.3f" % t for t in turns["new"]],
+             ["%.3f" % t for t in turns["dm"]], plain_ms, k_bound, k_by, flops / 1e9,
              (nb * n * n + 2 * nb * n * nc) * 4 / 1e6, solve_ms, chol_ms, cg_ms, nb, n, n,
-             nc, group, card))
-    print("  at the grid point (1 x %d x %d, nc %d, %d blocks): kernel %.3f ms, "
-          "torch.linalg.solve %.3f ms [%s]"
-          % (n_mid, n_mid, nc, results["grid"][4].numel(), grid_ms, grid_lib_ms, card))
+             nc, card))
+    print("  at the grid point (1 x %d x %d, nc %d, %s): kernel %.3f ms, the device-memory "
+          "path %.3f ms, in turns (new %s, device memory %s); torch.linalg.solve %.3f ms; on "
+          "clusters of %s "
+          "[%s]"
+          % (n_mid, n_mid, nc, design_text(results["grid"][6], 1), grid_ms, grid_dm_ms,
+             ["%.3f" % t for t in gturns["new"]], ["%.3f" % t for t in gturns["dm"]],
+             grid_lib_ms, ", ".join("%d CTAs (%d columns a CTA) %.3f ms" % (c, g, t)
+                                     for c, (t, g) in grid_sizes.items()), card))
+    check(grid_ms <= 1.05 * grid_dm_ms, "fused_cg: the new design (%.3f ms) is more than 5%% "
+          "slower than the device-memory path (%.3f ms) at the grid point"
+          % (grid_ms, grid_dm_ms))
+    check(k_ms < dm_ms, "fused_cg: the new design (%.3f ms) is not faster than the "
+          "device-memory path (%.3f ms) at the batched point" % (k_ms, dm_ms))
+    # where the kernel's lead over a direct solve ends: the batched shape
+    # over harder eigenvalue ranges (one timed call a side and range)
+    ranges = []
+    for lo in (0.2, 0.05, 0.01, 0.001):
+        Ar, Br = mats, B
+        if lo != DENSE_RANGE[0]:
+            Ar, Br, _ = dense_batch(torch, np, device, lo=lo)
+        xr, itr = fused_cg_cuda(Ar, a_idx, Br, **kw)
+        rk = resid_over_stop(torch, Ar, xr, Br)
+        kr = timed_ms(torch, lambda: fused_cg_cuda(Ar, a_idx, Br, **kw), reps=1, inner=1)
+        cr = timed_ms(torch, lambda: torch.cholesky_solve(Br, torch.linalg.cholesky(Ar)),
+                      reps=1, inner=1)
+        ranges.append({"range": [lo, 1.0], "kernel_ms": kr, "cholesky_solve_ms": cr,
+                       "steps_max": int(itr.max()), "resid_over_stop": rk})
+        print("  range (%g, 1): kernel %.3f ms (%d steps, measured residual %.3f of the "
+              "stop), Cholesky + cholesky_solve %.3f ms [%s]"
+              % (lo, kr, int(itr.max()), rk, cr, card))
+        # float32 CG's recurrence residual parts from the measured one as the
+        # condition number grows (about eps * kappa); past the main path's
+        # range the residual is reported, not held
+        check(bool(torch.isfinite(xr).all()), "fused_cg returned non-finite values at range "
+              "(%g, 1)" % lo)
     print(json.dumps({"phase": "fused_cg_kernel", "card": card, "shape": [nb, n, n, nc],
-                      "group": group, "kernel_ms": k_ms, "plain_ms": plain_ms,
-                      "bound_ms": k_bound, "bound_by": k_by, "linalg_solve_ms": solve_ms,
-                      "cholesky_solve_ms": chol_ms, "port_cg_ms": cg_ms,
-                      "grid_point_kernel_ms": grid_ms, "grid_point_linalg_solve_ms": grid_lib_ms,
+                      "design": list(d), "kernel_ms": k_ms, "device_memory_design_ms": dm_ms,
+                      "plain_ms": plain_ms, "bound_ms": k_bound, "bound_by": k_by,
+                      "linalg_solve_ms": solve_ms, "cholesky_solve_ms": chol_ms,
+                      "port_cg_ms": cg_ms, "grid_point_kernel_ms": grid_ms,
+                      "grid_point_device_memory_design_ms": grid_dm_ms,
+                      "grid_point_linalg_solve_ms": grid_lib_ms,
+                      "grid_point_cluster_ms": {str(c): t for c, (t, _) in grid_sizes.items()},
+                      "ranges": ranges,
                       "steps_min": int(itk.min()), "steps_max": int(itk.max())}))
     record = {"name": "fused_cg", "route": "cuda",
               "source": "xitorch_tpu_torch/csrc/fused_cg.cu",

@@ -4,9 +4,12 @@
 take) and ``xitorch_tpu.ops.fused_cg.fused_cg_dense(..., interpret=True)``
 run the same float32 loop with the same joint stop rule on the same inputs:
 they agree to 1e-5 of max |x| (sums in another order; a rounding may move
-the last step).  The per-group stop rule of the CUDA kernel is held here
-against the joint one: same solution to the solve's tolerance, each group's
-step count at most the joint count.
+the last step).  The per-group stop rule (the CUDA kernel's where a system's
+columns span several stop groups) is held here against the joint one: same
+solution to the solve's tolerance, each group's step count at most the
+joint count.  The design chooser of the CUDA kernel is held at the main
+paths' shapes on a stated card (132 SMs, 232,448 bytes a block, one CTA an
+SM), with the shared memory of its designs counted by hand.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,8 @@ import torch
 import xitorch_tpu_torch as xt
 from xitorch_tpu.ops.fused_cg import fused_cg_dense as jfused
 from xitorch_tpu_torch.ops.fused_cg import (
-    fits_fused_cg, fused_cg_cuda, fused_cg_dense, fused_cg_plain, group_size,
+    CGDesign, choose_design, cluster_smem_bytes, fits_fused_cg, fused_cg_cuda, fused_cg_dense,
+    fused_cg_plain, lda_for, ring_plan,
 )
 
 torch.set_num_threads(1)
@@ -139,16 +143,107 @@ def test_fits_fused_cg_window_of_this_card():
     assert not fits_fused_cg(0, 1, torch.float32) and not fits_fused_cg(8, 0, torch.float32)
 
 
+_SMS, _SMEM = 132, 232448
+
+
 @pytest.mark.parametrize("nb, n, nc, dtype, want", [
-    (64, 700, 50, torch.float32, 8),    # 448 blocks fill the card at 8 columns a block
-    (1, 350, 50, torch.float32, 1),     # one system: a block a column, 50 blocks
-    (64, 700, 5, torch.float32, 2),     # 64 * 3 = 192 blocks
-    (512, 64, 1, torch.float32, 1),     # a single column
-    (512, 3000, 50, torch.float32, 4),  # 8 columns of n = 3000 do not fit shared memory
-    (512, 3000, 50, torch.float64, 2),
+    # the batched point: one cluster of 2 CTAs (25 columns each) a system,
+    # 128 CTAs in one wave; 4 column groups (7 or 6 columns a warp) x 2
+    # halves of k, bands of 8 rows, three stages, r and x in the scratch
+    (64, 700, 50, torch.float32, CGDesign(2, 25, 50, 4, 2, 3, 0, 700)),
+    # the grid (one system): 13 CTAs of 4 or 3 columns, r and x on chip
+    (1, 350, 50, torch.float32, CGDesign(13, 4, 50, 1, 1, 2, 1, 350)),
+    (1, 100, 50, torch.float32, CGDesign(13, 4, 50, 1, 1, 2, 1, 100)),
+    (1, 700, 50, torch.float32, CGDesign(13, 4, 50, 1, 2, 2, 1, 700)),
+    (64, 700, 5, torch.float32, CGDesign(2, 3, 5, 1, 2, 2, 1, 700)),
+    # one column: a CTA a system, no multicast, one stage holds all of A
+    (512, 64, 1, torch.float32, CGDesign(1, 1, 1, 1, 1, 1, 1, 64)),
+    # more columns than 16 CTAs of 32 hold: two super-groups of 300
+    (8, 700, 600, torch.float32, CGDesign(16, 19, 300, 4, 1, 2, 0, 700)),
+    (64, 700, 50, torch.float64, CGDesign(10, 5, 50, 4, 2, 2, 1, 700)),
+    # an odd n reads rows padded to 16 bytes
+    (2, 97, 5, torch.float64, CGDesign(2, 3, 5, 1, 1, 2, 1, 98)),
+    # past the cluster path's window: the device-memory path
+    (512, 3000, 50, torch.float64, CGDesign(0, 2, 2)),
+    (1, 4000, 3, torch.float32, CGDesign(0, 1, 1)),
 ])
-def test_group_size(nb, n, nc, dtype, want):
-    assert group_size(nb, n, nc, dtype) == want
+def test_choose_design(nb, n, nc, dtype, want):
+    d = choose_design(nb, n, nc, dtype, _SMS, _SMEM)
+    assert d == want
+    if d.cluster:
+        # the same pick from the occupancy query's answer
+        assert choose_design(nb, n, nc, dtype, _SMS, _SMEM, lambda dd: _SMS // dd.cluster) == d
+
+
+@pytest.mark.parametrize("nb, n, nc, dtype", [
+    (64, 700, 50, torch.float32), (1, 350, 50, torch.float32), (5, 130, 11, torch.float32),
+    (8, 700, 600, torch.float32), (64, 700, 50, torch.float64), (3, 40, 7, torch.float32),
+])
+def test_no_padded_column_is_multiplied(nb, n, nc, dtype):
+    d = choose_design(nb, n, nc, dtype, _SMS, _SMEM)
+    split = d.cta_columns(nc)
+    assert len(split) == d.groups(nc)
+    # every column once, no CTA over its instantiated width, and within a
+    # super-group the CTAs differ by at most one column
+    assert sum(map(sum, split)) == nc
+    assert max(map(max, split)) == d.cols
+    assert all(max(g) - min(g) <= 1 for g in split)
+
+
+def test_cluster_smem_bytes_by_hand():
+    # the batched point: header 80 + 256 + 1024 + 16; the warps' p.q parts
+    # and the sums the k halves exchange, 512 + 1024; P and A P 2 x 25 x 700;
+    # three bands of 8 rows (4 column groups x 2 halves of k) of 700; float32
+    assert cluster_smem_bytes(700, 700, 25, 4, 2, 3, 0, 4) == \
+        1376 + 4 * (1536 + 2 * 25 * 700 + 3 * 8 * 700) == 214720
+    # r and x on chip (rx), rows padded: n = 97 float64, np = 98, one
+    # column group on all of k, bands of 64 rows
+    assert cluster_smem_bytes(97, 98, 5, 1, 1, 2, 1, 8) == \
+        1376 + 8 * (1536 + 4 * 5 * 98 + 2 * 64 * 98)
+    assert lda_for(350, 4) == 350 and lda_for(33, 4) == 36 and lda_for(33, 8) == 34
+
+
+def test_ring_plan_window():
+    # one column: 4 column groups x 2 halves of k (bands of 8 rows), two
+    # stages, r and x in the scratch: the largest n of the cluster path
+    assert ring_plan(3124, 1, 4) == (4, 2, 2, 0) and ring_plan(3125, 1, 4) is None
+    assert ring_plan(1518, 1, 8) == (4, 2, 2, 0) and ring_plan(1519, 1, 8) is None
+    assert choose_design(4, 3124, 2, torch.float32, _SMS).cluster >= 1
+    assert choose_design(4, 3125, 2, torch.float32, _SMS).cluster == 0
+    # a smaller block splits k (bands of 32 rows) before it moves r and x off
+    # chip
+    assert ring_plan(350, 4, 4) == (1, 1, 2, 1)
+    assert ring_plan(350, 4, 4, smem_block=120000) == (1, 2, 2, 1)
+
+
+@pytest.mark.parametrize("case", ["scales", "zero", "easy_and_hard"])
+def test_joint_rule_of_the_plain_twin_against_jax(case):
+    # the rule the kernel applies where one cluster holds all the columns:
+    # every column keeps running until the slowest stops, as in the
+    # reference, so each column agrees with the JAX kernel (interpret mode)
+    # to 1e-5 of its own largest entry, the small columns included
+    rng = np.random.default_rng(7)
+    n = 40
+    q, _ = np.linalg.qr(rng.standard_normal((2, n, n)))
+    ev = np.linspace(0.01 if case == "easy_and_hard" else 0.2, 1.0, n)
+    a = ((q * ev) @ np.swapaxes(q, -1, -2)).astype(np.float32)
+    a = (a + np.swapaxes(a, -1, -2)) / 2
+    b = rng.standard_normal((2, n, 6)).astype(np.float32)
+    if case == "scales":
+        b *= np.float32(10.0) ** np.arange(-3, 3, dtype=np.float32)
+    elif case == "zero":
+        b[:, :, 2] = 0.0
+    else:
+        b[:, :, :3] = np.swapaxes(q[:, :, -3:], -1, -2).transpose(0, 2, 1)  # eigenvectors
+    kw = dict(rtol=1e-6, atol=1e-8, max_niter=60)
+    x, it = fused_cg_plain(torch.as_tensor(a), torch.as_tensor(b), **kw)
+    xj = np.asarray(jfused(jnp.asarray(a), jnp.asarray(b), interpret=True, **kw))
+    scale = np.abs(xj).max(axis=-2, keepdims=True)
+    assert np.all(np.abs(x.numpy() - xj) <= 1e-5 * np.maximum(scale, 1e-30))
+    assert tuple(it.shape) == (2, 1)
+    # one group of all the columns: the steps of the slowest column
+    _, itg = fused_cg_plain(torch.as_tensor(a), torch.as_tensor(b), group=1, **kw)
+    assert bool((it[:, 0] == itg.amax(-1)).all())
 
 
 def test_dispatcher_rejects_what_the_kernel_does_not_take():

@@ -14,8 +14,9 @@ Thomas, the real Jacobi sweep kernel on every cluster size its chooser
 picks and on its device-memory path, the complex one likewise and on
 forced cluster sizes, the divide-and-conquer kernel with its exports, the per-level
 divide-and-conquer kernel one level at a time, the sweep gate by batch, and
-the fused dense CG kernel over odd sizes, every group size, float64 and a
-broadcast A.)
+the fused dense CG kernel's cluster path and device-memory path over odd
+sizes (n % 4 != 0, n = 1, 33), forced cluster sizes, super-groups, float64
+and a broadcast A.)
 """
 import importlib.util
 import os
@@ -28,9 +29,7 @@ import xitorch_tpu_torch as xt
 from xitorch_tpu_torch.ops import (
     structured_cg_cuda, structured_cg_plain, thomas_cuda, thomas_plain,
 )
-from xitorch_tpu_torch.ops.fused_cg import (
-    fused_cg_cuda, fused_cg_dense, fused_cg_plain, group_size,
-)
+from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_dense, fused_cg_plain
 from xitorch_tpu_torch.ops.dc_kernel import (
     dc_precondition, dc_precondition_cuda, dc_precondition_plain,
 )
@@ -690,28 +689,44 @@ def _spd_batch(nb, n, nc, dtype, device, seed=0, lo=0.2):
             torch.tensor(b, dtype=dtype, device=device))
 
 
+def _twin_group(nc):
+    # the stop groups of the launch just made: None where one group (one
+    # cluster) holds all of a system's columns, the reference's joint rule
+    d = fused_cg_cuda.last_design
+    return None if d.group >= nc else d.group
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, rtol, xtol", [(torch.float32, 1e-6, 1e-4),
                                                (torch.float64, 1e-12, 1e-10)])
-@pytest.mark.parametrize("nb, n, nc, group", [
-    (3, 33, 1, None), (2, 97, 5, None), (5, 130, 11, 8), (2, 700, 13, 4), (40, 64, 9, 2),
-    (1, 257, 3, 1),
+@pytest.mark.parametrize("nb, n, nc, cluster", [
+    (3, 33, 1, None), (2, 97, 5, None), (5, 130, 11, None), (2, 700, 13, None),
+    (40, 64, 9, None), (1, 257, 3, None),
+    (2, 1, 3, None),        # n = 1: one row, padded to 16 bytes
+    (1, 350, 50, None),     # the grid: n % 4 == 2, 7 CTAs of 8 / 7 columns
+    (4, 300, 600, None),    # more columns than a cluster holds: super-groups
+    (2, 200, 13, 3), (1, 350, 50, 16), (3, 120, 5, 1),   # forced cluster sizes
+    (2, 130, 11, 0),        # forced device-memory path
+    (1, 3500, 2, None),     # past the cluster path's window: the device-memory path
 ])
-def test_fused_cg_kernel_matches_plain(cuda, dtype, rtol, xtol, nb, n, nc, group):
+def test_fused_cg_kernel_matches_plain(cuda, dtype, rtol, xtol, nb, n, nc, cluster):
     A, B = _spd_batch(nb, n, nc, dtype, cuda, seed=n)
     B[0, :, 0] = 0.0  # a zero column: stop = atol, r.r = 0, x = 0 at once
-    if group is None:
-        group = group_size(nb, n, nc, dtype)
-    kw = dict(rtol=rtol, atol=rtol * 1e-2, max_niter=int(1.5 * n), group=group)
+    kw = dict(rtol=rtol, atol=rtol * 1e-2, max_niter=int(1.5 * n))
     a_idx = torch.arange(nb, device=cuda)
-    xk, itk = fused_cg_cuda(A, a_idx, B, **kw)
-    xp, itp = fused_cg_plain(A, B, **kw)
+    xk, itk = fused_cg_cuda(A, a_idx, B, cluster=cluster, **kw)
+    d = fused_cg_cuda.last_design
+    if cluster is not None:
+        assert d.cluster == cluster
+    if n == 3500:
+        assert d.cluster == 0
+    xp, itp = fused_cg_plain(A, B, group=_twin_group(nc), **kw)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(xk).all()) and bool((xk[0, :, 0] == 0).all())
-    # sums in another order (warp tree vs PyTorch's reduction)
+    # sums in another order (shuffle and warp order vs PyTorch's reduction)
     assert float((xk - xp).abs().max() / xp.abs().max()) <= xtol
-    # a per-group stop on rounded recurrences: a step or two either way
-    assert itk.shape == itp.shape == (nb, -(-nc // group))
+    # a stop on rounded recurrences: a step or two either way
+    assert itk.shape == itp.shape == (nb, d.groups(nc))
     assert int((itk - itp).abs().max()) <= 2
     r = torch.linalg.norm(A @ xk - B, dim=-2)
     stop = torch.clamp(rtol * torch.linalg.norm(B, dim=-2), min=rtol * 1e-2)
@@ -729,7 +744,8 @@ def test_fused_cg_kernel_max_niter_and_broadcast_a(cuda):
     # a broadcast A is indexed: every system solved with the one matrix
     fused_cg_cuda.launches = 0
     x = fused_cg_dense(A[0], B, **kw)
-    xp, _ = fused_cg_plain(A.expand(6, 96, 96), B, max_niter=144, group=1, **kw)
+    xp, _ = fused_cg_plain(A.expand(6, 96, 96), B, max_niter=144, group=_twin_group(4),
+                           **kw)
     torch.cuda.synchronize()
     assert fused_cg_cuda.launches == 1
     assert float((x - xp).abs().max() / xp.abs().max()) <= 1e-4
