@@ -89,15 +89,18 @@ exits non-zero and prints no result.  Without a CUDA device it exits 2.
 only builds the kernels and measures the gate's table at those sizes (the
 gate's rows above 512 come from this), without holding the gate to it.
 
+    python3 chip_smoke.py --only solve
     python3 chip_smoke.py --only dc
     python3 chip_smoke.py --only dc_level
     python3 chip_smoke.py --only sweep
     python3 chip_smoke.py --only complex
 
-build the kernels and run only config 2's warm start phase (the
-single-shot DC kernel), only the per-level warm start's phase, only
-config 2's phase (the real sweep kernel, its path and cluster size) and
-the sweep gate's table, or only config 2's complex phase (the complex
+build the kernels and run only config 3's phase (the structured CG and
+Thomas kernels, their designs, the replaced Thomas kernel and the chain
+floor), only config 2's warm start phase (the single-shot DC kernel),
+only the per-level warm start's phase, only config 2's phase (the real
+sweep kernel, its path and cluster size) and the sweep gate's table, or
+only config 2's complex phase (the complex
 sweep kernel, its path, cluster size, waves and designs) and the sweep
 gate's table, with the same last lines: development switches for work
 on those kernels.  The default run is the full script.
@@ -224,6 +227,10 @@ def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = Tru
         end.record()
         end.synchronize()
         ts.append(start.elapsed_time(end) / inner)
+    # the eager checks of the solves timed here report now, not inside a
+    # later caller's warning capture
+    from xitorch_tpu_torch.linalg import flush_convergence_warnings
+    flush_convergence_warnings()
     return statistics.median(ts)
 
 
@@ -295,6 +302,84 @@ def level_tile_operations(torch, seg):
     from xitorch_tpu_torch.ops.dc_level import _TILE
 
     return tile_operations(torch, seg, _TILE)[:2]
+
+
+def kernel_ms(by_name: dict, part: str) -> float:
+    """Device time (ms a call) of the one kernel whose name holds ``part``
+    in a :func:`device_ms_by_name` table."""
+    hits = [v for k, v in by_name.items() if part in k]
+    check(len(hits) == 1, "%d kernels named like %r: %s" % (len(hits), part, sorted(by_name)))
+    return hits[0]
+
+
+# The Thomas recurrence's chain alone (the "chain floor"): the forward and
+# back steps of csrc/tridiag.cu on rows held in registers (eight a lane,
+# reused), one lane a system and one warp a block of 32 systems, as the
+# kernel runs them, with no memory in the chain.
+CHAIN_PROBE = r"""
+#include <cuda_runtime.h>
+template <typename T>
+__global__ void chain_kernel(const T* __restrict__ rows, T* __restrict__ out, int n, T eps) {
+  const int k = blockIdx.x * 32 + threadIdx.x;
+  T l[8], dd[8], u[8], bb[8];
+  for (int j = 0; j < 8; ++j) {
+    l[j] = rows[(0 * 8 + j) * 32 + threadIdx.x];
+    dd[j] = rows[(1 * 8 + j) * 32 + threadIdx.x];
+    u[j] = rows[(2 * 8 + j) * 32 + threadIdx.x];
+    bb[j] = rows[(3 * 8 + j) * 32 + threadIdx.x];
+  }
+  T cprev = T(0), yprev = T(0);
+  int i = 0;
+  for (; i + 8 <= n; i += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      T m = dd[j] - l[j] * cprev;
+      if (m == T(0)) m = eps;
+      cprev = u[j] / m;
+      yprev = (bb[j] - l[j] * yprev) / m;
+    }
+  }
+  T xn = yprev;
+  i = 0;
+  for (; i + 8 <= n - 1; i += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xn = bb[j] - u[j] * xn;
+  }
+  for (; i < n - 1; ++i) xn = bb[0] - u[0] * xn;
+  out[k] = xn + cprev;
+}
+extern "C" int chain_f32(const float* rows, float* out, int n, int K, float eps, void* s) {
+  chain_kernel<float><<<(K + 31) / 32, 32, 0, (cudaStream_t)s>>>(rows, out, n, eps);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_chain_probe():
+    """Start compiling the chain probe beside the kernels; returns a
+    function that waits for the build and returns the loaded library."""
+    import ctypes
+
+    from xitorch_tpu_torch.ops import _build
+
+    os.makedirs(_build._BUILD, exist_ok=True)
+    src = os.path.join(_build._BUILD, "chain_probe.cu")
+    lib = os.path.join(_build._BUILD, "chain_probe.%d.so" % os.getpid())
+    with open(src, "w") as f:
+        f.write(CHAIN_PROBE)
+    cmd = [_build._nvcc(), *_build._FLAGS, "-o", lib, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, "the chain probe did not build:\n%s" % log)
+        cdll = ctypes.CDLL(lib)
+        P = ctypes.c_void_p
+        cdll.chain_f32.argtypes = [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_float, P]
+        cdll.chain_f32.restype = ctypes.c_int
+        return cdll
+
+    return finish
 
 
 def config3_arrays(np, rng):
@@ -2527,103 +2612,17 @@ def config1(torch, np, xt, device, card):
     print(json.dumps({"phase": "config1", "card": card, "rows": rows}))
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    import torch
-
-    parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
-    parser.add_argument("--gate-sizes", default=None,
-                        help="comma-separated n: only measure the sweep gate's table there")
-    parser.add_argument("--only", choices=("dc", "dc_level", "sweep", "complex"),
-                        default=None,
-                        help="dc: build, then run only config 2's warm start phase "
-                             "(config2_warm, row 4); dc_level: only the per-level warm "
-                             "start's phase (per_level_warm, row 7); sweep: only config "
-                             "2's phase (config2, row 3) and the sweep gate's table; "
-                             "complex: only config 2's complex phase (config2_complex, "
-                             "row 5) and the sweep gate's table; development switches")
-    args = parser.parse_args(argv)
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    import numpy as np
-
-    import xitorch_tpu_torch as xt
-    from xitorch_tpu_torch.ops import _build
-    from xitorch_tpu_torch.ops.structured_cg import (
-        structured_cg_cuda, structured_cg_plain,
-    )
-    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
-
-    device = torch.device("cuda")
-    card = card_line()
-    print("card: %s" % card)
-    # TF32 must never reach a solver contraction
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    print("torch %s, CUDA %s, %s x%d; allow_tf32=%s, float32_matmul_precision=%s"
-          % (torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
-             torch.cuda.device_count(), torch.backends.cuda.matmul.allow_tf32,
-             torch.get_float32_matmul_precision()))
-
-    # ---- 1. build ----
-    t_start = t0 = time.perf_counter()
-    libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
-                         "jacobi_sweep_complex", "fused_cg", "dc_level"])
-    print("build: %.1f s; %s" % (time.perf_counter() - t0,
-                                 ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
-    if args.gate_sizes:
-        # the table times one call a cell: a small table first loads every
-        # library and kernel on the card
-        sweep_gate_table(torch, device, card, hold=False, sizes=(64,), batches=(1, 2))
-        sweep_gate_table(torch, device, card, hold=False,
-                         sizes=tuple(int(v) for v in args.gate_sizes.split(",")))
-        print("total: %.1f s" % (time.perf_counter() - t_start))
-        return 0
-    if args.only == "dc_level":
-        level_record, _ = per_level_warm(torch, np, xt, device, card)
-        print(json.dumps({"kernels": [level_record]}))
-        print("total: %.1f s" % (time.perf_counter() - t_start))
-        print_device(torch)
-        return 0
-    if args.only == "sweep":
-        jacobi_record, _ = config2(torch, np, xt, device, card)
-        sweep_gate_table(torch, device, card)
-        print(json.dumps({"kernels": [jacobi_record]}))
-        print("total: %.1f s" % (time.perf_counter() - t_start))
-        print_device(torch)
-        return 0
-    if args.only == "complex":
-        complex_record = config2_complex(torch, np, xt, device, card,
-                                         {"rng": config2_rng(np)})
-        sweep_gate_table(torch, device, card)
-        print(json.dumps({"kernels": [complex_record]}))
-        print("total: %.1f s" % (time.perf_counter() - t_start))
-        print_device(torch)
-        return 0
-    if args.only == "dc":
-        from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_sweep_cuda
-
-        _, mats, mats_np, panel, tol = config2_batch(torch, np, device)
-        shared = {"mats": mats, "mats_np": mats_np, "panel": panel, "tol": tol,
-                  "cold_kernel_ms": timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol),
-                                             inner=3)}
-        dc_record, _ = config2_warm(torch, np, xt, device, card, shared)
-        print(json.dumps({"kernels": [dc_record]}))
-        print("total: %.1f s" % (time.perf_counter() - t_start))
-        print_device(torch)
-        return 0
+def config3(torch, np, xt, device, card, chain_probe):
+    """BASELINE config 3 on the card: the structured CG and Thomas kernels
+    against their plain versions at config 3's shapes and the card tests'
+    shapes, the Thomas kernel against the one it replaced and its chain
+    floor, ``linalg.solve`` forward and gradient (V given: the CG kernel; V
+    None: the Thomas kernel), the library calls, and timings.  Returns the
+    two kernels' records for the JSON line."""
+    from xitorch_tpu_torch.ops.structured_cg import structured_cg_cuda, structured_cg_plain
+    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain, thomas_rowwise_cuda
 
     rng = np.random.default_rng(SEED)
-    last = [time.perf_counter()]
-
-    def lap(phase):
-        now = time.perf_counter()
-        print("phase %s: %.1f s" % (phase, now - last[0]))
-        last[0] = now
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
@@ -2672,30 +2671,56 @@ def main(argv=None) -> int:
 
     # ---- 3. kernel vs plain: Thomas at config-3 shapes ----
     # diagonally dominant (|dl| + |du| <= 1 < d): no pivot comes near zero
-    dlp = dev(rng.uniform(-0.5, 0.5, size=(N, BATCH)))
-    dp = dev(4.0 + 2.0 * rng.uniform(size=(N, BATCH)))
-    dup = dev(rng.uniform(-0.5, 0.5, size=(N, BATCH)))
-    bp = dev(rng.standard_normal((N, BATCH)))
+    dlp = dev(rng.uniform(-0.5, 0.5, size=(BATCH, N)))
+    dp = dev(4.0 + 2.0 * rng.uniform(size=(BATCH, N)))
+    dup = dev(rng.uniform(-0.5, 0.5, size=(BATCH, N)))
+    bp = dev(rng.standard_normal((BATCH, N)))
     tiny = float(torch.finfo(torch.float32).tiny)
     th_args = (dlp, dp, dup, bp, tiny)
     xtk = thomas_cuda(*th_args)
+    th_design = thomas_cuda.last_design
     xtp = thomas_plain(*th_args)
     torch.cuda.synchronize()
     # f32, contracted multiply-adds in the kernel vs separate roundings
     th_rel = float((xtk - xtp).abs().max() / xtp.abs().max())
     th_abs = float((xtk - xtp).abs().max())
-    print("thomas kernel vs plain (K=%d, n=%d, f32): max rel err %.3e, max abs err %.3e"
-          % (BATCH, N, th_rel, th_abs))
+    print("thomas kernel vs plain (K=%d, n=%d, f32, design %s): max rel err %.3e, max abs "
+          "err %.3e" % (BATCH, N, th_design, th_rel, th_abs))
     check(bool(torch.isfinite(xtk).all()), "thomas kernel returned non-finite values")
     check(th_rel <= 1e-5, "thomas kernel disagrees with plain: rel %.3e" % th_rel)
+    # the one-thread-a-system kernel this design replaced, on (n, K) panels
+    th_old_args = tuple(a.t().contiguous() for a in (dlp, dp, dup, bp)) + (tiny,)
+    xto = thomas_rowwise_cuda(*th_old_args).t()
+    torch.cuda.synchronize()
+    th_old_rel = float((xto - xtp).abs().max() / xtp.abs().max())
+    print("thomas one-thread-a-system kernel vs plain: max rel err %.3e" % th_old_rel)
+    check(th_old_rel <= 1e-5, "the replaced thomas kernel disagrees with plain")
+    # the card tests' shapes: one long system, many short ones, a ragged
+    # block; system 0 has a zero pivot at position 1, replaced by tiny
+    for K_t, n_t in ((1, 65536), (4096, 64), (33, 700)):
+        g = np.random.default_rng(1)
+        rows = [dev(g.uniform(-0.5, 0.5, size=(K_t, n_t))), dev(2.0 + g.uniform(size=(K_t, n_t))),
+                dev(g.uniform(-0.5, 0.5, size=(K_t, n_t))), dev(g.standard_normal((K_t, n_t)))]
+        rows[1][0, 0], rows[1][0, 1], rows[2][0, 0], rows[0][0, 1], rows[2][0, 1] = (
+            1.0, 1.0, 1.0, 1.0, 0.0)
+        rows[3][0, 1] = rows[3][0, 0]
+        xs_k = thomas_cuda(*rows, tiny)
+        design_t = thomas_cuda.last_design
+        xs_p = thomas_plain(*rows, tiny)
+        torch.cuda.synchronize()
+        rel_t = float((xs_k - xs_p).abs().max() / xs_p.abs().max())
+        print("thomas kernel vs plain (K=%d, n=%d, f32, zero pivot in system 0, design %s): "
+              "max rel err %.3e" % (K_t, n_t, design_t, rel_t))
+        check(bool(torch.isfinite(xs_k).all()) and rel_t <= 1e-5,
+              "thomas kernel at K=%d, n=%d: rel %.3e" % (K_t, n_t, rel_t))
     # the PyTorch call for the same function: a dense solve of the
     # materialised tridiagonal batch (2 GB at this shape)
-    T_dense = (torch.diag_embed(dp.T) + torch.diag_embed(dlp.T[:, 1:], offset=-1)
-               + torch.diag_embed(dup.T[:, :-1], offset=1))
-    x_lib = torch.linalg.solve(T_dense, bp.T[..., None])[..., 0].T
+    T_dense = (torch.diag_embed(dp) + torch.diag_embed(dlp[:, 1:], offset=-1)
+               + torch.diag_embed(dup[:, :-1], offset=1))
+    x_lib = torch.linalg.solve(T_dense, bp[..., None])[..., 0]
     check(float((xtk - x_lib).abs().max() / x_lib.abs().max()) <= 1e-5,
           "thomas kernel disagrees with torch.linalg.solve of the dense batch")
-    th_lib_ms = timed_ms(torch, lambda: torch.linalg.solve(T_dense, bp.T[..., None]),
+    th_lib_ms = timed_ms(torch, lambda: torch.linalg.solve(T_dense, bp[..., None]),
                          reps=3, inner=1)
     del T_dense, x_lib
 
@@ -2748,6 +2773,37 @@ def main(argv=None) -> int:
     check(n_th >= 1, "V=None: the thomas kernel was not launched")
     check(float(info_tri["converged"]) == 1.0 and resid_tri < RESID_GATE,
           "V=None: bad solution")
+    # forward + gradient to d, c, b: the adjoint is the transposed Thomas
+    # solve, so the counter moves by 2; held against float64
+    # torch.linalg.solve autograd on the materialised batch
+    w_tri = dev(rng.standard_normal((BATCH, N, 1)))
+
+    def tri_grads(dtype, dense):
+        leaves = [t.detach().to(dtype).clone().requires_grad_() for t in (dT, cT, bT)]
+        if dense:
+            dd, cc, bb = leaves
+            off = cc * torch.ones(N - 1, dtype=dtype, device=device)
+            T_tri = (torch.diag_embed(dd) + torch.diag_embed(off, offset=1)
+                     + torch.diag_embed(off, offset=-1))
+            xg = torch.linalg.solve(T_tri, bb)
+        else:
+            xg = xt.linalg.solve(xt.TridiagLowRankOperator(leaves[0], leaves[1]), leaves[2],
+                                 method="structured_cg")
+        return torch.autograd.grad((xg * w_tri.to(dtype)).sum(), leaves)
+
+    reset()
+    g_tri = tri_grads(torch.float32, False)
+    n_th_grad = read("thomas", thomas_cuda)
+    g_ref = tri_grads(torch.float64, True)
+    torch.cuda.synchronize()
+    rels_tri = [float(torch.linalg.norm(a.double() - r) / torch.linalg.norm(r))
+                for a, r in zip(g_tri, g_ref)]
+    print("V=None gradient: thomas launches %d (forward + adjoint); rel L2 err vs float64 "
+          "torch.linalg.solve autograd: d %.3e, c %.3e, b %.3e" % (n_th_grad, *rels_tri))
+    check(n_th_grad == 2, "V=None gradient: %d thomas launches, expected 2" % n_th_grad)
+    check(all(bool(torch.isfinite(g).all()) for g in g_tri) and max(rels_tri) <= 1e-3,
+          "V=None gradient disagrees with float64: %s" % rels_tri)
+    del g_ref
 
     # small input against a dense float64 solve
     As = xt.TridiagLowRankOperator(dT[:4, :64], cT, VT[:4, :64])
@@ -2800,7 +2856,38 @@ def main(argv=None) -> int:
     # ---- 6. timing ----
     cg_ms = timed_ms(torch, lambda: structured_cg_cuda(*cg_args, **cg_kw))
     cg_plain_ms = timed_ms(torch, lambda: structured_cg_plain(*cg_args, **cg_kw))
-    th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
+    # the new Thomas kernel and the one it replaced, in turns
+    th_turns = []
+    for which in ("new", "old", "old", "new"):
+        if which == "new":
+            th_turns.append(("new", timed_ms(torch, lambda: thomas_cuda(*th_args))))
+        else:
+            th_turns.append(("old", timed_ms(torch, lambda: thomas_rowwise_cuda(*th_old_args))))
+    th_ms = statistics.median(t for w, t in th_turns if w == "new")
+    th_old_ms = statistics.median(t for w, t in th_turns if w == "old")
+    cg_dev = device_ms_by_name(torch, lambda: structured_cg_cuda(*cg_args, **cg_kw))
+    th_dev = device_ms_by_name(torch, lambda: thomas_cuda(*th_args))
+    th_old_dev = device_ms_by_name(torch, lambda: thomas_rowwise_cuda(*th_old_args))
+    cg_dev_ms = kernel_ms(cg_dev, "structured_cg_kernel")
+    th_dev_ms = kernel_ms(th_dev, "thomas_kernel")
+    th_old_dev_ms = kernel_ms(th_old_dev, "thomas_rowwise_kernel")
+    # the chain floor: the same recurrence on registers, at the same K and n
+    probe = chain_probe()
+    g = np.random.default_rng(2)
+    probe_rows = torch.cat([dev(g.uniform(-0.5, 0.5, size=(8, 32))),
+                            dev(4.0 + 2.0 * g.uniform(size=(8, 32))),
+                            dev(g.uniform(-0.5, 0.5, size=(8, 32))),
+                            dev(g.standard_normal((8, 32)))])
+    probe_out = torch.empty(-(-BATCH // 32) * 32, dtype=torch.float32, device=device)
+
+    def chain_run():
+        stream = torch.cuda.current_stream().cuda_stream
+        check(probe.chain_f32(probe_rows.data_ptr(), probe_out.data_ptr(), N, BATCH, tiny,
+                              stream) == 0, "the chain probe did not launch")
+
+    chain_ms = timed_ms(torch, chain_run)
+    chain_dev_ms = kernel_ms(device_ms_by_name(torch, chain_run), "chain_kernel")
+    check(bool(torch.isfinite(probe_out).all()), "the chain probe gave non-finite values")
     # the plain Thomas loop takes ~120 ms a call: fewer calls
     th_plain_ms = timed_ms(torch, lambda: thomas_plain(*th_args), reps=3, inner=1)
     fwd_ms = timed_ms(torch, lambda: xt.linalg.solve(A, bT, method="structured_cg",
@@ -2814,10 +2901,18 @@ def main(argv=None) -> int:
     grad_busy = device_busy_ms(torch, lambda: grads("structured_cg"))
     print("timing [%s], median of %d repetitions of %d calls after warm-up:"
           % (card, REPS, INNER))
-    print("  structured_cg kernel %.3f ms, plain %.3f ms (K=%d, n=%d, r=%d) [%s]"
-          % (cg_ms, cg_plain_ms, BATCH, N, RANK, card))
-    print("  thomas kernel %.3f ms, plain %.3f ms, torch.linalg.solve of the materialised "
-          "batch %.3f ms (K=%d, n=%d) [%s]" % (th_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
+    print("  structured_cg kernel %.3f ms (events; device time by name %.4f ms), plain "
+          "%.3f ms (K=%d, n=%d, r=%d) [%s]"
+          % (cg_ms, cg_dev_ms, cg_plain_ms, BATCH, N, RANK, card))
+    print("  thomas kernel (design %s) %.4f ms (events; device time by name %.4f ms), "
+          "plain %.3f ms, torch.linalg.solve of the materialised batch %.3f ms (K=%d, n=%d) "
+          "[%s]" % (th_design, th_ms, th_dev_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
+    print("  thomas in turns (new, old, old, new): %s ms; the one-thread-a-system kernel "
+          "%.4f ms (device time %.4f ms) [%s]"
+          % (", ".join("%s %.4f" % wt for wt in th_turns), th_old_ms, th_old_dev_ms, card))
+    print("  thomas chain floor (the recurrence on registers, K=%d, n=%d): %.4f ms (device "
+          "time %.4f ms); the kernel is %.2fx it [%s]"
+          % (BATCH, N, chain_ms, chain_dev_ms, th_dev_ms / chain_dev_ms, card))
     print("  FWD solve (incl. the eager convergence check): %.1f solves/s (%.3f ms), "
           "plain path %.1f solves/s (%.3f ms) [%s]"
           % (BATCH / fwd_ms * 1e3, fwd_ms, BATCH / fwd_plain_ms * 1e3, fwd_plain_ms, card))
@@ -2842,6 +2937,126 @@ def main(argv=None) -> int:
     print("  bounds: structured_cg %.4f ms (%s), thomas %.4f ms (%s) [%s]"
           % (cg_bound, cg_by, th_bound, th_by, card))
 
+    return [
+        {"name": "structured_cg", "route": "cuda",
+         "source": "xitorch_tpu_torch/csrc/structured_cg.cu",
+         "replaces": "xitorch_tpu/ops/structured_cg.py:58",
+         "launches": launches["structured_cg"], "max_abs_err": cg_abs,
+         "ms": cg_dev_ms, "plain_ms": cg_plain_ms, "bound_ms": cg_bound,
+         "bound_by": cg_by, "library_ms": None},
+        {"name": "thomas", "route": "cuda",
+         "source": "xitorch_tpu_torch/csrc/tridiag.cu",
+         "replaces": "xitorch_tpu/ops/tridiag.py:38",
+         "launches": launches["thomas"], "max_abs_err": th_abs,
+         "ms": th_dev_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
+         "bound_by": th_by, "library_ms": th_lib_ms, "design": th_design,
+         "chain_floor_ms": chain_dev_ms},
+    ]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
+    parser.add_argument("--gate-sizes", default=None,
+                        help="comma-separated n: only measure the sweep gate's table there")
+    parser.add_argument("--only", choices=("solve", "dc", "dc_level", "sweep", "complex"),
+                        default=None,
+                        help="solve: build, then run only config 3's phase (config3, "
+                             "rows 1 and 2); dc: only config 2's warm start phase "
+                             "(config2_warm, row 4); dc_level: only the per-level warm "
+                             "start's phase (per_level_warm, row 7); sweep: only config "
+                             "2's phase (config2, row 3) and the sweep gate's table; "
+                             "complex: only config 2's complex phase (config2_complex, "
+                             "row 5) and the sweep gate's table; development switches")
+    args = parser.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    import xitorch_tpu_torch as xt
+    from xitorch_tpu_torch.ops import _build
+
+    device = torch.device("cuda")
+    card = card_line()
+    print("card: %s" % card)
+    # TF32 must never reach a solver contraction
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print("torch %s, CUDA %s, %s x%d; allow_tf32=%s, float32_matmul_precision=%s"
+          % (torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
+             torch.cuda.device_count(), torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision()))
+
+    # ---- 1. build ----
+    t_start = t0 = time.perf_counter()
+    chain_probe = start_chain_probe() if args.only in (None, "solve") and not args.gate_sizes \
+        else None
+    libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
+                         "jacobi_sweep_complex", "fused_cg", "dc_level"])
+    print("build: %.1f s; %s" % (time.perf_counter() - t0,
+                                 ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
+    if args.gate_sizes:
+        # the table times one call a cell: a small table first loads every
+        # library and kernel on the card
+        sweep_gate_table(torch, device, card, hold=False, sizes=(64,), batches=(1, 2))
+        sweep_gate_table(torch, device, card, hold=False,
+                         sizes=tuple(int(v) for v in args.gate_sizes.split(",")))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        return 0
+    if args.only == "solve":
+        print(json.dumps({"kernels": config3(torch, np, xt, device, card, chain_probe)}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "dc_level":
+        level_record, _ = per_level_warm(torch, np, xt, device, card)
+        print(json.dumps({"kernels": [level_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "sweep":
+        jacobi_record, _ = config2(torch, np, xt, device, card)
+        sweep_gate_table(torch, device, card)
+        print(json.dumps({"kernels": [jacobi_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "complex":
+        complex_record = config2_complex(torch, np, xt, device, card,
+                                         {"rng": config2_rng(np)})
+        sweep_gate_table(torch, device, card)
+        print(json.dumps({"kernels": [complex_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "dc":
+        from xitorch_tpu_torch.ops.jacobi_eigh import jacobi_sweep_cuda
+
+        _, mats, mats_np, panel, tol = config2_batch(torch, np, device)
+        shared = {"mats": mats, "mats_np": mats_np, "panel": panel, "tol": tol,
+                  "cold_kernel_ms": timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol),
+                                             inner=3)}
+        dc_record, _ = config2_warm(torch, np, xt, device, card, shared)
+        print(json.dumps({"kernels": [dc_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+
+    last = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print("phase %s: %.1f s" % (phase, now - last[0]))
+        last[0] = now
+
+    # ---- 2-6. BASELINE config 3: the structured CG and Thomas kernels ----
+    config3_records = config3(torch, np, xt, device, card, chain_probe)
     lap("config 3")
 
     # ---- 7. BASELINE config 2: the Jacobi sweep kernel, symeig and svd ----
@@ -2895,18 +3110,7 @@ def main(argv=None) -> int:
     lap("config 1")
 
     print(json.dumps({"kernels": [
-        {"name": "structured_cg", "route": "cuda",
-         "source": "xitorch_tpu_torch/csrc/structured_cg.cu",
-         "replaces": "xitorch_tpu/ops/structured_cg.py:58",
-         "launches": launches["structured_cg"], "max_abs_err": cg_abs,
-         "ms": cg_ms, "plain_ms": cg_plain_ms, "bound_ms": cg_bound,
-         "bound_by": cg_by, "library_ms": None},
-        {"name": "thomas", "route": "cuda",
-         "source": "xitorch_tpu_torch/csrc/tridiag.cu",
-         "replaces": "xitorch_tpu/ops/tridiag.py:38",
-         "launches": launches["thomas"], "max_abs_err": th_abs,
-         "ms": th_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
-         "bound_by": th_by, "library_ms": th_lib_ms},
+        *config3_records,
         jacobi_record, dc_record, complex_record, fused_record, level_record,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))

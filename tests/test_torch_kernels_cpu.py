@@ -16,7 +16,7 @@ from xitorch_tpu.ops.structured_cg import structured_cg_pallas
 from xitorch_tpu.ops.tridiag import tridiag_solve as jax_tridiag_solve
 from xitorch_tpu.ops.tridiag import tridiag_solve_pallas
 from xitorch_tpu_torch.ops import (
-    fits_structured_cg, structured_cg_cuda, structured_cg_solve, thomas_cuda,
+    fits_structured_cg, structured_cg_cuda, structured_cg_solve, thomas_cuda, thomas_plain,
     tridiag_solve, tridiag_solve_kernel,
 )
 
@@ -88,6 +88,22 @@ def test_plain_thomas_matches_pallas_interpret(zero_pivot):
     assert np.all(np.isfinite(xt))
     # f32, the same sweep; XLA may contract multiply-adds differently
     assert np.max(np.abs(xt - xj)) <= 1e-5 * np.max(np.abs(xj))
+
+
+@pytest.mark.parametrize("dtype, zero_pivot, tol", [
+    (np.float32, False, 1e-5), (np.float32, True, 1e-5), (np.float64, False, 1e-12),
+])
+def test_thomas_plain_on_the_kernels_layout_matches_pallas_interpret(dtype, zero_pivot, tol):
+    """thomas_plain on the (K, n) layout the kernel reads and writes, called
+    directly, against the Pallas kernel in interpret mode."""
+    arrs = [a.astype(dtype) for a in _thomas_inputs(zero_pivot=zero_pivot)]
+    xj = np.asarray(tridiag_solve_pallas(*map(jnp.asarray, arrs), interpret=True))
+    assert xj.dtype == dtype
+    eps = float(np.finfo(dtype).tiny)
+    xt = thomas_plain(*map(torch.as_tensor, arrs), eps).numpy()
+    assert xt.dtype == dtype and np.all(np.isfinite(xt))
+    # the same sweep; XLA may contract multiply-adds differently
+    assert np.max(np.abs(xt - xj)) <= tol * np.max(np.abs(xj))
 
 
 def test_plain_thomas_broadcasts_diagonals():

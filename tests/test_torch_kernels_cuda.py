@@ -29,6 +29,7 @@ import xitorch_tpu_torch as xt
 from xitorch_tpu_torch.ops import (
     structured_cg_cuda, structured_cg_plain, thomas_cuda, thomas_plain,
 )
+from xitorch_tpu_torch.ops.tridiag import thomas_design
 from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_dense, fused_cg_plain
 from xitorch_tpu_torch.ops.dc_kernel import (
     dc_precondition, dc_precondition_cuda, dc_precondition_plain,
@@ -86,23 +87,58 @@ def test_cg_kernel_matches_plain(cuda, offsets, r, K, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("K, n", [(1, 5), (300, 129), (512, 1024)])
+@pytest.mark.parametrize("K, n", [(1, 5), (300, 129), (512, 1024), (1, 65536), (4096, 64),
+                                  (33, 700)])
 def test_thomas_kernel_matches_plain(cuda, dtype, tol, K, n):
     rng = np.random.default_rng(1)
-    panels = [rng.uniform(-0.5, 0.5, size=(n, K)), 2.0 + rng.uniform(size=(n, K)),
-              rng.uniform(-0.5, 0.5, size=(n, K)), rng.standard_normal((n, K))]
-    dl, d, du, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in panels)
+    rows = [rng.uniform(-0.5, 0.5, size=(K, n)), 2.0 + rng.uniform(size=(K, n)),
+            rng.uniform(-0.5, 0.5, size=(K, n)), rng.standard_normal((K, n))]
+    dl, d, du, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in rows)
     # system 0: pivot d1 - dl1 * du0 / d0 == 1 - 1 * 1 == 0 is replaced by
     # eps; du1 = 0 and b1 = dl1 * x0 keep the solution finite
-    d[0, 0], d[1, 0], du[0, 0], dl[1, 0], du[1, 0] = 1.0, 1.0, 1.0, 1.0, 0.0
-    b[1, 0] = b[0, 0]
+    d[0, 0], d[0, 1], du[0, 0], dl[0, 1], du[0, 1] = 1.0, 1.0, 1.0, 1.0, 0.0
+    b[0, 1] = b[0, 0]
     eps = float(torch.finfo(dtype).tiny)
     xk = thomas_cuda(dl, d, du, b, eps)
+    design = thomas_cuda.last_design
     xp = thomas_plain(dl, d, du, b, eps)
     torch.cuda.synchronize()
+    assert design == thomas_design(n, dtype)
     assert bool(torch.isfinite(xk).all())
     # contracted multiply-adds in the kernel vs separate roundings
     assert float((xk - xp).abs().max() / xp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_wrappers_and_structured_solve_do_not_synchronise(cuda):
+    """The CG and Thomas wrappers and solve(method="structured_cg") without
+    return_info put their work on the stream and return: under
+    set_sync_debug_mode("error") any synchronise raises."""
+    args = (*_cg_flat((1,), 4, 64, 1024, cuda), (1,))
+    kw = dict(rtol=1e-6, atol=1e-8, max_niter=400)
+    rng = np.random.default_rng(4)
+    panels = [torch.tensor(a, dtype=torch.float32, device=cuda)
+              for a in (rng.uniform(-0.5, 0.5, (64, 1024)), 2.0 + rng.uniform(size=(64, 1024)),
+                        rng.uniform(-0.5, 0.5, (64, 1024)), rng.standard_normal((64, 1024)))]
+    d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(16, 1024)), dtype=torch.float32, device=cuda)
+    V = torch.tensor(rng.standard_normal((16, 1024, 4)) / 32.0, dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.standard_normal((16, 1024, 1)), dtype=torch.float32, device=cuda)
+    A = xt.TridiagLowRankOperator(d, 1.0, V)
+    structured_cg_cuda(*args, **kw)   # build and load outside the checked region
+    thomas_cuda(*panels, 1e-38)
+    xt.linalg.solve(A, b, method="structured_cg")
+    xt.linalg.flush_convergence_warnings()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        structured_cg_cuda(*args, **kw)
+        thomas_cuda(*panels, 1e-38)
+        x = xt.linalg.solve(A, b, method="structured_cg")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    xt.linalg.flush_convergence_warnings()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
 
 
 @pytest.mark.cuda

@@ -33,6 +33,13 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kMaxRank = 16;
 constexpr int kMaxBands = 8;
+constexpr int kMaxDevices = 64;
+
+// the band offsets, passed by value as a kernel parameter (no copy to the
+// device before a launch)
+struct Offsets {
+  int o[kMaxBands];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -61,7 +68,7 @@ structured_cg_kernel(const float* __restrict__ d_g,
                      const float* __restrict__ bu_g,
                      const float* __restrict__ V_g,
                      const float* __restrict__ b_g,
-                     const int* __restrict__ offs_g,
+                     const Offsets offs,
                      float* __restrict__ x_g,
                      float* __restrict__ it_g,
                      float* __restrict__ res_g,
@@ -72,7 +79,6 @@ structured_cg_kernel(const float* __restrict__ d_g,
   __shared__ float red_0[32];
   __shared__ float red_p[32];
   __shared__ float red_r[32];
-  __shared__ int offs[kMaxBands];
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -96,7 +102,6 @@ structured_cg_kernel(const float* __restrict__ d_g,
   const float* buk = bu_g + sys * nb * n;
   const float* Vk = V_g + sys * r * n;
 
-  if (tid < nb) offs[tid] = offs_g[tid];
   float bb = 0.f;
   for (int i = tid; i < n; i += nthr) {
     const float bi = bk[i];
@@ -150,7 +155,7 @@ structured_cg_kernel(const float* __restrict__ d_g,
       const float pi = p[i];
       float y = d[i] * pi;
       for (int k = 0; k < nb; ++k) {
-        const int o = offs[k];
+        const int o = offs.o[k];
         if (i - o >= 0) y += bl[k * n + i] * p[i - o];
         if (i + o < n) y += bu[k * n + i] * p[i + o];
       }
@@ -188,16 +193,35 @@ structured_cg_kernel(const float* __restrict__ d_g,
   }
 }
 
+// Once per instantiation and device: let the kernel take as much dynamic
+// shared memory as the card allows a block beside its static scratch.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, bool* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - (int)fa.sharedSizeBytes);
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
+}
+
 template <int R>
 cudaError_t launch(const float* d, const float* bl, const float* bu,
-                   const float* V, const float* b, const int* offs, float* x,
+                   const float* V, const float* b, const Offsets& offs, float* x,
                    float* it, float* res, int K, int n, int nb, int r,
                    int max_niter, float rtol2, float atol2, float eps,
                    cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
   const size_t smem = (size_t)(5 + 2 * nb + r) * n * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      structured_cg_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = allow_smem(structured_cg_kernel<R>, done);
   if (e != cudaSuccess) return e;
   int threads = ((n + 3) / 4 + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
@@ -209,17 +233,20 @@ cudaError_t launch(const float* d, const float* bl, const float* bu,
 
 }  // namespace
 
-// Plain C entry for ctypes.  All arrays are contiguous f32 on the device:
-// d, b, x (K, n); bl, bu (K, nb, n); V (K, r, n); offs (nb,) int32;
-// it, res (K,).  Returns a cudaError_t (0 on success).
+// Plain C entry for ctypes.  All arrays but offs are contiguous f32 on the
+// device: d, b, x (K, n); bl, bu (K, nb, n); V (K, r, n); it, res (K,).
+// offs (nb,) int32 is HOST memory: the offsets travel to the kernel by
+// value.  Returns a cudaError_t (0 on success).
 extern "C" int structured_cg_f32(const float* d, const float* bl,
                                  const float* bu, const float* V,
-                                 const float* b, const int* offs, float* x,
+                                 const float* b, const int* offs_host, float* x,
                                  float* it, float* res, int K, int n, int nb,
                                  int r, int max_niter, float rtol2,
                                  float atol2, float eps, void* stream) {
   if (K <= 0 || n <= 0 || nb < 1 || nb > kMaxBands || r < 1 || r > kMaxRank)
     return (int)cudaErrorInvalidValue;
+  Offsets offs = {};
+  for (int k = 0; k < nb; ++k) offs.o[k] = offs_host[k];
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (r <= 1)

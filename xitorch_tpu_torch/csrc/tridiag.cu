@@ -4,30 +4,331 @@
 // kernel behind tridiag_solve_pallas).
 //
 // What bounds it on the H100: each system is a serial recurrence of n
-// steps forward and n - 1 back, and it moves about 9 * n values per
-// system through device memory (dl, d, du, b read and cp, x written in the
-// forward sweep; cp, x read and x written in the back substitution): at
-// K = 512, n = 1024 in f32 that is ~19 MB, a few microseconds at full
-// bandwidth.  With one thread per system the card holds only K threads,
-// so the sweep is bound by the latency of the dependent steps and of
-// device memory, not by bandwidth.
+// steps forward (an FMA, then two IEEE divisions by the pivot) and n - 1
+// back (one FMA).  The bytes are few (dl, d, du, b read and x written once:
+// 10 MB at K = 512, n = 1024 in f32, 3 us at full bandwidth), so the time
+// is the chain of dependent steps, as long as no step waits on memory.
 //
-// Design: one thread per system on the (n, K) layout of the reference
-// (systems along the fast axis), so the threads of a warp read and write
-// neighbouring addresses at every step.  The loads of a row do not depend
-// on the recurrence and can be issued ahead of it; the previous row's cp
-// and x are carried in registers.  Zero pivots are replaced by eps (the
-// dtype's smallest normal number by default), as in the reference.
+// Design: a block owns 32 systems; one warp runs the recurrence, one lane a
+// system, and three loader warps keep it fed.
+//   * Forward: the rows of dl, d, du, b stream in chunks of 32 positions
+//     into a ring of 4 stages in shared memory, by cp.async of one element
+//     a thread from the callers' (K, n) layout (a warp reads 32 consecutive
+//     positions of one system: one 128-byte line), two chunks ahead of the
+//     chain.  A stage holds each array as [position][system] with a row
+//     stride of 33, so the loaders' writes and the chain's reads (32
+//     systems at one position) are both free of bank conflicts.
+//   * cp and the forward x (y) go where the chain never waits on them:
+//     into shared memory ([position][system], stride 33) when 2 n of them
+//     fit beside the ring ("resident"), else into a device-memory scratch
+//     laid out [block][position][32 systems], one 128-byte store a step
+//     ("streaming").
+//   * Back: x_i = y_i - cp_i x_{i+1}, one FMA a step.  Resident: read from
+//     shared memory and x written over y.  Streaming: the loaders bring the
+//     scratch back in chunks, last first, by 16-byte cp.async into the ring
+//     ahead of the chain; the chain writes each x chunk into a staging tile
+//     of the stage, which the loaders store to the callers' (K, n) layout
+//     (one line a warp) before they refill the stage.
+// The chain and the loaders meet at one block barrier a chunk.  The
+// recurrence is the reference's, operation for operation: m = d - dl cp,
+// a zero pivot replaced by eps (the dtype's smallest normal number by
+// default), cp = du / m and y = (b - dl y) / m by IEEE division, and the
+// back substitution; dl[:, 0] and du[:, n-1] are never used.
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kSys = 32;                  // systems a block: the chain warp's lanes
+constexpr int kPad = kSys + 1;            // row stride of a [position][system] tile
+constexpr int kChunk = 32;                // positions a ring stage
+constexpr int kStages = 4;
+constexpr int kLoaders = 3;               // loader warps
+constexpr int kThreads = 32 * (1 + kLoaders);
+constexpr int kStageElems = 4 * kChunk * kPad;  // dl, d, du, b tiles
+constexpr int kMaxDevices = 64;
+
 template <typename T>
-__global__ void thomas_kernel(const T* __restrict__ dl,
-                              const T* __restrict__ d,
-                              const T* __restrict__ du,
-                              const T* __restrict__ b, T* __restrict__ x,
-                              T* __restrict__ cp, int n, int K, T eps) {
+constexpr size_t ring_bytes() { return (size_t)kStages * kStageElems * sizeof(T); }
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// one element, 4 or 8 bytes (cached in L1: the next chunk reads the same
+// lines)
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" :: "r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+}
+
+// 16 bytes, past L1 (the scratch was just written through to L2)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most kStages - 2 of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kStages - 2) : "memory");
+}
+
+// Loader warp `lw`: the rows [i0, i0 + 32) of dl, d, du, b of the block's
+// systems into the stage's [position][system] tiles.  dl at position 0 is
+// written as 0, so the chain's first step is m = d0 (dl[:, 0] is ignored);
+// the lanes past the last system get d = 1 and zeros, so that they run the
+// chain on ordinary numbers.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* stage, const T* dl, const T* d, const T* du,
+                                          const T* b, int lw, int lane, int k0, int nsys,
+                                          int n, int i0) {
+  const int i = i0 + lane;
+  if (i >= n) return;
+  for (int q = lw; q < 4 * kSys; q += kLoaders) {
+    const int a = q / kSys;
+    const int s = q % kSys;
+    T* dst = stage + a * (kChunk * kPad) + lane * kPad + s;
+    if (s >= nsys || (a == 0 && i == 0)) {
+      *dst = T(a == 1 && s >= nsys ? 1 : 0);
+    } else {
+      const T* src = a == 0 ? dl : a == 1 ? d : a == 2 ? du : b;
+      cp_async_elem(dst, src + (size_t)(k0 + s) * n + i);
+    }
+  }
+}
+
+// Streaming back pass, loader side: the scratch rows [i0, i0 + cnt) of cp
+// and y into the stage's [position][32] tiles, 16 bytes a thread.
+template <typename T>
+__device__ __forceinline__ void load_scratch(T* stage, const T* cpw, const T* yw, int lt,
+                                             int i0, int cnt) {
+  constexpr int kPer = 16 / sizeof(T);           // elements in 16 bytes
+  constexpr int kPieces = kChunk * kSys / kPer;  // pieces a tile
+  for (int q = lt; q < 2 * kPieces; q += 32 * kLoaders) {
+    const int a = q / kPieces;
+    const int e = (q % kPieces) * kPer;          // element within the tile
+    if (e / kSys >= cnt) continue;
+    const T* src = (a == 0 ? cpw : yw) + (size_t)i0 * kSys + e;
+    cp_async16(stage + a * (kChunk * kSys) + e, src);
+  }
+}
+
+// Streaming back pass, loader side: the x chunk the chain left in the
+// stage's staging tile ([position][system], stride 33) to (K, n).
+template <typename T>
+__device__ __forceinline__ void store_x(const T* out, T* x, int lw, int lane, int k0,
+                                        int nsys, int n, int i0, int cnt) {
+  if (lane >= cnt) return;
+  for (int s = lw; s < nsys; s += kLoaders)
+    x[(size_t)(k0 + s) * n + i0 + lane] = out[lane * kPad + s];
+}
+
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kThreads)
+thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __restrict__ du,
+              const T* __restrict__ b, T* __restrict__ x, T* __restrict__ ws, int n, int K,
+              T eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* cpS = ring + kStages * kStageElems;  // resident: [n][kPad] each
+  T* yS = cpS + (size_t)n * kPad;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lw = warp - 1;                // loader index (warp 0 is the chain)
+  const int k0 = blockIdx.x * kSys;
+  const int nsys = min(kSys, K - k0);
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  // streaming scratch of this block: cp then y, each [n][32]
+  T* cpw = ws + (size_t)blockIdx.x * 2 * n * kSys;
+  T* yw = cpw + (size_t)n * kSys;
+
+  // ---- forward sweep ----
+  if (warp > 0) {
+    for (int c = 0; c < kStages - 1; ++c) {
+      if (c < nchunks)
+        load_rows(ring + c * kStageElems, dl, d, du, b, lw, lane, k0, nsys, n, c * kChunk);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+  }
+  __syncthreads();
+
+  T cprev = T(0), yprev = T(0);
+  for (int c = 0; c < nchunks; ++c) {
+    if (warp > 0) {
+      const int cn = c + kStages - 1;
+      if (cn < nchunks)
+        load_rows(ring + (cn % kStages) * kStageElems, dl, d, du, b, lw, lane, k0, nsys, n,
+                  cn * kChunk);
+      cp_async_commit();
+      cp_async_wait_ring();
+    } else {
+      const T* st = ring + (c % kStages) * kStageElems;
+      const int i0 = c * kChunk;
+      const int cnt = min(kChunk, n - i0);
+      auto step = [&](int t) {
+        const int o = t * kPad + lane;
+        const T l = st[o];
+        T m = st[kChunk * kPad + o] - l * cprev;
+        if (m == T(0)) m = eps;
+        cprev = st[2 * kChunk * kPad + o] / m;
+        yprev = (st[3 * kChunk * kPad + o] - l * yprev) / m;
+        if constexpr (kResident) {
+          cpS[(size_t)(i0 + t) * kPad + lane] = cprev;
+          yS[(size_t)(i0 + t) * kPad + lane] = yprev;
+        } else {
+          cpw[(size_t)(i0 + t) * kSys + lane] = cprev;
+          yw[(size_t)(i0 + t) * kSys + lane] = yprev;
+        }
+      };
+      if (cnt == kChunk) {
+#pragma unroll
+        for (int t = 0; t < kChunk; ++t) step(t);
+      } else {
+        for (int t = 0; t < cnt; ++t) step(t);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- back substitution ----
+  T xn = yprev;  // x_{n-1} = y_{n-1}
+  if constexpr (kResident) {
+    if (warp == 0) {
+      yS[(size_t)(n - 1) * kPad + lane] = xn;
+#pragma unroll 8
+      for (int i = n - 2; i >= 0; --i) {
+        const size_t o = (size_t)i * kPad + lane;
+        xn = yS[o] - cpS[o] * xn;
+        yS[o] = xn;
+      }
+    }
+    __syncthreads();
+    // x from [position][system] to (K, n): a warp writes one system's
+    // consecutive positions
+    for (int s = warp; s < nsys; s += 1 + kLoaders)
+      for (int i = lane; i < n; i += 32) x[(size_t)(k0 + s) * n + i] = yS[(size_t)i * kPad + s];
+  } else {
+    // stage layout in the back pass: cp [kChunk][32], y [kChunk][32], then
+    // the x staging tile [kChunk][kPad]
+    constexpr int kOut = 2 * kChunk * kSys;
+    const int lt = threadIdx.x - 32;
+    if (warp > 0) {
+      for (int j = 0; j < kStages - 1; ++j) {
+        if (j < nchunks) {
+          const int c = nchunks - 1 - j;
+          load_scratch(ring + j * kStageElems, cpw, yw, lt, c * kChunk,
+                       min(kChunk, n - c * kChunk));
+        }
+        cp_async_commit();
+      }
+      cp_async_wait_ring();
+    }
+    __syncthreads();
+    for (int j = 0; j < nchunks; ++j) {
+      if (warp > 0) {
+        if (j > 0) {
+          const int c = nchunks - j;  // the chunk the chain finished last
+          store_x(ring + ((j - 1) % kStages) * kStageElems + kOut, x, lw, lane, k0, nsys, n,
+                  c * kChunk, min(kChunk, n - c * kChunk));
+        }
+        const int jn = j + kStages - 1;
+        if (jn < nchunks) {
+          const int c = nchunks - 1 - jn;
+          load_scratch(ring + (jn % kStages) * kStageElems, cpw, yw, lt, c * kChunk,
+                       min(kChunk, n - c * kChunk));
+        }
+        cp_async_commit();
+        cp_async_wait_ring();
+      } else {
+        const T* st = ring + (j % kStages) * kStageElems;
+        T* out = const_cast<T*>(st) + kOut;
+        const int c = nchunks - 1 - j;
+        const int i0 = c * kChunk;
+        const int cnt = min(kChunk, n - i0);
+        int top = cnt - 1;
+        if (j == 0) {  // position n - 1
+          out[top * kPad + lane] = xn;
+          --top;
+        }
+        auto step = [&](int t) {
+          xn = st[kChunk * kSys + t * kSys + lane] - st[t * kSys + lane] * xn;
+          out[t * kPad + lane] = xn;
+        };
+        if (top == kChunk - 1) {
+#pragma unroll
+          for (int t = kChunk - 1; t >= 0; --t) step(t);
+        } else {
+          for (int t = top; t >= 0; --t) step(t);
+        }
+      }
+      __syncthreads();
+    }
+    if (warp > 0)
+      store_x(ring + ((nchunks - 1) % kStages) * kStageElems + kOut, x, lw, lane, k0, nsys,
+              n, 0, min(kChunk, n));
+  }
+}
+
+template <typename T>
+size_t resident_bytes(int n) {
+  return ring_bytes<T>() + 2 * (size_t)n * kPad * sizeof(T);
+}
+
+// Once per instantiation and device: let the kernel take as much dynamic
+// shared memory as the card allows a block.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, bool* done, int* optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess || done[dev]) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
+}
+
+template <typename T>
+int launch(const T* dl, const T* d, const T* du, const T* b, T* x, T* ws, int n, int K,
+           T eps, int resident, void* stream) {
+  static bool done_res[kMaxDevices] = {}, done_str[kMaxDevices] = {};
+  if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (K + kSys - 1) / kSys;
+  int optin = 0;
+  cudaError_t e;
+  if (resident) {
+    e = allow_smem(thomas_kernel<T, true>, done_res, &optin);
+    if (e != cudaSuccess) return (int)e;
+    if (resident_bytes<T>(n) > (size_t)optin) return (int)cudaErrorInvalidValue;
+    thomas_kernel<T, true><<<blocks, kThreads, resident_bytes<T>(n), (cudaStream_t)stream>>>(
+        dl, d, du, b, x, ws, n, K, eps);
+  } else {
+    e = allow_smem(thomas_kernel<T, false>, done_str, &optin);
+    if (e != cudaSuccess) return (int)e;
+    thomas_kernel<T, false><<<blocks, kThreads, ring_bytes<T>(), (cudaStream_t)stream>>>(
+        dl, d, du, b, x, ws, n, K, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- the one-thread-a-system kernel this design replaces, on the (n, K)
+// layout; kept only to time the two in turns ----
+template <typename T>
+__global__ void thomas_rowwise_kernel(const T* __restrict__ dl, const T* __restrict__ d,
+                                      const T* __restrict__ du, const T* __restrict__ b,
+                                      T* __restrict__ x, T* __restrict__ cp, int n, int K,
+                                      T eps) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
   T m = d[k];
@@ -53,31 +354,30 @@ __global__ void thomas_kernel(const T* __restrict__ dl,
   }
 }
 
-template <typename T>
-int launch(const T* dl, const T* d, const T* du, const T* b, T* x, T* cp,
-           int n, int K, T eps, void* stream) {
-  if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (K + threads - 1) / threads;
-  thomas_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      dl, d, du, b, x, cp, n, K, eps);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// Plain C entries for ctypes.  dl, d, du, b, x and the scratch cp are
-// contiguous (n, K) device arrays; dl[0, :] and du[n-1, :] are ignored.
-// Returns a cudaError_t (0 on success).
-extern "C" int thomas_f32(const float* dl, const float* d, const float* du,
-                          const float* b, float* x, float* cp, int n, int K,
-                          float eps, void* stream) {
-  return launch<float>(dl, d, du, b, x, cp, n, K, eps, stream);
+// Plain C entries for ctypes.  dl, d, du, b and x are contiguous (K, n)
+// device arrays (dl[:, 0] and du[:, n-1] are ignored); `resident` picks the
+// design (thomas_resident_fits says where it fits); ws is the streaming
+// design's scratch of 2 * ceil(K / 32) * 32 * n elements (unused when
+// resident).  Returns a cudaError_t (0 on success).
+extern "C" int thomas_f32(const float* dl, const float* d, const float* du, const float* b,
+                          float* x, float* ws, int n, int K, float eps, int resident,
+                          void* stream) {
+  return launch<float>(dl, d, du, b, x, ws, n, K, eps, resident, stream);
 }
 
-extern "C" int thomas_f64(const double* dl, const double* d,
-                          const double* du, const double* b, double* x,
-                          double* cp, int n, int K, double eps,
-                          void* stream) {
-  return launch<double>(dl, d, du, b, x, cp, n, K, eps, stream);
+extern "C" int thomas_f64(const double* dl, const double* d, const double* du,
+                          const double* b, double* x, double* ws, int n, int K, double eps,
+                          int resident, void* stream) {
+  return launch<double>(dl, d, du, b, x, ws, n, K, eps, resident, stream);
+}
+
+extern "C" int thomas_rowwise_f32(const float* dl, const float* d, const float* du,
+                                  const float* b, float* x, float* cp, int n, int K, float eps,
+                                  void* stream) {
+  if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  thomas_rowwise_kernel<float><<<(K + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      dl, d, du, b, x, cp, n, K, eps);
+  return (int)cudaGetLastError();
 }

@@ -34,7 +34,12 @@ from xitorch_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve_kernel
 from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 from xitorch_tpu_torch.utils.misc import get_method
 
-__all__ = ["solve"]
+__all__ = ["solve", "flush_convergence_warnings"]
+
+# eager checks of solves on CUDA tensors whose verdict is still on its way
+# to the host: (event, pinned host copy of (failed, max resid, max stop),
+# method)
+_PENDING: list = []
 
 
 def _fused_cg(A, B, E=None, M=None, rtol: float = 1e-6, atol: float = 1e-8,
@@ -299,9 +304,14 @@ def solve(A: LinearOperator, B: torch.Tensor,
     raises for them.
 
     A :class:`ConvergenceWarning` is emitted when the solve did not
-    converge.  The check always runs (PyTorch is eager): one extra matvec,
-    norms and a host synchronisation per call.
+    converge.  The check always runs (PyTorch is eager): one extra matvec
+    and norms per call.  On CPU tensors it warns before returning.  On CUDA
+    tensors it does not synchronise: its verdict is copied to the host
+    behind the solve, and the warning is emitted by the first later call of
+    :func:`solve` that finds the copy done, or by
+    :func:`flush_convergence_warnings`.
     """
+    _report_pending(wait=False)
     if A.shape[-1] != A.shape[-2]:
         raise RuntimeError("The linear operator A must have a square shape")
     if A.shape[-1] != B.shape[-2]:
@@ -492,7 +502,9 @@ class _SolveFunction(torch.autograd.Function):
 
 def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
     """Warn if the returned solution's measured residual is above 10x the
-    tolerance (one extra matvec and a host synchronisation)."""
+    tolerance (one extra matvec).  On CUDA tensors the verdict is queued
+    (:func:`_report_pending`) instead of read, so the call does not
+    synchronise."""
     rtol = fwd_options.get("rtol", 1e-6)
     atol = fwd_options.get("atol", 1e-8)
     with torch.no_grad():
@@ -510,11 +522,46 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
             eps_d = torch.finfo(x.dtype).eps
             scale = torch.linalg.norm(Ax, dim=-2) + bnorm
             stop = torch.maximum(stop, 100 * eps_d * scale)
-        if bool((resid > 10 * stop).any()):
-            warnings.warn(ConvergenceWarning(
-                "solve (method=%s) did not converge: max residual %.3e "
-                "(tolerance %.3e); the best iterate is returned"
-                % (method, float(resid.max()), float(stop.max()))))
+        if resid.numel() == 0:
+            return
+        verdict = torch.stack([(resid > 10 * stop).any().to(resid.dtype),
+                               resid.max(), stop.max()])
+        if verdict.is_cuda:
+            host = torch.empty(3, dtype=verdict.dtype, pin_memory=True)
+            with torch.cuda.device(verdict.device):
+                host.copy_(verdict, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            _PENDING.append((done, host, method))
+            return
+    _warn_verdict(verdict, method)
+
+
+def _warn_verdict(verdict: torch.Tensor, method) -> None:
+    failed, resid, stop = verdict.tolist()
+    if failed:
+        warnings.warn(ConvergenceWarning(
+            "solve (method=%s) did not converge: max residual %.3e "
+            "(tolerance %.3e); the best iterate is returned" % (method, resid, stop)))
+
+
+def _report_pending(wait: bool) -> None:
+    """Emit the warnings of the queued eager checks whose copy has reached
+    the host (``wait``: of all of them, waiting for each)."""
+    while _PENDING:
+        done, host, method = _PENDING[0]
+        if wait:
+            done.synchronize()
+        elif not done.query():
+            return
+        _PENDING.pop(0)
+        _warn_verdict(host, method)
+
+
+def flush_convergence_warnings() -> None:
+    """Wait for the eager convergence checks of earlier :func:`solve` calls
+    on CUDA tensors and emit their warnings now (a host synchronisation)."""
+    _report_pending(wait=True)
 
 
 def _warn_nonconverged_eager(what: str, method, info) -> None:

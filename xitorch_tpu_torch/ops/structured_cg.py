@@ -124,8 +124,9 @@ def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
                            "fit the kernel" % (K, n, r, nb))
     if any(int(o) < 1 for o in offsets):
         raise RuntimeError("structured_cg_cuda: band offsets must be >= 1")
-    offs = torch.tensor([int(o) for o in offsets], dtype=torch.int32,
-                        device=b.device)
+    # host memory: the kernel takes the offsets by value (a copy to the
+    # device would synchronise the stream)
+    offs = (ctypes.c_int * nb)(*(int(o) for o in offsets))
     x = torch.empty_like(b)
     it = torch.empty(K, dtype=torch.float32, device=b.device)
     res = torch.empty(K, dtype=torch.float32, device=b.device)
@@ -134,7 +135,7 @@ def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.structured_cg_f32(
             d.data_ptr(), bl.data_ptr(), bu.data_ptr(), V.data_ptr(),
-            b.data_ptr(), offs.data_ptr(), x.data_ptr(), it.data_ptr(),
+            b.data_ptr(), ctypes.addressof(offs), x.data_ptr(), it.data_ptr(),
             res.data_ptr(), K, n, nb, r, int(max_niter), rtol * rtol,
             atol * atol, eps, stream)
     _build.check(rc, "structured_cg_cuda")

@@ -1,10 +1,11 @@
 """Batched tridiagonal (Thomas) solve (counterpart of xitorch_tpu/ops/tridiag.py).
 
-Layout is ``(n, K)``: K independent systems along the fast axis, so every
-step of the serial sweep reads one contiguous row.  On a CUDA tensor
-:func:`tridiag_solve_kernel` launches the hand-written kernel in
-``csrc/tridiag.cu`` (:func:`thomas_cuda`), or raises; on a CPU tensor it
-runs :func:`thomas_plain`, the same sweep in PyTorch.
+Layout is the callers' ``(K, n)``: K independent systems, each row
+contiguous.  On a CUDA tensor :func:`tridiag_solve_kernel` launches the
+hand-written kernel in ``csrc/tridiag.cu`` (:func:`thomas_cuda`), or
+raises; on a CPU tensor it runs :func:`thomas_plain`, the same sweep in
+PyTorch.  The kernel stages the rows of 32 systems through shared memory,
+so it reads and writes this layout with no transposes around it.
 
 Differentiability: :func:`tridiag_solve` wraps the solve in a
 ``torch.autograd.Function`` whose backward is the transposed solve (the
@@ -22,15 +23,29 @@ import torch.nn.functional as F
 from xitorch_tpu_torch.ops import _build
 
 __all__ = ["tridiag_solve", "tridiag_matvec", "tridiag_solve_kernel",
-           "thomas_cuda", "thomas_plain"]
+           "thomas_cuda", "thomas_plain", "thomas_design"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "thomas_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, _P],
-    "thomas_f64": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_double, _P],
+    "thomas_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
+    "thomas_f64": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int, _P],
+    "thomas_rowwise_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
+
+# csrc/tridiag.cu: systems a block, the ring of 4 stages of dl, d, du, b
+# tiles (32 positions x 33), and the row stride of the resident cp and y;
+# a Hopper block may opt in to 227 KB of shared memory
+_SYS, _RING_ELEMS, _PAD = 32, 4 * 4 * 32 * 33, 33
+_SMEM_OPTIN = 232448
+
+
+def thomas_design(n: int, dtype) -> str:
+    """The kernel's design for systems of n unknowns: "resident" (cp and the
+    forward x of the block's 32 systems in shared memory beside the ring)
+    where they fit, else "streaming" (through a device-memory scratch)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    need = (_RING_ELEMS + 2 * n * _PAD) * itemsize
+    return "resident" if need <= _SMEM_OPTIN else "streaming"
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -56,54 +71,82 @@ def tridiag_matvec(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
 
 def thomas_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                  b: torch.Tensor, eps: float) -> torch.Tensor:
-    """Plain PyTorch Thomas sweep on ``(n, K)`` panels, vectorised over K:
+    """Plain PyTorch Thomas sweep on ``(K, n)`` tensors, vectorised over K:
     the same recurrence and zero-pivot rule as the kernel."""
-    n = b.shape[0]
+    n = b.shape[-1]
     cp = torch.empty_like(b)
     x = torch.empty_like(b)
-    m = torch.where(d[0] == 0, eps, d[0])
-    cp[0] = du[0] / m
-    x[0] = b[0] / m
+    m = torch.where(d[:, 0] == 0, eps, d[:, 0])
+    cp[:, 0] = du[:, 0] / m
+    x[:, 0] = b[:, 0] / m
     for i in range(1, n):
-        m = d[i] - dl[i] * cp[i - 1]
+        m = d[:, i] - dl[:, i] * cp[:, i - 1]
         m = torch.where(m == 0, eps, m)
-        cp[i] = du[i] / m
-        x[i] = (b[i] - dl[i] * x[i - 1]) / m
+        cp[:, i] = du[:, i] / m
+        x[:, i] = (b[:, i] - dl[:, i] * x[:, i - 1]) / m
     for i in range(n - 2, -1, -1):
-        x[i] = x[i] - cp[i] * x[i + 1]
+        x[:, i] = x[:, i] - cp[:, i] * x[:, i + 1]
     return x
 
 
-def thomas_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
-                b: torch.Tensor, eps: float) -> torch.Tensor:
-    """Launch the Thomas kernel on contiguous ``(n, K)`` CUDA panels of
-    one dtype (float32 or float64)."""
-    panels = (dl, d, du, b)
+def _check_panels(what, panels):
+    b = panels[-1]
     if b.dtype not in (torch.float32, torch.float64):
-        raise RuntimeError("thomas_cuda: float32 or float64 only (got %s)" % b.dtype)
+        raise RuntimeError("%s: float32 or float64 only (got %s)" % (what, b.dtype))
     for t in panels:
         if not t.is_cuda or t.dtype != b.dtype or t.shape != b.shape \
                 or not t.is_contiguous() or t.device != b.device:
             raise RuntimeError(
-                "thomas_cuda: dl, d, du, b must be contiguous CUDA tensors "
-                "of one dtype, device and shape (n, K)")
+                "%s: dl, d, du, b must be contiguous CUDA tensors of one dtype, "
+                "device and 2-D shape" % what)
     if b.dim() != 2:
-        raise RuntimeError("thomas_cuda: panels must be (n, K) (got %s)" % (tuple(b.shape),))
-    n, K = b.shape
+        raise RuntimeError("%s: expected 2-D tensors (got %s)" % (what, tuple(b.shape)))
+
+
+def thomas_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
+                b: torch.Tensor, eps: float) -> torch.Tensor:
+    """Launch the Thomas kernel on contiguous ``(K, n)`` CUDA tensors of one
+    dtype (float32 or float64).  The design (:func:`thomas_design`) is
+    recorded in ``thomas_cuda.last_design``."""
+    _check_panels("thomas_cuda", (dl, d, du, b))
+    K, n = b.shape
     x = torch.empty_like(b)
-    cp = torch.empty_like(b)
+    design = thomas_design(n, b.dtype)
+    if design == "streaming":
+        ws = torch.empty(2 * -(-K // _SYS) * _SYS * n, dtype=b.dtype, device=b.device)
+    else:
+        ws = x  # not read
     lib = _build.load("tridiag", _SIGNATURES)
     fn = lib.thomas_f32 if b.dtype == torch.float32 else lib.thomas_f64
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
-                x.data_ptr(), cp.data_ptr(), n, K, eps, stream)
+                x.data_ptr(), ws.data_ptr(), n, K, eps, int(design == "resident"), stream)
     _build.check(rc, "thomas_cuda")
     thomas_cuda.launches += 1
+    thomas_cuda.last_design = design
     return x
 
 
 thomas_cuda.launches = 0
+thomas_cuda.last_design = None
+
+
+def thomas_rowwise_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
+                        b: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel this design replaced (one thread a system on ``(n, K)``
+    float32 panels), kept only to time the two in turns."""
+    _check_panels("thomas_rowwise_cuda", (dl, d, du, b))
+    n, K = b.shape
+    x = torch.empty_like(b)
+    cp = torch.empty_like(b)
+    lib = _build.load("tridiag", _SIGNATURES)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.thomas_rowwise_f32(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
+                                    x.data_ptr(), cp.data_ptr(), n, K, eps, stream)
+    _build.check(rc, "thomas_rowwise_cuda")
+    return x
 
 
 def tridiag_solve_kernel(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
@@ -123,14 +166,14 @@ def tridiag_solve_kernel(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     if K == 0 or n == 0:
         return torch.zeros((*batch, n), dtype=b.dtype, device=b.device)
 
-    def to_panel(a):
-        return a.expand(*batch, n).reshape(K, n).t().contiguous()  # (n, K)
+    def flat(a):  # (K, n); a copy only where a is broadcast or strided
+        return a.expand(*batch, n).reshape(K, n).contiguous()
 
     if eps == 0.0:
         eps = float(torch.finfo(b.dtype).tiny)
     impl = thomas_cuda if use_kernel(b) else thomas_plain
-    x = impl(*map(to_panel, (dl, d, du, b)), eps)
-    return x.t().reshape(*batch, n)
+    x = impl(*map(flat, (dl, d, du, b)), eps)
+    return x.reshape(*batch, n)
 
 
 class _TridiagSolve(torch.autograd.Function):
