@@ -9,29 +9,32 @@
 // 10 MB at K = 512, n = 1024 in f32, 3 us at full bandwidth), so the time
 // is the chain of dependent steps, as long as no step waits on memory.
 //
-// Design: a block owns 32 systems; one warp runs the recurrence, one lane a
-// system, and three loader warps keep it fed.
+// Design: a block is one warp and owns 32 systems, one lane a system.
 //   * Forward: the rows of dl, d, du, b stream in chunks of 32 positions
-//     into a ring of 4 stages in shared memory, by cp.async of one element
-//     a thread from the callers' (K, n) layout (a warp reads 32 consecutive
-//     positions of one system: one 128-byte line), two chunks ahead of the
-//     chain.  A stage holds each array as [position][system] with a row
-//     stride of 33, so the loaders' writes and the chain's reads (32
-//     systems at one position) are both free of bank conflicts.
+//     into a ring of 4 stages in shared memory by cp.async of one element
+//     a lane from the callers' (K, n) layout (32 lanes read 32 consecutive
+//     positions of one system: one 128-byte line), three chunks ahead of
+//     the chain.  The warp issues them itself, four rows after each step,
+//     while the step's divisions are in flight.  A stage holds each array
+//     as [position][system] with a row stride of 33, so the copies' writes
+//     and the chain's reads (32 systems at one position) are both free of
+//     bank conflicts; a step's rows are read into registers a group of 8
+//     steps ahead.
 //   * cp and the forward x (y) go where the chain never waits on them:
 //     into shared memory ([position][system], stride 33) when 2 n of them
 //     fit beside the ring ("resident"), else into a device-memory scratch
 //     laid out [block][position][32 systems], one 128-byte store a step
 //     ("streaming").
 //   * Back: x_i = y_i - cp_i x_{i+1}, one FMA a step.  Resident: read from
-//     shared memory and x written over y.  Streaming: the loaders bring the
-//     scratch back in chunks, last first, by 16-byte cp.async into the ring
-//     ahead of the chain; the chain writes each x chunk into a staging tile
-//     of the stage, which the loaders store to the callers' (K, n) layout
-//     (one line a warp) before they refill the stage.
-// The chain and the loaders meet at one block barrier a chunk.  The
-// recurrence is the reference's, operation for operation: m = d - dl cp,
-// a zero pivot replaced by eps (the dtype's smallest normal number by
+//     shared memory and x written over y.  Streaming: the scratch comes
+//     back in chunks, last first, by 16-byte cp.async into the ring three
+//     chunks ahead; each x chunk goes to a staging tile of the stage and
+//     from there to the callers' (K, n) layout, one line a system.
+// One warp a block, so the warp's own cp.async groups and __syncwarp are
+// all the synchronisation there is: with loader warps meeting the chain at
+// a block barrier every chunk, the chain ran 1.6x slower on an NVIDIA H100.
+// The recurrence is the reference's, operation for operation: m = d - dl
+// cp, a zero pivot replaced by eps (the dtype's smallest normal number by
 // default), cp = du / m and y = (b - dl y) / m by IEEE division, and the
 // back substitution; dl[:, 0] and du[:, n-1] are never used.
 #include <cuda_runtime.h>
@@ -42,20 +45,50 @@ constexpr int kSys = 32;                  // systems a block: the chain warp's l
 constexpr int kPad = kSys + 1;            // row stride of a [position][system] tile
 constexpr int kChunk = 32;                // positions a ring stage
 constexpr int kStages = 4;
-constexpr int kLoaders = 3;               // loader warps
+#ifndef THOMAS_LOADERS
+#define THOMAS_LOADERS 3
+#endif
+constexpr int kLoaders = THOMAS_LOADERS;  // loader warps
 constexpr int kThreads = 32 * (1 + kLoaders);
-constexpr int kStageElems = 4 * kChunk * kPad;  // dl, d, du, b tiles
+constexpr int kGroup = 8;                 // steps whose rows are read ahead
+constexpr int kOut = 2 * kChunk * kSys;   // back pass: cp, y tiles, then x's
 constexpr int kMaxDevices = 64;
 
+// elements in 16 bytes, and the row stride of a forward [system][position]
+// tile: 16-byte rows, and lane s's row 16 s bytes of banks past lane 0's,
+// so 8 lanes' 16-byte reads are one wavefront
 template <typename T>
-constexpr size_t ring_bytes() { return (size_t)kStages * kStageElems * sizeof(T); }
+constexpr int kPer = 16 / (int)sizeof(T);
+template <typename T>
+constexpr int kRow = kChunk + kPer<T>;
+template <typename T>
+constexpr int kStageElems = 4 * kSys * kRow<T>;  // dl, d, du, b tiles
+
+template <typename T>
+constexpr size_t ring_bytes() { return (size_t)kStages * kStageElems<T> * sizeof(T); }
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static __device__ __forceinline__ void put(const float4& v, float* o) {
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static __device__ __forceinline__ void put(const double2& v, double* o) {
+    o[0] = v.x; o[1] = v.y;
+  }
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// one element, 4 or 8 bytes (cached in L1: the next chunk reads the same
-// lines)
+// one element, 4 or 8 bytes
 template <typename T>
 __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
   if constexpr (sizeof(T) == 4)
@@ -66,63 +99,96 @@ __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
                  : "memory");
 }
 
-// 16 bytes, past L1 (the scratch was just written through to L2)
+// 16 bytes, past L1
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-// wait until at most kStages - 2 of this thread's groups are pending
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(kStages - 2) : "memory");
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted against the barrier's expected arrivals)
+__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" :: "r"(smem_u32(bar))
+               : "memory");
 }
 
-// Loader warp `lw`: the rows [i0, i0 + 32) of dl, d, du, b of the block's
-// systems into the stage's [position][system] tiles.  dl at position 0 is
-// written as 0, so the chain's first step is m = d0 (dl[:, 0] is ignored);
-// the lanes past the last system get d = 1 and zeros, so that they run the
-// chain on ordinary numbers.
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait far longer
+// than any chunk takes traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  for (unsigned tries = 0;; ++tries) {
+    unsigned done;
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (tries > (1u << 24)) __trap();
+  }
+}
+
+// Loaders: positions [i0, i0 + 32) of dl, d, du, b of the block's systems
+// into the stage's [system][position] tiles.  With n a multiple of 16
+// bytes' worth every copy is 16 bytes (thread `lt` of the loaders takes
+// pieces lt, lt + 32 kLoaders, ...: four systems' lines a warp); else one
+// element a copy, lane = position.  Systems past the last are skipped
+// (their tile rows hold d = 1 and zeros).
 template <typename T>
-__device__ __forceinline__ void load_rows(T* stage, const T* dl, const T* d, const T* du,
-                                          const T* b, int lw, int lane, int k0, int nsys,
-                                          int n, int i0) {
-  const int i = i0 + lane;
-  if (i >= n) return;
-  for (int q = lw; q < 4 * kSys; q += kLoaders) {
-    const int a = q / kSys;
-    const int s = q % kSys;
-    T* dst = stage + a * (kChunk * kPad) + lane * kPad + s;
-    if (s >= nsys || (a == 0 && i == 0)) {
-      *dst = T(a == 1 && s >= nsys ? 1 : 0);
-    } else {
-      const T* src = a == 0 ? dl : a == 1 ? d : a == 2 ? du : b;
-      cp_async_elem(dst, src + (size_t)(k0 + s) * n + i);
+__device__ __forceinline__ void issue_rows(T* stage, const T* dl, const T* d, const T* du,
+                                           const T* b, bool vec, int lt, int k0, int nsys,
+                                           int n, int i0) {
+  if (vec) {
+    constexpr int kPieces = kChunk / kPer<T>;    // 16-byte pieces a row
+    for (int q = lt; q < 4 * kSys * kPieces; q += 32 * kLoaders) {
+      const int a = q / (kSys * kPieces);
+      const int s = q / kPieces % kSys;
+      const int e = q % kPieces * kPer<T>;
+      if (s < nsys && i0 + e < n) {
+        const T* src = a == 0 ? dl : a == 1 ? d : a == 2 ? du : b;
+        cp_async16(stage + (a * kSys + s) * kRow<T> + e, src + (size_t)(k0 + s) * n + i0 + e);
+      }
+    }
+  } else {
+    const int lane = lt & 31;
+    const int i = i0 + lane;
+    if (i >= n) return;
+    for (int q = lt >> 5; q < 4 * kSys; q += kLoaders) {
+      const int a = q / kSys;
+      const int s = q % kSys;
+      if (s < nsys) {
+        const T* src = a == 0 ? dl : a == 1 ? d : a == 2 ? du : b;
+        cp_async_elem(stage + (a * kSys + s) * kRow<T> + lane, src + (size_t)(k0 + s) * n + i);
+      }
     }
   }
 }
 
-// Streaming back pass, loader side: the scratch rows [i0, i0 + cnt) of cp
-// and y into the stage's [position][32] tiles, 16 bytes a thread.
+// Back pass, loader thread `lt`: the scratch rows [i0, i0 + cnt) of cp and
+// y into the stage's [position][32] tiles, 16 bytes a copy.
 template <typename T>
-__device__ __forceinline__ void load_scratch(T* stage, const T* cpw, const T* yw, int lt,
-                                             int i0, int cnt) {
+__device__ __forceinline__ void issue_scratch(T* stage, const T* cpw, const T* yw, int lt,
+                                              int i0, int cnt) {
   constexpr int kPer = 16 / sizeof(T);           // elements in 16 bytes
   constexpr int kPieces = kChunk * kSys / kPer;  // pieces a tile
   for (int q = lt; q < 2 * kPieces; q += 32 * kLoaders) {
     const int a = q / kPieces;
     const int e = (q % kPieces) * kPer;          // element within the tile
-    if (e / kSys >= cnt) continue;
-    const T* src = (a == 0 ? cpw : yw) + (size_t)i0 * kSys + e;
-    cp_async16(stage + a * (kChunk * kSys) + e, src);
+    if (e / kSys < cnt)
+      cp_async16(stage + a * (kChunk * kSys) + e, (a == 0 ? cpw : yw) + (size_t)i0 * kSys + e);
   }
 }
 
-// Streaming back pass, loader side: the x chunk the chain left in the
-// stage's staging tile ([position][system], stride 33) to (K, n).
+// Back pass, loader warp `lw`: the x chunk the chain left in the stage's
+// staging tile ([position][system], stride 33) to (K, n), a line a system.
 template <typename T>
 __device__ __forceinline__ void store_x(const T* out, T* x, int lw, int lane, int k0,
                                         int nsys, int n, int i0, int cnt) {
@@ -137,8 +203,12 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
               const T* __restrict__ b, T* __restrict__ x, T* __restrict__ ws, int n, int K,
               T eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // full[s]: the loaders' copies into stage s have landed; empty[s]: the
+  // chain is done with stage s.  Fill f (forward chunks 0 .. nchunks - 1,
+  // then the back pass's) goes into stage f % kStages, its phase f / kStages.
+  __shared__ __align__(8) unsigned long long full[kStages], empty[kStages];
   T* ring = reinterpret_cast<T*>(smem_raw);
-  T* cpS = ring + kStages * kStageElems;  // resident: [n][kPad] each
+  T* cpS = ring + kStages * kStageElems<T>;  // resident: [n][kPad] each
   T* yS = cpS + (size_t)n * kPad;
 
   const int warp = threadIdx.x >> 5;
@@ -147,41 +217,53 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
   const int k0 = blockIdx.x * kSys;
   const int nsys = min(kSys, K - k0);
   const int nchunks = (n + kChunk - 1) / kChunk;
+  const int lt = threadIdx.x - 32;        // thread index among the loaders
+  const bool vec = n % kPer<T> == 0;
   // streaming scratch of this block: cp then y, each [n][32]
   T* cpw = ws + (size_t)blockIdx.x * 2 * n * kSys;
   T* yw = cpw + (size_t)n * kSys;
 
-  // ---- forward sweep ----
-  if (warp > 0) {
-    for (int c = 0; c < kStages - 1; ++c) {
-      if (c < nchunks)
-        load_rows(ring + c * kStageElems, dl, d, du, b, lw, lane, k0, nsys, n, c * kChunk);
-      cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32 * kLoaders);
+      mbar_init(&empty[s], 32);
     }
-    cp_async_wait_ring();
+  }
+  // the lanes past the last system run the chain on d = 1 and zeros
+  if (warp == 0 && lane >= nsys) {
+    for (int st = 0; st < kStages; ++st)
+      for (int a = 0; a < 4; ++a)
+        for (int t = 0; t < kChunk; ++t)
+          ring[st * kStageElems<T> + (a * kSys + lane) * kRow<T> + t] = T(a == 1 ? 1 : 0);
   }
   __syncthreads();
 
+  auto free_for = [&](int f) {  // loaders: stage f % kStages may be refilled
+    if (f >= kStages) mbar_wait(&empty[f % kStages], ((f / kStages) - 1) & 1);
+  };
+
+  // ---- forward sweep ----
   T cprev = T(0), yprev = T(0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (warp > 0) {
-      const int cn = c + kStages - 1;
-      if (cn < nchunks)
-        load_rows(ring + (cn % kStages) * kStageElems, dl, d, du, b, lw, lane, k0, nsys, n,
-                  cn * kChunk);
-      cp_async_commit();
-      cp_async_wait_ring();
-    } else {
-      const T* st = ring + (c % kStages) * kStageElems;
+  if (warp > 0) {
+    for (int c = 0; c < nchunks; ++c) {
+      free_for(c);
+      issue_rows(ring + (c % kStages) * kStageElems<T>, dl, d, du, b, vec, lt, k0, nsys, n,
+                 c * kChunk);
+      mbar_arrive_copies(&full[c % kStages]);
+    }
+  } else {
+    for (int c = 0; c < nchunks; ++c) {
+      mbar_wait(&full[c % kStages], (c / kStages) & 1);
+      const T* st = ring + (c % kStages) * kStageElems<T>;
       const int i0 = c * kChunk;
       const int cnt = min(kChunk, n - i0);
-      auto step = [&](int t) {
-        const int o = t * kPad + lane;
-        const T l = st[o];
-        T m = st[kChunk * kPad + o] - l * cprev;
+      // this lane's row of array a
+      auto rowp = [&](int a) { return st + (a * kSys + lane) * kRow<T>; };
+      auto step = [&](int t, T l, T dv, T u, T bv) {
+        T m = dv - l * cprev;
         if (m == T(0)) m = eps;
-        cprev = st[2 * kChunk * kPad + o] / m;
-        yprev = (st[3 * kChunk * kPad + o] - l * yprev) / m;
+        cprev = u / m;
+        yprev = (bv - l * yprev) / m;
         if constexpr (kResident) {
           cpS[(size_t)(i0 + t) * kPad + lane] = cprev;
           yS[(size_t)(i0 + t) * kPad + lane] = yprev;
@@ -191,19 +273,47 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
         }
       };
       if (cnt == kChunk) {
+        // rows a group of steps ahead in registers, 16 bytes a read
+        using V = typename Vec16<T>::type;
+        auto read_group = [&](T (&dst)[4][kGroup], int g) {
 #pragma unroll
-        for (int t = 0; t < kChunk; ++t) step(t);
+          for (int a = 0; a < 4; ++a) {
+            const V* src = reinterpret_cast<const V*>(rowp(a) + g * kGroup);
+#pragma unroll
+            for (int v = 0; v < kGroup / kPer<T>; ++v) Vec16<T>::put(src[v], &dst[a][v * kPer<T>]);
+          }
+        };
+        T cur[4][kGroup], nxt[4][kGroup];
+        read_group(cur, 0);
+        if (c == 0) cur[0][0] = T(0);  // dl[:, 0] is ignored
+#pragma unroll
+        for (int g = 0; g < kChunk / kGroup; ++g) {
+          if (g + 1 < kChunk / kGroup) read_group(nxt, g + 1);
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j)
+            step(g * kGroup + j, cur[0][j], cur[1][j], cur[2][j], cur[3][j]);
+          if (g + 1 < kChunk / kGroup) {
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int j = 0; j < kGroup; ++j) cur[a][j] = nxt[a][j];
+          }
+        }
       } else {
-        for (int t = 0; t < cnt; ++t) step(t);
+        for (int t = 0; t < cnt; ++t)
+          step(t, i0 + t == 0 ? T(0) : rowp(0)[t], rowp(1)[t], rowp(2)[t], rowp(3)[t]);
       }
+      mbar_arrive(&empty[c % kStages]);
     }
-    __syncthreads();
+    __threadfence_block();
   }
+  // the scratch and the resident arrays are complete
+  __syncthreads();
 
   // ---- back substitution ----
-  T xn = yprev;  // x_{n-1} = y_{n-1}
   if constexpr (kResident) {
     if (warp == 0) {
+      T xn = yprev;  // x_{n-1} = y_{n-1}
       yS[(size_t)(n - 1) * kPad + lane] = xn;
 #pragma unroll 8
       for (int i = n - 2; i >= 0; --i) {
@@ -217,65 +327,54 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
     // consecutive positions
     for (int s = warp; s < nsys; s += 1 + kLoaders)
       for (int i = lane; i < n; i += 32) x[(size_t)(k0 + s) * n + i] = yS[(size_t)i * kPad + s];
-  } else {
-    // stage layout in the back pass: cp [kChunk][32], y [kChunk][32], then
-    // the x staging tile [kChunk][kPad]
-    constexpr int kOut = 2 * kChunk * kSys;
-    const int lt = threadIdx.x - 32;
-    if (warp > 0) {
-      for (int j = 0; j < kStages - 1; ++j) {
-        if (j < nchunks) {
-          const int c = nchunks - 1 - j;
-          load_scratch(ring + j * kStageElems, cpw, yw, lt, c * kChunk,
-                       min(kChunk, n - c * kChunk));
-        }
-        cp_async_commit();
-      }
-      cp_async_wait_ring();
-    }
-    __syncthreads();
+  } else if (warp > 0) {
+    // fill nchunks + j holds back chunk j: positions of chunk nchunks - 1 - j
+    auto chunk_of = [&](int j) { return nchunks - 1 - j; };
     for (int j = 0; j < nchunks; ++j) {
-      if (warp > 0) {
-        if (j > 0) {
-          const int c = nchunks - j;  // the chunk the chain finished last
-          store_x(ring + ((j - 1) % kStages) * kStageElems + kOut, x, lw, lane, k0, nsys, n,
-                  c * kChunk, min(kChunk, n - c * kChunk));
-        }
-        const int jn = j + kStages - 1;
-        if (jn < nchunks) {
-          const int c = nchunks - 1 - jn;
-          load_scratch(ring + (jn % kStages) * kStageElems, cpw, yw, lt, c * kChunk,
-                       min(kChunk, n - c * kChunk));
-        }
-        cp_async_commit();
-        cp_async_wait_ring();
-      } else {
-        const T* st = ring + (j % kStages) * kStageElems;
-        T* out = const_cast<T*>(st) + kOut;
-        const int c = nchunks - 1 - j;
-        const int i0 = c * kChunk;
-        const int cnt = min(kChunk, n - i0);
-        int top = cnt - 1;
-        if (j == 0) {  // position n - 1
-          out[top * kPad + lane] = xn;
-          --top;
-        }
-        auto step = [&](int t) {
-          xn = st[kChunk * kSys + t * kSys + lane] - st[t * kSys + lane] * xn;
-          out[t * kPad + lane] = xn;
-        };
-        if (top == kChunk - 1) {
-#pragma unroll
-          for (int t = kChunk - 1; t >= 0; --t) step(t);
-        } else {
-          for (int t = top; t >= 0; --t) step(t);
-        }
+      const int f = nchunks + j;
+      free_for(f);
+      T* st = ring + (f % kStages) * kStageElems<T>;
+      if (j >= kStages) {  // the stage's last fill was back chunk j - kStages
+        const int c = chunk_of(j - kStages);
+        store_x(st + kOut, x, lw, lane, k0, nsys, n, c * kChunk, min(kChunk, n - c * kChunk));
       }
-      __syncthreads();
+      const int c = chunk_of(j);
+      issue_scratch(st, cpw, yw, lt, c * kChunk, min(kChunk, n - c * kChunk));
+      mbar_arrive_copies(&full[f % kStages]);
     }
-    if (warp > 0)
-      store_x(ring + ((nchunks - 1) % kStages) * kStageElems + kOut, x, lw, lane, k0, nsys,
-              n, 0, min(kChunk, n));
+    for (int j = nchunks > kStages ? nchunks - kStages : 0; j < nchunks; ++j) {
+      const int f = nchunks + j;
+      mbar_wait(&empty[f % kStages], (f / kStages) & 1);
+      const int c = chunk_of(j);
+      store_x(ring + (f % kStages) * kStageElems<T> + kOut, x, lw, lane, k0, nsys, n,
+              c * kChunk, min(kChunk, n - c * kChunk));
+    }
+  } else {
+    T xn = yprev;  // x_{n-1} = y_{n-1}
+    for (int j = 0; j < nchunks; ++j) {
+      const int f = nchunks + j;
+      mbar_wait(&full[f % kStages], (f / kStages) & 1);
+      const T* st = ring + (f % kStages) * kStageElems<T>;
+      T* out = const_cast<T*>(st) + kOut;
+      const int i0 = (nchunks - 1 - j) * kChunk;
+      const int cnt = min(kChunk, n - i0);
+      int top = cnt - 1;
+      if (j == 0) {  // position n - 1
+        out[top * kPad + lane] = xn;
+        --top;
+      }
+      auto step = [&](int t) {
+        xn = st[kChunk * kSys + t * kSys + lane] - st[t * kSys + lane] * xn;
+        out[t * kPad + lane] = xn;
+      };
+      if (top == kChunk - 1) {
+#pragma unroll
+        for (int t = kChunk - 1; t >= 0; --t) step(t);
+      } else {
+        for (int t = top; t >= 0; --t) step(t);
+      }
+      mbar_arrive(&empty[f % kStages]);
+    }
   }
 }
 
@@ -286,35 +385,45 @@ size_t resident_bytes(int n) {
 
 // Once per instantiation and device: let the kernel take as much dynamic
 // shared memory as the card allows a block.
+// `avail` receives the dynamic bytes a block may take (beside the static
+// barriers); `cache` holds them per device, 0 until set.
 template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, bool* done, int* optin) {
+cudaError_t allow_smem(Kernel kernel, int* cache, int* avail) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess || done[dev]) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
-  if (e == cudaSuccess) done[dev] = true;
-  return e;
+  if (cache[dev] == 0) {
+    int optin = 0;
+    cudaFuncAttributes fa;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+    if (e != cudaSuccess) return e;
+    cache[dev] = optin - (int)fa.sharedSizeBytes;
+  }
+  *avail = cache[dev];
+  return cudaSuccess;
 }
 
 template <typename T>
 int launch(const T* dl, const T* d, const T* du, const T* b, T* x, T* ws, int n, int K,
            T eps, int resident, void* stream) {
-  static bool done_res[kMaxDevices] = {}, done_str[kMaxDevices] = {};
+  static int cache_res[kMaxDevices] = {}, cache_str[kMaxDevices] = {};
   if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   const int blocks = (K + kSys - 1) / kSys;
   int optin = 0;
   cudaError_t e;
   if (resident) {
-    e = allow_smem(thomas_kernel<T, true>, done_res, &optin);
+    e = allow_smem(thomas_kernel<T, true>, cache_res, &optin);
     if (e != cudaSuccess) return (int)e;
     if (resident_bytes<T>(n) > (size_t)optin) return (int)cudaErrorInvalidValue;
     thomas_kernel<T, true><<<blocks, kThreads, resident_bytes<T>(n), (cudaStream_t)stream>>>(
         dl, d, du, b, x, ws, n, K, eps);
   } else {
-    e = allow_smem(thomas_kernel<T, false>, done_str, &optin);
+    e = allow_smem(thomas_kernel<T, false>, cache_str, &optin);
     if (e != cudaSuccess) return (int)e;
     thomas_kernel<T, false><<<blocks, kThreads, ring_bytes<T>(), (cudaStream_t)stream>>>(
         dl, d, du, b, x, ws, n, K, eps);

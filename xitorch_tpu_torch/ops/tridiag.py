@@ -32,11 +32,17 @@ _SIGNATURES = {
     "thomas_rowwise_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
 
-# csrc/tridiag.cu: systems a block, the ring of 4 stages of dl, d, du, b
-# tiles (32 positions x 33), and the row stride of the resident cp and y;
-# a Hopper block may opt in to 227 KB of shared memory
-_SYS, _RING_ELEMS, _PAD = 32, 4 * 4 * 32 * 33, 33
-_SMEM_OPTIN = 232448
+# csrc/tridiag.cu: systems a block, and the row stride of the resident cp
+# and y; a Hopper block may opt in to 227 KB of shared memory, of which the
+# kernel's 8 barriers take 64 bytes
+_SYS, _PAD = 32, 33
+_SMEM_DYNAMIC = 232448 - 64
+
+
+def _ring_elems(itemsize: int) -> int:
+    """The ring: 4 stages of dl, d, du, b tiles of 32 systems x (32
+    positions + 16 bytes)."""
+    return 4 * 4 * _SYS * (32 + 16 // itemsize)
 
 
 def thomas_design(n: int, dtype) -> str:
@@ -44,8 +50,8 @@ def thomas_design(n: int, dtype) -> str:
     forward x of the block's 32 systems in shared memory beside the ring)
     where they fit, else "streaming" (through a device-memory scratch)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    need = (_RING_ELEMS + 2 * n * _PAD) * itemsize
-    return "resident" if need <= _SMEM_OPTIN else "streaming"
+    need = (_ring_elems(itemsize) + 2 * n * _PAD) * itemsize
+    return "resident" if need <= _SMEM_DYNAMIC else "streaming"
 
 
 def use_kernel(t: torch.Tensor) -> bool:
