@@ -11,7 +11,9 @@ paths give it, and drives these configurations through the public API:
 * BASELINE config 3: a batch of 512 ``TridiagLowRankOperator`` systems,
   n = 1024, rank 4, float32, solved by
   ``linalg.solve(method="structured_cg")``, forward and implicit gradient
-  (the structured-CG and Thomas kernels);
+  (the structured-CG kernel's register design, its shared-memory design
+  held and timed beside it), and with ``V = None`` forward and gradient
+  (the Thomas kernel, beside a probe of its recurrence's chain alone);
 * BASELINE config 2: 64 dense symmetric matrices of 256 x 256, float32,
   ``linalg.symeig(A, 8, "lowest")`` by exacteig, davidson, chebfsi and
   the default routing (which must be exacteig through the sweep kernel,
@@ -157,6 +159,11 @@ GATE_CLEAR = 1.5
 DC_LEVEL_TOL = 1e-4
 DC_LEVEL_F64 = 4.0
 
+
+# the device time of the Thomas kernel the present design replaced (one
+# thread a system), at config 3 on an NVIDIA H100 80GB HBM3 at 700 W,
+# timed in turns with the present one while both were built (PERF.md)
+THOMAS_REPLACED_MS = 0.5844
 
 # path A: the upstream solve benchmark's grid (benchmarks/benchmarks_solve.py)
 # and one batched point at full width
@@ -2613,14 +2620,18 @@ def config1(torch, np, xt, device, card):
 
 
 def config3(torch, np, xt, device, card, chain_probe):
-    """BASELINE config 3 on the card: the structured CG and Thomas kernels
-    against their plain versions at config 3's shapes and the card tests'
-    shapes, the Thomas kernel against the one it replaced and its chain
-    floor, ``linalg.solve`` forward and gradient (V given: the CG kernel; V
-    None: the Thomas kernel), the library calls, and timings.  Returns the
-    two kernels' records for the JSON line."""
-    from xitorch_tpu_torch.ops.structured_cg import structured_cg_cuda, structured_cg_plain
-    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain, thomas_rowwise_cuda
+    """BASELINE config 3 on the card: the structured CG kernel's two designs
+    and the Thomas kernel against their plain versions at config 3's shapes
+    and the card tests' shapes, the register window against the build,
+    ``linalg.solve`` forward and gradient (V given: the CG kernel; V None:
+    the Thomas kernel), the library calls, the CG designs in turns, the
+    Thomas kernel against its chain floor and the recorded time of the
+    kernel it replaced, and timings.  Returns the two kernels' records for
+    the JSON line."""
+    from xitorch_tpu_torch.ops.structured_cg import (
+        choose_path, register_attrs, register_window, structured_cg_cuda, structured_cg_plain,
+    )
+    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
 
     rng = np.random.default_rng(SEED)
 
@@ -2641,8 +2652,21 @@ def config3(torch, np, xt, device, card, chain_probe):
     cg_args = (d, bl, bu, Vf, b, (1,))
     cg_kw = dict(rtol=RTOL, atol=ATOL, max_niter=max_niter)
     xk, itk, _ = structured_cg_cuda(*cg_args, **cg_kw)
+    cg_design = structured_cg_cuda.last_design
     xp, itp, _ = structured_cg_plain(*cg_args, **cg_kw)
     torch.cuda.synchronize()
+    check(cg_design == "register", "config 3 did not take the register design: %s" % cg_design)
+    # the register window against the compiled kernels: registers a thread
+    # and the most threads a block may launch with
+    for r_w in (1, 2, 4, 8):
+        for nb_w in (1, 2):
+            regs, threads = register_attrs(r_w, nb_w)
+            print("cg register design, rank <= %d, %d band(s): %d registers a thread, %d "
+                  "threads a block at most, window n <= %d" % (r_w, nb_w, regs, threads,
+                                                               register_window(r_w, nb_w)))
+            check(register_window(r_w, nb_w) == 8 * threads,
+                  "the register window disagrees with the build at rank %d, %d bands"
+                  % (r_w, nb_w))
 
     def flat_resid(x):
         A = xt.TridiagLowRankOperator(d, 1.0, dev(V_np))
@@ -2668,6 +2692,59 @@ def config3(torch, np, xt, device, card, chain_probe):
     check(it_diff <= 2, "cg iteration counts differ by %d" % it_diff)
     check(bool((rk < RTOL * bnorm).all()) and bool((rp < RTOL * bnorm).all()),
           "cg measured residual above rtol*|b|")
+    # each design at config 3 and at the card tests' shapes (the shared
+    # design wherever the planes fit, the register design inside its window)
+    cg_cases = [((1,), RANK, BATCH, N, cg_args)]
+    for offsets_t, r_t, K_t, n_t in (((1,), 1, 3, 33), ((1, 2), 3, 7, 200),
+                                     ((1, 2, 5), 16, 5, 100), ((1,), 8, 2, 3000)):
+        g = np.random.default_rng(0)
+        d_t = dev(6.0 + 2.0 * g.uniform(size=(K_t, n_t)))
+        bl_t = np.zeros((K_t, len(offsets_t), n_t))
+        bu_t = np.zeros((K_t, len(offsets_t), n_t))
+        for k_t, o_t in enumerate(offsets_t):
+            c_t = 0.5 * g.uniform(size=(K_t, n_t - o_t))
+            bl_t[:, k_t, o_t:] = c_t
+            bu_t[:, k_t, :n_t - o_t] = c_t
+        V_t = dev(g.standard_normal((K_t, r_t, n_t)) / math.sqrt(n_t))
+        cg_cases.append((offsets_t, r_t, K_t, n_t,
+                         (d_t, dev(bl_t), dev(bu_t), V_t, dev(g.standard_normal((K_t, n_t))),
+                          offsets_t)))
+    for offsets_t, r_t, K_t, n_t, args_t in cg_cases:
+        kw_t = dict(rtol=RTOL, atol=ATOL, max_niter=min(2 * n_t, 400))
+        xp_t, itp_t, _ = structured_cg_plain(*args_t, **kw_t)
+        chosen = choose_path(n_t, r_t, offsets_t)
+        for path in ("register", "shared"):
+            if path == "register" and chosen != "register":
+                continue
+            xk_t, itk_t, resk_t = structured_cg_cuda(*args_t, path=path, **kw_t)
+            torch.cuda.synchronize()
+            rel_t = float((torch.linalg.norm(xk_t - xp_t, dim=-1)
+                           / torch.linalg.norm(xp_t, dim=-1)).max())
+            dit_t = int((itk_t - itp_t).abs().max())
+            bn_t = torch.linalg.norm(args_t[4], dim=-1)
+            rec_t = float((resk_t / (RTOL * bn_t)).max())
+            print("cg %s design (K=%d, n=%d, r=%d, offsets %s; chosen: %s) vs plain: x rel "
+                  "%.3e, steps %d..%d (max |diff| %d), recurrence resid/(rtol*|b|) %.3f"
+                  % (path, K_t, n_t, r_t, offsets_t, chosen, rel_t, int(itk_t.min()),
+                     int(itk_t.max()), dit_t, rec_t))
+            check(bool(torch.isfinite(xk_t).all()) and rel_t <= 1e-4 and dit_t <= 2
+                  and rec_t < 0.5, "cg %s design at K=%d, n=%d, r=%d, offsets %s: outside "
+                  "the bounds" % (path, K_t, n_t, r_t, offsets_t))
+
+    # the PyTorch calls for the same function: a dense solve of the
+    # materialised diag + band + V V^T batch (2 GB at this shape)
+    A_dense = (torch.diag_embed(d) + torch.diag_embed(bl[:, 0, 1:], offset=-1)
+               + torch.diag_embed(bu[:, 0, :-1], offset=1) + Vf.transpose(1, 2) @ Vf)
+    x_chol = torch.cholesky_solve(b[..., None], torch.linalg.cholesky(A_dense))[..., 0]
+    chol_rel = float((xk - x_chol).abs().max() / x_chol.abs().max())
+    print("cg kernel vs Cholesky + cholesky_solve of the materialised batch: max rel err %.3e"
+          % chol_rel)
+    check(chol_rel <= 1e-4, "cg kernel disagrees with the dense solve: rel %.3e" % chol_rel)
+    cg_chol_ms = timed_ms(torch, lambda: torch.cholesky_solve(
+        b[..., None], torch.linalg.cholesky(A_dense)), reps=3, inner=1)
+    cg_solve_ms = timed_ms(torch, lambda: torch.linalg.solve(A_dense, b[..., None]),
+                           reps=3, inner=1)
+    del A_dense, x_chol
 
     # ---- 3. kernel vs plain: Thomas at config-3 shapes ----
     # diagonally dominant (|dl| + |du| <= 1 < d): no pivot comes near zero
@@ -2688,13 +2765,6 @@ def config3(torch, np, xt, device, card, chain_probe):
           "err %.3e" % (BATCH, N, th_design, th_rel, th_abs))
     check(bool(torch.isfinite(xtk).all()), "thomas kernel returned non-finite values")
     check(th_rel <= 1e-5, "thomas kernel disagrees with plain: rel %.3e" % th_rel)
-    # the one-thread-a-system kernel this design replaced, on (n, K) panels
-    th_old_args = tuple(a.t().contiguous() for a in (dlp, dp, dup, bp)) + (tiny,)
-    xto = thomas_rowwise_cuda(*th_old_args).t()
-    torch.cuda.synchronize()
-    th_old_rel = float((xto - xtp).abs().max() / xtp.abs().max())
-    print("thomas one-thread-a-system kernel vs plain: max rel err %.3e" % th_old_rel)
-    check(th_old_rel <= 1e-5, "the replaced thomas kernel disagrees with plain")
     # the card tests' shapes: one long system, many short ones, a ragged
     # block; system 0 has a zero pivot at position 1, replaced by tiny
     for K_t, n_t in ((1, 65536), (4096, 64), (33, 700)):
@@ -2854,23 +2924,21 @@ def config3(torch, np, xt, device, card, chain_probe):
     check(max(rels) <= 1e-3, "gradient disagrees with the plain path: %s" % rels)
 
     # ---- 6. timing ----
-    cg_ms = timed_ms(torch, lambda: structured_cg_cuda(*cg_args, **cg_kw))
+    # the two CG designs in turns (register, shared, shared, register)
+    cg_turns = []
+    for path in ("register", "shared", "shared", "register"):
+        cg_turns.append((path, timed_ms(torch, lambda: structured_cg_cuda(
+            *cg_args, path=path, **cg_kw))))
+    cg_ms = statistics.median(t for w, t in cg_turns if w == "register")
+    cg_shared_ms = statistics.median(t for w, t in cg_turns if w == "shared")
+    cg_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: structured_cg_cuda(
+        *cg_args, path="register", **cg_kw)), "structured_cg_reg_kernel")
+    cg_shared_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: structured_cg_cuda(
+        *cg_args, path="shared", **cg_kw)), "structured_cg_kernel")
     cg_plain_ms = timed_ms(torch, lambda: structured_cg_plain(*cg_args, **cg_kw))
-    # the new Thomas kernel and the one it replaced, in turns
-    th_turns = []
-    for which in ("new", "old", "old", "new"):
-        if which == "new":
-            th_turns.append(("new", timed_ms(torch, lambda: thomas_cuda(*th_args))))
-        else:
-            th_turns.append(("old", timed_ms(torch, lambda: thomas_rowwise_cuda(*th_old_args))))
-    th_ms = statistics.median(t for w, t in th_turns if w == "new")
-    th_old_ms = statistics.median(t for w, t in th_turns if w == "old")
-    cg_dev = device_ms_by_name(torch, lambda: structured_cg_cuda(*cg_args, **cg_kw))
-    th_dev = device_ms_by_name(torch, lambda: thomas_cuda(*th_args))
-    th_old_dev = device_ms_by_name(torch, lambda: thomas_rowwise_cuda(*th_old_args))
-    cg_dev_ms = kernel_ms(cg_dev, "structured_cg_kernel")
-    th_dev_ms = kernel_ms(th_dev, "thomas_kernel")
-    th_old_dev_ms = kernel_ms(th_old_dev, "thomas_rowwise_kernel")
+    th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
+    th_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: thomas_cuda(*th_args)),
+                          "thomas_kernel")
     # the chain floor: the same recurrence on registers, at the same K and n
     probe = chain_probe()
     g = np.random.default_rng(2)
@@ -2901,15 +2969,19 @@ def config3(torch, np, xt, device, card, chain_probe):
     grad_busy = device_busy_ms(torch, lambda: grads("structured_cg"))
     print("timing [%s], median of %d repetitions of %d calls after warm-up:"
           % (card, REPS, INNER))
-    print("  structured_cg kernel %.3f ms (events; device time by name %.4f ms), plain "
-          "%.3f ms (K=%d, n=%d, r=%d) [%s]"
-          % (cg_ms, cg_dev_ms, cg_plain_ms, BATCH, N, RANK, card))
+    print("  structured_cg kernel, register design %.4f ms (events; device time by name "
+          "%.4f ms), shared-memory design %.4f ms (device time %.4f ms), in turns %s; plain "
+          "%.3f ms; Cholesky + cholesky_solve of the materialised batch %.3f ms, "
+          "torch.linalg.solve %.3f ms (K=%d, n=%d, r=%d) [%s]"
+          % (cg_ms, cg_dev_ms, cg_shared_ms, cg_shared_dev_ms,
+             ", ".join("%s %.4f" % wt for wt in cg_turns), cg_plain_ms, cg_chol_ms,
+             cg_solve_ms, BATCH, N, RANK, card))
     print("  thomas kernel (design %s) %.4f ms (events; device time by name %.4f ms), "
           "plain %.3f ms, torch.linalg.solve of the materialised batch %.3f ms (K=%d, n=%d) "
           "[%s]" % (th_design, th_ms, th_dev_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
-    print("  thomas in turns (new, old, old, new): %s ms; the one-thread-a-system kernel "
-          "%.4f ms (device time %.4f ms) [%s]"
-          % (", ".join("%s %.4f" % wt for wt in th_turns), th_old_ms, th_old_dev_ms, card))
+    print("  thomas kernel against the one-thread-a-system kernel it replaced (its device "
+          "time %.4f ms on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md): %.2fx faster [%s]"
+          % (THOMAS_REPLACED_MS, THOMAS_REPLACED_MS / th_dev_ms, card))
     print("  thomas chain floor (the recurrence on registers, K=%d, n=%d): %.4f ms (device "
           "time %.4f ms); the kernel is %.2fx it [%s]"
           % (BATCH, N, chain_ms, chain_dev_ms, th_dev_ms / chain_dev_ms, card))
@@ -2943,7 +3015,8 @@ def config3(torch, np, xt, device, card, chain_probe):
          "replaces": "xitorch_tpu/ops/structured_cg.py:58",
          "launches": launches["structured_cg"], "max_abs_err": cg_abs,
          "ms": cg_dev_ms, "plain_ms": cg_plain_ms, "bound_ms": cg_bound,
-         "bound_by": cg_by, "library_ms": None},
+         "bound_by": cg_by, "library_ms": cg_chol_ms, "design": cg_design,
+         "shared_design_ms": cg_shared_dev_ms},
         {"name": "thomas", "route": "cuda",
          "source": "xitorch_tpu_torch/csrc/tridiag.cu",
          "replaces": "xitorch_tpu/ops/tridiag.py:38",

@@ -143,6 +143,68 @@ def test_fits_structured_cg_for_hopper_shared_memory():
     assert not fits_structured_cg(64, 17, torch.float32)
 
 
+def test_cg_path_chooser_and_register_window_by_hand():
+    """The register window from the registers a thread of each compiled
+    register design (nvcc -Xptxas -v; held against the build on the card):
+    8 elements a thread; a warp's registers (rounded up to 8 a thread) come
+    from one of an SM's 4 partitions of 16,384, the block's warps spread
+    evenly over them, at most 1,024 threads."""
+    from xitorch_tpu_torch.ops import structured_cg as scg
+
+    def by_hand(r, nb):
+        R = next(v for v in (1, 2, 4, 8) if r <= v)
+        regs = -(-scg._REG_REGS[(R, nb)] // 8) * 8
+        return 8 * min(1024, 32 * 4 * (16384 // (regs * 32)))
+
+    for r in range(1, 9):
+        for nb in (1, 2):
+            assert scg.register_window(r, nb) == by_hand(r, nb)
+    assert scg.register_window(9, 1) == scg.register_window(4, 3) == 0
+    # config 3: n = 1024, rank 4, one band of offset 1
+    assert scg.choose_path(1024, 4, (1,)) == "register"
+    # n = 3000 at rank 8: 375 threads of 8 elements, 384 with the last warp
+    assert by_hand(8, 1) >= 384 * 8
+    assert scg.choose_path(3000, 8, (1,)) == "register"
+    # three bands at rank 16: outside the register design, planes fit shared memory
+    assert scg.choose_path(100, 16, (1, 2, 5)) == "shared"
+    assert (5 + 2 * 3 + 16) * 100 * 4 + 4096 <= 232448
+    # a band offset past 8 elements, or planes beyond shared memory
+    assert scg.choose_path(1024, 4, (9,)) == "shared"
+    assert (5 + 2 * 3 + 8) * 3100 * 4 + 4096 > 232448
+    assert scg.choose_path(3100, 8, (1, 2, 3)) is None
+    assert not fits_structured_cg(3100, 8, torch.float32, nb=3)
+
+
+def test_merged_reduction_mirror_matches_p_dot_Ap():
+    """The register design's one reduction round: p.(D p + B p) and the r
+    products v_j.p, from which p.A p = p.(D p + B p) + sum_j (v_j.p)^2;
+    mirrored in float64 against p.(A p) of the plain operator, to 1e-12."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(5)
+    K, n, offsets, r = 3, 50, (1, 3), 4
+    d = torch.tensor(6.0 + rng.uniform(size=(K, n)))
+    bl = torch.zeros(K, len(offsets), n, dtype=torch.float64)
+    bu = torch.zeros_like(bl)
+    for k, o in enumerate(offsets):
+        c = torch.tensor(0.5 * rng.uniform(size=(K, n - o)))
+        bl[:, k, o:] = c
+        bu[:, k, :n - o] = c
+    V = torch.tensor(rng.standard_normal((K, r, n)) / np.sqrt(n))
+    p = torch.tensor(rng.standard_normal((K, n)))
+    q = d * p
+    for k, o in enumerate(offsets):
+        q = q + bl[:, k] * F.pad(p[:, :-o], (o, 0)) + bu[:, k] * F.pad(p[:, o:], (0, o))
+    vt = (V * p[:, None, :]).sum(-1)
+    merged = (p * q).sum(-1) + (vt * vt).sum(-1)
+    A = torch.diag_embed(d) + V.transpose(1, 2) @ V
+    for k, o in enumerate(offsets):
+        A = A + torch.diag_embed(bl[:, k, o:], offset=-o) + torch.diag_embed(bu[:, k, :n - o],
+                                                                              offset=o)
+    pAp = (p * (A @ p[..., None])[..., 0]).sum(-1)
+    assert torch.allclose(merged, pAp, rtol=1e-12, atol=0)
+
+
 def test_cpu_tensors_never_reach_the_kernels():
     arrs = [torch.as_tensor(a) for a in _cg_inputs((1,), 2)]
     structured_cg_cuda.launches = thomas_cuda.launches = 0

@@ -29,6 +29,9 @@ import xitorch_tpu_torch as xt
 from xitorch_tpu_torch.ops import (
     structured_cg_cuda, structured_cg_plain, thomas_cuda, thomas_plain,
 )
+from xitorch_tpu_torch.ops.structured_cg import (
+    _REG_REGS, choose_path, register_attrs, register_window,
+)
 from xitorch_tpu_torch.ops.tridiag import thomas_design
 from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_dense, fused_cg_plain
 from xitorch_tpu_torch.ops.dc_kernel import (
@@ -66,14 +69,22 @@ def _cg_flat(offsets, r, K, n, device, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", [None, "register", "shared"])
 @pytest.mark.parametrize("offsets, r, K, n", [
     ((1,), 1, 3, 33), ((1, 2), 3, 7, 200), ((1,), 4, 64, 1024), ((1, 2, 5), 16, 5, 100),
     ((1,), 8, 2, 3000),
 ])
-def test_cg_kernel_matches_plain(cuda, offsets, r, K, n):
+def test_cg_kernel_matches_plain(cuda, offsets, r, K, n, path):
     args = (*_cg_flat(offsets, r, K, n, cuda), offsets)
     kw = dict(rtol=1e-6, atol=1e-8, max_niter=min(2 * n, 400))
-    xk, itk, resk = structured_cg_cuda(*args, **kw)
+    chosen = choose_path(n, r, offsets)
+    if path == "register" and chosen != "register":
+        # outside the register window a forced register launch raises
+        with pytest.raises(RuntimeError):
+            structured_cg_cuda(*args, path=path, **kw)
+        return
+    xk, itk, resk = structured_cg_cuda(*args, path=path, **kw)
+    assert structured_cg_cuda.last_design == (path or chosen)
     xp, itp, resp = structured_cg_plain(*args, **kw)
     torch.cuda.synchronize()
     # f32 sums in another order (warp tree vs PyTorch's reduction)
@@ -83,6 +94,17 @@ def test_cg_kernel_matches_plain(cuda, offsets, r, K, n):
     assert int((itk - itp).abs().max()) <= 2
     bn = torch.linalg.norm(args[4], dim=-1)
     assert bool((resk < 0.5 * 1e-6 * bn).all())
+
+
+@pytest.mark.cuda
+def test_register_window_matches_the_build(cuda):
+    """The registers a thread the chooser assumes for each register design
+    are the compiled kernels', and so is the window they give."""
+    for r in (1, 2, 4, 8):
+        for nb in (1, 2):
+            regs, threads = register_attrs(r, nb)
+            assert regs == _REG_REGS[(r, nb)]
+            assert register_window(r, nb) == 8 * threads
 
 
 @pytest.mark.cuda
@@ -124,14 +146,16 @@ def test_wrappers_and_structured_solve_do_not_synchronise(cuda):
     V = torch.tensor(rng.standard_normal((16, 1024, 4)) / 32.0, dtype=torch.float32, device=cuda)
     b = torch.tensor(rng.standard_normal((16, 1024, 1)), dtype=torch.float32, device=cuda)
     A = xt.TridiagLowRankOperator(d, 1.0, V)
-    structured_cg_cuda(*args, **kw)   # build and load outside the checked region
+    for path in ("register", "shared"):   # build and load outside the checked region
+        structured_cg_cuda(*args, path=path, **kw)
     thomas_cuda(*panels, 1e-38)
     xt.linalg.solve(A, b, method="structured_cg")
     xt.linalg.flush_convergence_warnings()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        structured_cg_cuda(*args, **kw)
+        for path in ("register", "shared"):
+            structured_cg_cuda(*args, path=path, **kw)
         thomas_cuda(*panels, 1e-38)
         x = xt.linalg.solve(A, b, method="structured_cg")
     finally:

@@ -431,38 +431,6 @@ int launch(const T* dl, const T* d, const T* du, const T* b, T* x, T* ws, int n,
   return (int)cudaGetLastError();
 }
 
-// ---- the one-thread-a-system kernel this design replaces, on the (n, K)
-// layout; kept only to time the two in turns ----
-template <typename T>
-__global__ void thomas_rowwise_kernel(const T* __restrict__ dl, const T* __restrict__ d,
-                                      const T* __restrict__ du, const T* __restrict__ b,
-                                      T* __restrict__ x, T* __restrict__ cp, int n, int K,
-                                      T eps) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  T m = d[k];
-  if (m == T(0)) m = eps;
-  T cprev = du[k] / m;
-  T xprev = b[k] / m;
-  cp[k] = cprev;
-  x[k] = xprev;
-  for (int i = 1; i < n; ++i) {
-    const size_t o = (size_t)i * K + k;
-    const T l = dl[o];
-    m = d[o] - l * cprev;
-    if (m == T(0)) m = eps;
-    cprev = du[o] / m;
-    xprev = (b[o] - l * xprev) / m;
-    cp[o] = cprev;
-    x[o] = xprev;
-  }
-  for (int i = n - 2; i >= 0; --i) {
-    const size_t o = (size_t)i * K + k;
-    xprev = x[o] - cp[o] * xprev;
-    x[o] = xprev;
-  }
-}
-
 }  // namespace
 
 // Plain C entries for ctypes.  dl, d, du, b and x are contiguous (K, n)
@@ -480,13 +448,4 @@ extern "C" int thomas_f64(const double* dl, const double* d, const double* du,
                           const double* b, double* x, double* ws, int n, int K, double eps,
                           int resident, void* stream) {
   return launch<double>(dl, d, du, b, x, ws, n, K, eps, resident, stream);
-}
-
-extern "C" int thomas_rowwise_f32(const float* dl, const float* d, const float* du,
-                                  const float* b, float* x, float* cp, int n, int K, float eps,
-                                  void* stream) {
-  if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  thomas_rowwise_kernel<float><<<(K + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      dl, d, du, b, x, cp, n, K, eps);
-  return (int)cudaGetLastError();
 }

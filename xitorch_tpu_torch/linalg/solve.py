@@ -74,15 +74,15 @@ def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
                    return_info: bool = False, **options):
     """Fused solve for :class:`TridiagLowRankOperator` and
     :class:`BandedLowRankOperator`: the CG kernel keeps the whole CG state
-    and the operator data of a system in shared memory
-    (ops/structured_cg.py).  Pure tridiagonal operators (V is None) get a
+    and the operator data of a system on chip, in registers or in shared
+    memory (ops/structured_cg.py).  Pure tridiagonal operators (V is None) get a
     *direct* Thomas solve instead of CG.  Per-column diagonal shifts E
     (M=None) keep the structure — ``A - e_j I`` just shifts d.
 
     On CUDA tensors the kernels launch (or raise); on CPU tensors their
     plain PyTorch versions run.  Any other operator, float64, or an
     M-generalized shift goes to the matrix-free cg, as in the JAX
-    package; so does a system too large for one block's shared memory."""
+    package; so does a system no kernel design takes (fits_structured_cg)."""
     if not (M is None
             and isinstance(A, (TridiagLowRankOperator, BandedLowRankOperator))
             and A.dtype == torch.float32):
@@ -135,7 +135,7 @@ def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
         return x
 
     rank = A.V.shape[-1] if A.V is not None else 1
-    if not fits_structured_cg(n, rank, A.dtype, nb=len(offsets)):
+    if not fits_structured_cg(n, rank, A.dtype, nb=len(offsets), offsets=offsets):
         return cg(A, B, E, M, rtol=rtol, atol=atol, max_niter=max_niter,
                   return_info=return_info, **options)
     V = A.V if A.V is not None \

@@ -4,10 +4,19 @@ of xitorch_tpu/ops/structured_cg.py).
 The headline solve workload (BASELINE config 3) is a hermitian operator
 ``A = diag(d) + tridiagonal coupling + V V^T`` applied matrix-free.  A
 CG built from separate PyTorch operations streams ~10 (B, n) tensors
-through device memory per iteration; the kernel in
-``csrc/structured_cg.cu`` keeps the whole CG state (x, r, p, A p) and the
-operator data (d, band planes, V) of one system in the shared memory of
-one thread block and runs the whole solve there.
+through device memory per iteration; the kernels in
+``csrc/structured_cg.cu`` keep the whole CG state (x, r, p) and the
+operator data (d, band planes, V) of one system on chip in one thread
+block and run the whole solve there.
+
+**Designs** (:func:`choose_path`, recorded in
+``structured_cg_cuda.last_design``).  "register": each thread holds 8
+consecutive elements of every plane in registers, two block barriers a
+step; it takes up to 2 bands of offset <= 8 and rank <= 8, for n up to
+:func:`register_window`.  "shared": every plane in the block's shared
+memory, four barriers a step; the path for the other shapes whose planes
+fit (up to 8 bands, rank <= 16).  ``path=`` forces one, for measuring; a
+shape the forced path does not take, or a launch failure, raises.
 
 Structure supported: ``A x = d*x + sum_k (bl_k*x_{i-o_k} + bu_k*x_{i+o_k})
 + V (V^T x)`` with full-length band planes (``bl[..., k, :o_k] ==
@@ -30,7 +39,7 @@ from xitorch_tpu_torch.ops import _build
 from xitorch_tpu_torch.ops.tridiag import use_kernel
 
 __all__ = ["structured_cg_solve", "structured_cg_cuda", "structured_cg_plain",
-           "fits_structured_cg"]
+           "fits_structured_cg", "choose_path", "register_window", "register_attrs"]
 
 # Hopper (sm_90): a block may opt in to 227 KB of dynamic shared memory;
 # the kernel also holds ~2.5 KB of static reduction scratch
@@ -39,20 +48,76 @@ _SMEM_STATIC = 4096
 _MAX_RANK = 16   # kMaxRank in csrc/structured_cg.cu
 _MAX_BANDS = 8   # kMaxBands
 
+# the register design: elements a thread (kE), bands, band offset and rank
+# it takes, and the registers a thread of each instantiation (rank bucket,
+# bands) uses, from `nvcc -Xptxas -v` for sm_90a (tests/test_torch_kernels_cuda.py
+# holds them against cudaFuncGetAttributes on the card)
+_REG_E = 8
+_REG_MAX_BANDS, _REG_MAX_OFFSET, _REG_MAX_RANK = 2, 8, 8
+_REG_RANKS = (1, 2, 4, 8)
+_REG_REGS = {(1, 1): 98, (2, 1): 123, (4, 1): 128, (8, 1): 163,
+             (1, 2): 121, (2, 2): 128, (4, 2): 164, (8, 2): 168}
+# the register file: 4 partitions of 16,384 registers an SM, a block's
+# warps spread evenly over them
+_PARTITIONS, _REGS_PER_PARTITION, _MAX_BLOCK = 4, 16384, 1024
+
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "structured_cg_f32": [_P] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_float] * 3 + [_P],
+    "structured_cg_reg_f32": [_P] * 9 + [ctypes.c_int] * 5
+    + [ctypes.c_float] * 3 + [_P],
+    "structured_cg_reg_attrs": [ctypes.c_int, ctypes.c_int, _P, _P],
 }
 
 
-def fits_structured_cg(n: int, r: int, dtype, nb: int = 1) -> bool:
+def _rank_bucket(r: int) -> int:
+    return next(R for R in _REG_RANKS if r <= R)
+
+
+def register_window(r: int, nb: int) -> int:
+    """Largest n the register design takes at rank r with nb bands (0: that
+    rank or band count is outside it): 8 elements a thread, and no more
+    threads a block than the card's register file holds at the
+    instantiation's registers a thread (allocated in units of 8, a warp's
+    in one of the SM's 4 partitions of 16,384, the block's warps spread
+    evenly over the 4)."""
+    if not (1 <= r <= _REG_MAX_RANK and 1 <= nb <= _REG_MAX_BANDS):
+        return 0
+    regs = -(-_REG_REGS[(_rank_bucket(r), nb)] // 8) * 8
+    warps = _PARTITIONS * (_REGS_PER_PARTITION // (regs * 32))
+    return _REG_E * min(_MAX_BLOCK, 32 * warps)
+
+
+def _fits_shared(n: int, r: int, nb: int) -> bool:
     """Whether one system's CG state and operator data fit one block's
     shared memory: (5 + 2*nb + r) planes of n floats (d, x, r, p, A p, the
     band planes and V)."""
-    if dtype != torch.float32 or r > _MAX_RANK or nb > _MAX_BANDS:
+    return r <= _MAX_RANK and nb <= _MAX_BANDS \
+        and (5 + 2 * nb + r) * n * 4 + _SMEM_STATIC <= _SMEM_OPTIN
+
+
+def choose_path(n: int, r: int, offsets: Sequence[int]) -> Optional[str]:
+    """The kernel design for a system of n unknowns, rank r and these band
+    offsets: "register" inside the register window, else "shared" where the
+    planes fit a block's shared memory, else None (no kernel takes it)."""
+    nb = len(offsets)
+    if 1 <= nb <= _REG_MAX_BANDS and max(offsets) <= _REG_MAX_OFFSET \
+            and n <= register_window(r, nb):
+        return "register"
+    if _fits_shared(n, r, nb):
+        return "shared"
+    return None
+
+
+def fits_structured_cg(n: int, r: int, dtype, nb: int = 1,
+                       offsets: Optional[Sequence[int]] = None) -> bool:
+    """Whether a kernel design takes the shape (float32 only); ``offsets``
+    defaults to ``(1, ..., nb)``."""
+    if dtype != torch.float32:
         return False
-    return (5 + 2 * nb + r) * n * 4 + _SMEM_STATIC <= _SMEM_OPTIN
+    return choose_path(n, r, tuple(offsets) if offsets else tuple(range(1, nb + 1))) \
+        is not None
 
 
 def structured_cg_plain(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
@@ -105,10 +170,12 @@ def structured_cg_plain(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
 def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
                        V: torch.Tensor, b: torch.Tensor,
                        offsets: Sequence[int], *, rtol: float, atol: float,
-                       max_niter: int, eps: float = 1e-30
+                       max_niter: int, eps: float = 1e-30, path: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CG kernel on the flat layout of :func:`structured_cg_plain`
-    (contiguous float32 CUDA tensors, K >= 1)."""
+    (contiguous float32 CUDA tensors, K >= 1).  The design comes from
+    :func:`choose_path` and is recorded in ``structured_cg_cuda.last_design``;
+    ``path`` ("register" or "shared") forces one, for measuring."""
     K, n = b.shape
     nb, r = len(offsets), V.shape[1]
     shapes = ((d, (K, n)), (bl, (K, nb, n)), (bu, (K, nb, n)), (V, (K, r, n)),
@@ -119,11 +186,20 @@ def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
             raise RuntimeError(
                 "structured_cg_cuda: expected contiguous float32 CUDA tensors "
                 "d, b (K, n), bl, bu (K, nb, n), V (K, r, n) on one device")
-    if K == 0 or not fits_structured_cg(n, r, torch.float32, nb):
-        raise RuntimeError("structured_cg_cuda: K=%d, n=%d, r=%d, nb=%d does not "
-                           "fit the kernel" % (K, n, r, nb))
     if any(int(o) < 1 for o in offsets):
         raise RuntimeError("structured_cg_cuda: band offsets must be >= 1")
+    chosen = choose_path(n, r, tuple(int(o) for o in offsets))
+    if path is None:
+        path = chosen
+    elif path not in ("register", "shared"):
+        raise RuntimeError("structured_cg_cuda: path must be 'register' or 'shared'")
+    elif path == "shared" and not _fits_shared(n, r, nb) \
+            or path == "register" and chosen != "register":
+        path = None
+    if K == 0 or path is None:
+        raise RuntimeError("structured_cg_cuda: K=%d, n=%d, r=%d, offsets %s does not "
+                           "fit the kernel's %s design" % (K, n, r, tuple(offsets),
+                                                          path or "chosen"))
     # host memory: the kernel takes the offsets by value (a copy to the
     # device would synchronise the stream)
     offs = (ctypes.c_int * nb)(*(int(o) for o in offsets))
@@ -131,19 +207,33 @@ def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
     it = torch.empty(K, dtype=torch.float32, device=b.device)
     res = torch.empty(K, dtype=torch.float32, device=b.device)
     lib = _build.load("structured_cg", _SIGNATURES)
+    fn = lib.structured_cg_reg_f32 if path == "register" else lib.structured_cg_f32
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.structured_cg_f32(
-            d.data_ptr(), bl.data_ptr(), bu.data_ptr(), V.data_ptr(),
-            b.data_ptr(), ctypes.addressof(offs), x.data_ptr(), it.data_ptr(),
-            res.data_ptr(), K, n, nb, r, int(max_niter), rtol * rtol,
-            atol * atol, eps, stream)
+        rc = fn(d.data_ptr(), bl.data_ptr(), bu.data_ptr(), V.data_ptr(),
+                b.data_ptr(), ctypes.addressof(offs), x.data_ptr(), it.data_ptr(),
+                res.data_ptr(), K, n, nb, r, int(max_niter), rtol * rtol,
+                atol * atol, eps, stream)
     _build.check(rc, "structured_cg_cuda")
     structured_cg_cuda.launches += 1
+    structured_cg_cuda.last_design = path
     return x, it, res
 
 
+def register_attrs(r: int, nb: int) -> Tuple[int, int]:
+    """The compiled register design's registers a thread and the most
+    threads a block of it can launch with, on the current card (for holding
+    ``_REG_REGS`` and :func:`register_window` to the build)."""
+    lib = _build.load("structured_cg", _SIGNATURES)
+    regs, threads = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.structured_cg_reg_attrs(r, nb, ctypes.addressof(regs),
+                                             ctypes.addressof(threads)),
+                 "structured_cg_reg_attrs")
+    return regs.value, threads.value
+
+
 structured_cg_cuda.launches = 0
+structured_cg_cuda.last_design = None
 
 
 def structured_cg_solve(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,

@@ -29,7 +29,6 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "thomas_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
     "thomas_f64": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int, _P],
-    "thomas_rowwise_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
 
 # csrc/tridiag.cu: systems a block, and the row stride of the resident cp
@@ -136,23 +135,6 @@ def thomas_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
 
 thomas_cuda.launches = 0
 thomas_cuda.last_design = None
-
-
-def thomas_rowwise_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
-                        b: torch.Tensor, eps: float) -> torch.Tensor:
-    """The kernel this design replaced (one thread a system on ``(n, K)``
-    float32 panels), kept only to time the two in turns."""
-    _check_panels("thomas_rowwise_cuda", (dl, d, du, b))
-    n, K = b.shape
-    x = torch.empty_like(b)
-    cp = torch.empty_like(b)
-    lib = _build.load("tridiag", _SIGNATURES)
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.thomas_rowwise_f32(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
-                                    x.data_ptr(), cp.data_ptr(), n, K, eps, stream)
-    _build.check(rc, "thomas_rowwise_cuda")
-    return x
 
 
 def tridiag_solve_kernel(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
