@@ -1999,6 +1999,7 @@ def path_a(torch, np, xt, device, card, batched):
     def run(A, B, method, mat, **kw):
         """One solve through the public API: time (host clock around a
         synchronised call), info, measured residual, warnings."""
+        xt.linalg.flush_convergence_warnings()   # an earlier call's, outside the capture
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.synchronize()
@@ -2009,6 +2010,8 @@ def path_a(torch, np, xt, device, card, batched):
                 x, info = xt.linalg.solve(A, B, method=method, return_info=True, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            # the eager check of a solve without info reports asynchronously
+            xt.linalg.flush_convergence_warnings()
         warned = [wi for wi in caught if issubclass(wi.category, ConvergenceWarning)]
         rel = resid_over_stop(torch, mat, x, B)
         rcol = torch.linalg.norm(mat.double() @ x.double() - B.double(), dim=-2)
@@ -2300,6 +2303,7 @@ def path_b(torch, np, xt, device, card):
         E = torch.as_tensor([-0.5, -0.1, 0.0, 0.5 * analytic[0]], dtype=f32, device=device)
 
         for e_name, Ev in (("E=None", None), ("per-column E", E)):
+            xt.linalg.flush_convergence_warnings()   # earlier calls', outside the capture
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 (x, info), n_sw = driven(lambda: xt.linalg.solve(A, B, E=Ev, return_info=True))

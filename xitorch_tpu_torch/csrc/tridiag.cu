@@ -9,30 +9,33 @@
 // 10 MB at K = 512, n = 1024 in f32, 3 us at full bandwidth), so the time
 // is the chain of dependent steps, as long as no step waits on memory.
 //
-// Design: a block is one warp and owns 32 systems, one lane a system.
+// Design: a block owns 32 systems; one warp runs the recurrence, one lane a
+// system, and three loader warps keep it fed (the chain warp does nothing
+// else: every instruction it issues lengthens the chain).
 //   * Forward: the rows of dl, d, du, b stream in chunks of 32 positions
-//     into a ring of 4 stages in shared memory by cp.async of one element
-//     a lane from the callers' (K, n) layout (32 lanes read 32 consecutive
-//     positions of one system: one 128-byte line), three chunks ahead of
-//     the chain.  The warp issues them itself, four rows after each step,
-//     while the step's divisions are in flight.  A stage holds each array
-//     as [position][system] with a row stride of 33, so the copies' writes
-//     and the chain's reads (32 systems at one position) are both free of
-//     bank conflicts; a step's rows are read into registers a group of 8
-//     steps ahead.
+//     from the callers' (K, n) layout into a ring of 4 stages in shared
+//     memory, by 16-byte cp.async copies (one element a copy where n is
+//     not a multiple of 16 bytes' worth), as far ahead as the ring allows.
+//     A stage holds each array as [system][position] rows of 32 positions
+//     plus 16 bytes, so the chain lane reads its own row 16 bytes at a time
+//     (8 lanes a wavefront) a group of 8 steps ahead into registers.
+//     Each stage has a "full" mbarrier, on which each loader thread's
+//     copies arrive as they land, and an "empty" one, on which the chain
+//     releases it: the chain never meets the loaders at a block barrier.
+//     One-element copies limited the loaders, whose time then set the
+//     kernel's (on an NVIDIA H100 80GB HBM3 it fell with every loader warp
+//     added); with 16-byte copies three loader warps keep up.
 //   * cp and the forward x (y) go where the chain never waits on them:
 //     into shared memory ([position][system], stride 33) when 2 n of them
 //     fit beside the ring ("resident"), else into a device-memory scratch
 //     laid out [block][position][32 systems], one 128-byte store a step
 //     ("streaming").
 //   * Back: x_i = y_i - cp_i x_{i+1}, one FMA a step.  Resident: read from
-//     shared memory and x written over y.  Streaming: the scratch comes
-//     back in chunks, last first, by 16-byte cp.async into the ring three
-//     chunks ahead; each x chunk goes to a staging tile of the stage and
-//     from there to the callers' (K, n) layout, one line a system.
-// One warp a block, so the warp's own cp.async groups and __syncwarp are
-// all the synchronisation there is: with loader warps meeting the chain at
-// a block barrier every chunk, the chain ran 1.6x slower on an NVIDIA H100.
+//     shared memory and x written over y.  Streaming: the loaders bring the
+//     scratch back in chunks, last first, by 16-byte copies into the ring;
+//     the chain writes each x chunk into a staging tile of the stage, which
+//     the loaders store to the callers' (K, n) layout, one line a system,
+//     before they refill the stage.
 // The recurrence is the reference's, operation for operation: m = d - dl
 // cp, a zero pivot replaced by eps (the dtype's smallest normal number by
 // default), cp = du / m and y = (b - dl y) / m by IEEE division, and the
@@ -45,10 +48,7 @@ constexpr int kSys = 32;                  // systems a block: the chain warp's l
 constexpr int kPad = kSys + 1;            // row stride of a [position][system] tile
 constexpr int kChunk = 32;                // positions a ring stage
 constexpr int kStages = 4;
-#ifndef THOMAS_LOADERS
-#define THOMAS_LOADERS 3
-#endif
-constexpr int kLoaders = THOMAS_LOADERS;  // loader warps
+constexpr int kLoaders = 3;               // loader warps
 constexpr int kThreads = 32 * (1 + kLoaders);
 constexpr int kGroup = 8;                 // steps whose rows are read ahead
 constexpr int kOut = 2 * kChunk * kSys;   // back pass: cp, y tiles, then x's
@@ -177,11 +177,10 @@ __device__ __forceinline__ void issue_rows(T* stage, const T* dl, const T* d, co
 template <typename T>
 __device__ __forceinline__ void issue_scratch(T* stage, const T* cpw, const T* yw, int lt,
                                               int i0, int cnt) {
-  constexpr int kPer = 16 / sizeof(T);           // elements in 16 bytes
-  constexpr int kPieces = kChunk * kSys / kPer;  // pieces a tile
+  constexpr int kPieces = kChunk * kSys / kPer<T>;  // pieces a tile
   for (int q = lt; q < 2 * kPieces; q += 32 * kLoaders) {
     const int a = q / kPieces;
-    const int e = (q % kPieces) * kPer;          // element within the tile
+    const int e = (q % kPieces) * kPer<T>;       // element within the tile
     if (e / kSys < cnt)
       cp_async16(stage + a * (kChunk * kSys) + e, (a == 0 ? cpw : yw) + (size_t)i0 * kSys + e);
   }
