@@ -234,10 +234,6 @@ def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = Tru
         end.record()
         end.synchronize()
         ts.append(start.elapsed_time(end) / inner)
-    # the eager checks of the solves timed here report now, not inside a
-    # later caller's warning capture
-    from xitorch_tpu_torch.linalg import flush_convergence_warnings
-    flush_convergence_warnings()
     return statistics.median(ts)
 
 
@@ -1999,7 +1995,6 @@ def path_a(torch, np, xt, device, card, batched):
     def run(A, B, method, mat, **kw):
         """One solve through the public API: time (host clock around a
         synchronised call), info, measured residual, warnings."""
-        xt.linalg.flush_convergence_warnings()   # an earlier call's, outside the capture
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.synchronize()
@@ -2010,8 +2005,6 @@ def path_a(torch, np, xt, device, card, batched):
                 x, info = xt.linalg.solve(A, B, method=method, return_info=True, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            # the eager check of a solve without info reports asynchronously
-            xt.linalg.flush_convergence_warnings()
         warned = [wi for wi in caught if issubclass(wi.category, ConvergenceWarning)]
         rel = resid_over_stop(torch, mat, x, B)
         rcol = torch.linalg.norm(mat.double() @ x.double() - B.double(), dim=-2)
@@ -2303,7 +2296,6 @@ def path_b(torch, np, xt, device, card):
         E = torch.as_tensor([-0.5, -0.1, 0.0, 0.5 * analytic[0]], dtype=f32, device=device)
 
         for e_name, Ev in (("E=None", None), ("per-column E", E)):
-            xt.linalg.flush_convergence_warnings()   # earlier calls', outside the capture
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 (x, info), n_sw = driven(lambda: xt.linalg.solve(A, B, E=Ev, return_info=True))
@@ -2632,10 +2624,14 @@ def config3(torch, np, xt, device, card, chain_probe):
     Thomas kernel against its chain floor and the recorded time of the
     kernel it replaced, and timings.  Returns the two kernels' records for
     the JSON line."""
+    import warnings
+
     from xitorch_tpu_torch.ops.structured_cg import (
-        choose_path, register_attrs, register_window, structured_cg_cuda, structured_cg_plain,
+        choose_path, fits_structured_cg, register_attrs, register_window, structured_cg_cuda,
+        structured_cg_plain,
     )
-    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
+    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_design, thomas_plain
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 
     rng = np.random.default_rng(SEED)
 
@@ -2660,16 +2656,17 @@ def config3(torch, np, xt, device, card, chain_probe):
     xp, itp, _ = structured_cg_plain(*cg_args, **cg_kw)
     torch.cuda.synchronize()
     check(cg_design == "register", "config 3 did not take the register design: %s" % cg_design)
-    # the register window against the compiled kernels: registers a thread
-    # and the most threads a block may launch with
+    # the register window from the compiled kernels: registers a thread and
+    # the most threads a block may launch with; it lies inside the shared
+    # design's window (fits_structured_cg's premise)
     for r_w in (1, 2, 4, 8):
         for nb_w in (1, 2):
-            regs, threads = register_attrs(r_w, nb_w)
+            regs, threads = register_attrs(r_w, nb_w, b.device)
+            win = register_window(r_w, nb_w, b.device)
             print("cg register design, rank <= %d, %d band(s): %d registers a thread, %d "
-                  "threads a block at most, window n <= %d" % (r_w, nb_w, regs, threads,
-                                                               register_window(r_w, nb_w)))
-            check(register_window(r_w, nb_w) == 8 * threads,
-                  "the register window disagrees with the build at rank %d, %d bands"
+                  "threads a block at most, window n <= %d" % (r_w, nb_w, regs, threads, win))
+            check(fits_structured_cg(win, r_w, torch.float32, nb_w),
+                  "the register window at rank %d, %d bands lies outside the shared design's"
                   % (r_w, nb_w))
 
     def flat_resid(x):
@@ -2716,7 +2713,8 @@ def config3(torch, np, xt, device, card, chain_probe):
     for offsets_t, r_t, K_t, n_t, args_t in cg_cases:
         kw_t = dict(rtol=RTOL, atol=ATOL, max_niter=min(2 * n_t, 400))
         xp_t, itp_t, _ = structured_cg_plain(*args_t, **kw_t)
-        chosen = choose_path(n_t, r_t, offsets_t)
+        chosen = choose_path(n_t, r_t, offsets_t,
+                             register_window(r_t, len(offsets_t), b.device))
         for path in ("register", "shared"):
             if path == "register" and chosen != "register":
                 continue
@@ -2943,6 +2941,27 @@ def config3(torch, np, xt, device, card, chain_probe):
     th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
     th_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: thomas_cuda(*th_args)),
                           "thomas_kernel")
+    # the two Thomas designs in turns (resident, streaming, streaming,
+    # resident) where the resident one fits
+    th_turns = []
+    for K_t, n_t, dt_t in ((4096, 64, torch.float32), (4096, 512, torch.float32),
+                           (512, 512, torch.float32), (132 * 32, 160, torch.float64)):
+        g = np.random.default_rng(3)
+        rows = [torch.as_tensor(a, dtype=dt_t, device=device)
+                for a in (g.uniform(-0.5, 0.5, size=(K_t, n_t)),
+                          4.0 + 2.0 * g.uniform(size=(K_t, n_t)),
+                          g.uniform(-0.5, 0.5, size=(K_t, n_t)),
+                          g.standard_normal((K_t, n_t)))]
+        eps_t = float(torch.finfo(dt_t).tiny)
+        check(thomas_design(n_t, dt_t) == "resident", "resident design does not fit")
+        x_res = thomas_cuda(*rows, eps_t)
+        x_str = thomas_cuda(*rows, eps_t, design="streaming")
+        diff_t = float((x_res - x_str).abs().max())
+        ms_t = {"resident": [], "streaming": []}
+        for des in ("resident", "streaming", "streaming", "resident"):
+            ms_t[des].append(kernel_ms(device_ms_by_name(
+                torch, lambda: thomas_cuda(*rows, eps_t, design=des)), "thomas_kernel"))
+        th_turns.append((K_t, n_t, dt_t, ms_t, diff_t))
     # the chain floor: the same recurrence on registers, at the same K and n
     probe = chain_probe()
     g = np.random.default_rng(2)
@@ -2971,6 +2990,13 @@ def config3(torch, np, xt, device, card, chain_probe):
     fwd_busy = device_busy_ms(torch, lambda: xt.linalg.solve(
         A, bT, method="structured_cg", rtol=RTOL, atol=ATOL))
     grad_busy = device_busy_ms(torch, lambda: grads("structured_cg"))
+    # the eager convergence checks of this phase's structured_cg solves
+    # without info were queued behind them; they report here, and none warns
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xt.linalg.flush_convergence_warnings()
+    check(not any(issubclass(w.category, ConvergenceWarning) for w in caught),
+          "config 3: a structured_cg solve did not converge")
     print("timing [%s], median of %d repetitions of %d calls after warm-up:"
           % (card, REPS, INNER))
     print("  structured_cg kernel, register design %.4f ms (events; device time by name "
@@ -2983,9 +3009,17 @@ def config3(torch, np, xt, device, card, chain_probe):
     print("  thomas kernel (design %s) %.4f ms (events; device time by name %.4f ms), "
           "plain %.3f ms, torch.linalg.solve of the materialised batch %.3f ms (K=%d, n=%d) "
           "[%s]" % (th_design, th_ms, th_dev_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
-    print("  thomas kernel against the one-thread-a-system kernel it replaced (its device "
-          "time %.4f ms on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md): %.2fx faster [%s]"
+    print("  thomas kernel against the one-thread-a-system kernel it replaced: that "
+          "kernel's device time %.4f ms is recorded from another run (chip run 14 of PR 13, "
+          "NVIDIA H100 80GB HBM3 at 700 W, PERF.md), not measured here; against it this "
+          "run's time is %.2fx shorter [%s]"
           % (THOMAS_REPLACED_MS, THOMAS_REPLACED_MS / th_dev_ms, card))
+    for K_t, n_t, dt_t, ms_t, diff_t in th_turns:
+        print("  thomas designs in turns (K=%d, n=%d, %s), device time by name: resident "
+              "%s ms, streaming %s ms; max |x_resident - x_streaming| %.3e [%s]"
+              % (K_t, n_t, str(dt_t).replace("torch.", ""),
+                 " ".join("%.4f" % t for t in ms_t["resident"]),
+                 " ".join("%.4f" % t for t in ms_t["streaming"]), diff_t, card))
     print("  thomas chain floor (the recurrence on registers, K=%d, n=%d): %.4f ms (device "
           "time %.4f ms); the kernel is %.2fx it [%s]"
           % (BATCH, N, chain_ms, chain_dev_ms, th_dev_ms / chain_dev_ms, card))

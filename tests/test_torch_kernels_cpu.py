@@ -143,35 +143,43 @@ def test_fits_structured_cg_for_hopper_shared_memory():
     assert not fits_structured_cg(64, 17, torch.float32)
 
 
-def test_cg_path_chooser_and_register_window_by_hand():
-    """The register window from the registers a thread of each compiled
-    register design (nvcc -Xptxas -v; held against the build on the card):
-    8 elements a thread; a warp's registers (rounded up to 8 a thread) come
-    from one of an SM's 4 partitions of 16,384, the block's warps spread
-    evenly over them, at most 1,024 threads."""
+def test_cg_path_chooser_and_register_window_by_hand(monkeypatch):
+    """The register window is 8 elements a thread times the most threads a
+    block of the compiled register design can launch with (read from the
+    build once a device; a stand-in for the card's answer here), and the
+    chooser takes the register design inside it, the shared-memory design
+    where the planes fit, else none."""
     from xitorch_tpu_torch.ops import structured_cg as scg
 
-    def by_hand(r, nb):
-        R = next(v for v in (1, 2, 4, 8) if r <= v)
-        regs = -(-scg._REG_REGS[(R, nb)] // 8) * 8
-        return 8 * min(1024, 32 * 4 * (16384 // (regs * 32)))
+    asked = []
 
-    for r in range(1, 9):
-        for nb in (1, 2):
-            assert scg.register_window(r, nb) == by_hand(r, nb)
-    assert scg.register_window(9, 1) == scg.register_window(4, 3) == 0
+    def attrs(r, nb, device):  # registers a thread, most threads a block
+        asked.append((device.index, r, nb))
+        return {1: (128, 512), 2: (168, 384)}[nb]
+
+    monkeypatch.setattr(scg, "register_attrs", attrs)
+    monkeypatch.setattr(scg, "_WINDOWS", {})
+    card = torch.device("cuda", 0)
+    assert scg.register_window(4, 1, card) == 8 * 512
+    assert scg.register_window(4, 1, card) == 4096 and asked == [(0, 4, 1)]
+    assert scg.register_window(8, 2, torch.device("cuda", 1)) == 8 * 384
+    # outside the register design: rank above 8, more than 2 bands
+    assert scg.register_window(9, 1, card) == scg.register_window(4, 3, card) == 0
+    assert len(asked) == 2
     # config 3: n = 1024, rank 4, one band of offset 1
-    assert scg.choose_path(1024, 4, (1,)) == "register"
+    assert scg.choose_path(1024, 4, (1,), 4096) == "register"
     # n = 3000 at rank 8: 375 threads of 8 elements, 384 with the last warp
-    assert by_hand(8, 1) >= 384 * 8
-    assert scg.choose_path(3000, 8, (1,)) == "register"
+    assert scg.choose_path(3000, 8, (1,), 8 * 384) == "register"
+    # a build that launches fewer threads: the shared-memory design takes it
+    assert scg.choose_path(3000, 8, (1,), 8 * 256) == "shared"
+    assert (5 + 2 * 1 + 8) * 3000 * 4 + 4096 <= 232448
     # three bands at rank 16: outside the register design, planes fit shared memory
-    assert scg.choose_path(100, 16, (1, 2, 5)) == "shared"
+    assert scg.choose_path(100, 16, (1, 2, 5), 0) == "shared"
     assert (5 + 2 * 3 + 16) * 100 * 4 + 4096 <= 232448
     # a band offset past 8 elements, or planes beyond shared memory
-    assert scg.choose_path(1024, 4, (9,)) == "shared"
+    assert scg.choose_path(1024, 4, (9,), 4096) == "shared"
     assert (5 + 2 * 3 + 8) * 3100 * 4 + 4096 > 232448
-    assert scg.choose_path(3100, 8, (1, 2, 3)) is None
+    assert scg.choose_path(3100, 8, (1, 2, 3), 0) is None
     assert not fits_structured_cg(3100, 8, torch.float32, nb=3)
 
 

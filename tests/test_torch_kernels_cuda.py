@@ -20,6 +20,7 @@ and a broadcast A.)
 """
 import importlib.util
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -30,7 +31,7 @@ from xitorch_tpu_torch.ops import (
     structured_cg_cuda, structured_cg_plain, thomas_cuda, thomas_plain,
 )
 from xitorch_tpu_torch.ops.structured_cg import (
-    _REG_REGS, choose_path, register_attrs, register_window,
+    choose_path, fits_structured_cg, register_window,
 )
 from xitorch_tpu_torch.ops.tridiag import thomas_design
 from xitorch_tpu_torch.ops.fused_cg import fused_cg_cuda, fused_cg_dense, fused_cg_plain
@@ -77,7 +78,7 @@ def _cg_flat(offsets, r, K, n, device, seed=0):
 def test_cg_kernel_matches_plain(cuda, offsets, r, K, n, path):
     args = (*_cg_flat(offsets, r, K, n, cuda), offsets)
     kw = dict(rtol=1e-6, atol=1e-8, max_niter=min(2 * n, 400))
-    chosen = choose_path(n, r, offsets)
+    chosen = choose_path(n, r, offsets, register_window(r, len(offsets), cuda))
     if path == "register" and chosen != "register":
         # outside the register window a forced register launch raises
         with pytest.raises(RuntimeError):
@@ -98,13 +99,19 @@ def test_cg_kernel_matches_plain(cuda, offsets, r, K, n, path):
 
 @pytest.mark.cuda
 def test_register_window_matches_the_build(cuda):
-    """The registers a thread the chooser assumes for each register design
-    are the compiled kernels', and so is the window they give."""
+    """Every register design launches at the largest n of its window (the
+    window read from the build), and that window lies inside the
+    shared-memory design's, as fits_structured_cg assumes."""
     for r in (1, 2, 4, 8):
         for nb in (1, 2):
-            regs, threads = register_attrs(r, nb)
-            assert regs == _REG_REGS[(r, nb)]
-            assert register_window(r, nb) == 8 * threads
+            n = register_window(r, nb, cuda)
+            assert n >= 1024 and fits_structured_cg(n, r, torch.float32, nb)
+            offsets = tuple(range(1, nb + 1))
+            args = (*_cg_flat(offsets, r, 1, n, cuda), offsets)
+            x, _, _ = structured_cg_cuda(*args, rtol=1e-6, atol=1e-8, max_niter=2)
+            assert structured_cg_cuda.last_design == "register"
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(x).all())
 
 
 @pytest.mark.cuda
@@ -163,6 +170,31 @@ def test_wrappers_and_structured_solve_do_not_synchronise(cuda):
     xt.linalg.flush_convergence_warnings()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+def test_unconverged_solve_on_card_warns(cuda):
+    """A structured_cg solve that stops short (max_niter=1) returns before
+    its eager check is read, and warns at flush_convergence_warnings();
+    another method's check warns before the solve returns."""
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
+
+    rng = np.random.default_rng(6)
+    d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(16, 1024)), dtype=torch.float32, device=cuda)
+    V = torch.tensor(rng.standard_normal((16, 1024, 4)) / 32.0, dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.standard_normal((16, 1024, 1)), dtype=torch.float32, device=cuda)
+    A = xt.TridiagLowRankOperator(d, 1.0, V)
+    xt.linalg.flush_convergence_warnings()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xt.linalg.solve(A, b, method="structured_cg", max_niter=1)
+        assert not caught
+        xt.linalg.flush_convergence_warnings()
+    assert [w.category for w in caught] == [ConvergenceWarning]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xt.linalg.solve(A, b, method="cg", max_niter=1)
+    assert any(issubclass(w.category, ConvergenceWarning) for w in caught)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ xitorch_tpu/linalg/solve.py).
 """
 from __future__ import annotations
 
+import atexit
 import warnings
 from contextlib import ExitStack
 from typing import Any, Callable, Mapping, Optional, Union
@@ -36,9 +37,9 @@ from xitorch_tpu_torch.utils.misc import get_method
 
 __all__ = ["solve", "flush_convergence_warnings"]
 
-# eager checks of solves on CUDA tensors whose verdict is still on its way
-# to the host: (event, pinned host copy of (failed, max resid, max stop),
-# method)
+# eager checks of structured_cg solves on CUDA tensors whose verdict is
+# still on its way to the host: (event, pinned host copy of (failed, max
+# resid, max stop), method)
 _PENDING: list = []
 
 
@@ -135,7 +136,7 @@ def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
         return x
 
     rank = A.V.shape[-1] if A.V is not None else 1
-    if not fits_structured_cg(n, rank, A.dtype, nb=len(offsets), offsets=offsets):
+    if not fits_structured_cg(n, rank, A.dtype, nb=len(offsets)):
         return cg(A, B, E, M, rtol=rtol, atol=atol, max_niter=max_niter,
                   return_info=return_info, **options)
     V = A.V if A.V is not None \
@@ -304,12 +305,13 @@ def solve(A: LinearOperator, B: torch.Tensor,
     raises for them.
 
     A :class:`ConvergenceWarning` is emitted when the solve did not
-    converge.  The check always runs (PyTorch is eager): one extra matvec
-    and norms per call.  On CPU tensors it warns before returning.  On CUDA
-    tensors it does not synchronise: its verdict is copied to the host
-    behind the solve, and the warning is emitted by the first later call of
-    :func:`solve` that finds the copy done, or by
-    :func:`flush_convergence_warnings`.
+    converge.  The check always runs (PyTorch is eager): one extra matvec,
+    norms and a host synchronisation per call, before returning.  The one
+    exception is ``method="structured_cg"`` on CUDA tensors, whose kernels
+    run without a synchronise: its verdict is copied to the host behind the
+    solve, and the warning is emitted by the first later call of
+    :func:`solve` that finds the copy done, by
+    :func:`flush_convergence_warnings`, or at the interpreter's exit.
     """
     _report_pending(wait=False)
     if A.shape[-1] != A.shape[-2]:
@@ -502,9 +504,9 @@ class _SolveFunction(torch.autograd.Function):
 
 def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
     """Warn if the returned solution's measured residual is above 10x the
-    tolerance (one extra matvec).  On CUDA tensors the verdict is queued
-    (:func:`_report_pending`) instead of read, so the call does not
-    synchronise."""
+    tolerance (one extra matvec).  For structured_cg on CUDA tensors the
+    verdict is queued (:func:`_report_pending`) instead of read, so the
+    call does not synchronise."""
     rtol = fwd_options.get("rtol", 1e-6)
     atol = fwd_options.get("atol", 1e-8)
     with torch.no_grad():
@@ -526,7 +528,7 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
             return
         verdict = torch.stack([(resid > 10 * stop).any().to(resid.dtype),
                                resid.max(), stop.max()])
-        if verdict.is_cuda:
+        if verdict.is_cuda and method == "structured_cg":
             host = torch.empty(3, dtype=verdict.dtype, pin_memory=True)
             with torch.cuda.device(verdict.device):
                 host.copy_(verdict, non_blocking=True)
@@ -559,9 +561,13 @@ def _report_pending(wait: bool) -> None:
 
 
 def flush_convergence_warnings() -> None:
-    """Wait for the eager convergence checks of earlier :func:`solve` calls
-    on CUDA tensors and emit their warnings now (a host synchronisation)."""
+    """Wait for the eager convergence checks of earlier structured_cg
+    :func:`solve` calls on CUDA tensors and emit their warnings now (a host
+    synchronisation)."""
     _report_pending(wait=True)
+
+
+atexit.register(flush_convergence_warnings)
 
 
 def _warn_nonconverged_eager(what: str, method, info) -> None:

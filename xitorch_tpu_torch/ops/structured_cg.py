@@ -48,18 +48,12 @@ _SMEM_STATIC = 4096
 _MAX_RANK = 16   # kMaxRank in csrc/structured_cg.cu
 _MAX_BANDS = 8   # kMaxBands
 
-# the register design: elements a thread (kE), bands, band offset and rank
-# it takes, and the registers a thread of each instantiation (rank bucket,
-# bands) uses, from `nvcc -Xptxas -v` for sm_90a (tests/test_torch_kernels_cuda.py
-# holds them against cudaFuncGetAttributes on the card)
+# the register design: elements a thread (kE), and the bands, band offset
+# and rank it takes
 _REG_E = 8
 _REG_MAX_BANDS, _REG_MAX_OFFSET, _REG_MAX_RANK = 2, 8, 8
-_REG_RANKS = (1, 2, 4, 8)
-_REG_REGS = {(1, 1): 98, (2, 1): 123, (4, 1): 128, (8, 1): 163,
-             (1, 2): 121, (2, 2): 128, (4, 2): 164, (8, 2): 168}
-# the register file: 4 partitions of 16,384 registers an SM, a block's
-# warps spread evenly over them
-_PARTITIONS, _REGS_PER_PARTITION, _MAX_BLOCK = 4, 16384, 1024
+# register_window's values by (device index, rank, bands)
+_WINDOWS: dict = {}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -71,22 +65,17 @@ _SIGNATURES = {
 }
 
 
-def _rank_bucket(r: int) -> int:
-    return next(R for R in _REG_RANKS if r <= R)
-
-
-def register_window(r: int, nb: int) -> int:
-    """Largest n the register design takes at rank r with nb bands (0: that
-    rank or band count is outside it): 8 elements a thread, and no more
-    threads a block than the card's register file holds at the
-    instantiation's registers a thread (allocated in units of 8, a warp's
-    in one of the SM's 4 partitions of 16,384, the block's warps spread
-    evenly over the 4)."""
+def register_window(r: int, nb: int, device: torch.device) -> int:
+    """Largest n the register design takes at rank r with nb bands on this
+    CUDA device (0: that rank or band count is outside it): 8 elements a
+    thread times the most threads a block of the compiled instantiation can
+    launch with (:func:`register_attrs`), read once a device."""
     if not (1 <= r <= _REG_MAX_RANK and 1 <= nb <= _REG_MAX_BANDS):
         return 0
-    regs = -(-_REG_REGS[(_rank_bucket(r), nb)] // 8) * 8
-    warps = _PARTITIONS * (_REGS_PER_PARTITION // (regs * 32))
-    return _REG_E * min(_MAX_BLOCK, 32 * warps)
+    key = (device.index, r, nb)
+    if key not in _WINDOWS:
+        _WINDOWS[key] = _REG_E * register_attrs(r, nb, device)[1]
+    return _WINDOWS[key]
 
 
 def _fits_shared(n: int, r: int, nb: int) -> bool:
@@ -97,27 +86,25 @@ def _fits_shared(n: int, r: int, nb: int) -> bool:
         and (5 + 2 * nb + r) * n * 4 + _SMEM_STATIC <= _SMEM_OPTIN
 
 
-def choose_path(n: int, r: int, offsets: Sequence[int]) -> Optional[str]:
+def choose_path(n: int, r: int, offsets: Sequence[int], window: int) -> Optional[str]:
     """The kernel design for a system of n unknowns, rank r and these band
-    offsets: "register" inside the register window, else "shared" where the
-    planes fit a block's shared memory, else None (no kernel takes it)."""
+    offsets, given the register design's ``window`` (:func:`register_window`
+    at r and the band count): "register" inside it, for up to 2 bands of
+    offset <= 8, else "shared" where the planes fit a block's shared
+    memory, else None (no kernel takes it)."""
     nb = len(offsets)
-    if 1 <= nb <= _REG_MAX_BANDS and max(offsets) <= _REG_MAX_OFFSET \
-            and n <= register_window(r, nb):
+    if 1 <= nb <= _REG_MAX_BANDS and max(offsets) <= _REG_MAX_OFFSET and n <= window:
         return "register"
     if _fits_shared(n, r, nb):
         return "shared"
     return None
 
 
-def fits_structured_cg(n: int, r: int, dtype, nb: int = 1,
-                       offsets: Optional[Sequence[int]] = None) -> bool:
-    """Whether a kernel design takes the shape (float32 only); ``offsets``
-    defaults to ``(1, ..., nb)``."""
-    if dtype != torch.float32:
-        return False
-    return choose_path(n, r, tuple(offsets) if offsets else tuple(range(1, nb + 1))) \
-        is not None
+def fits_structured_cg(n: int, r: int, dtype, nb: int = 1) -> bool:
+    """Whether a kernel design takes the shape (float32 only): whether its
+    planes fit the shared-memory design, whose window holds the register
+    design's (a card test holds that to the build)."""
+    return dtype == torch.float32 and _fits_shared(n, r, nb)
 
 
 def structured_cg_plain(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
@@ -188,7 +175,8 @@ def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
                 "d, b (K, n), bl, bu (K, nb, n), V (K, r, n) on one device")
     if any(int(o) < 1 for o in offsets):
         raise RuntimeError("structured_cg_cuda: band offsets must be >= 1")
-    chosen = choose_path(n, r, tuple(int(o) for o in offsets))
+    chosen = choose_path(n, r, tuple(int(o) for o in offsets),
+                         register_window(r, nb, b.device))
     if path is None:
         path = chosen
     elif path not in ("register", "shared"):
@@ -220,15 +208,16 @@ def structured_cg_cuda(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
     return x, it, res
 
 
-def register_attrs(r: int, nb: int) -> Tuple[int, int]:
+def register_attrs(r: int, nb: int, device: torch.device) -> Tuple[int, int]:
     """The compiled register design's registers a thread and the most
-    threads a block of it can launch with, on the current card (for holding
-    ``_REG_REGS`` and :func:`register_window` to the build)."""
+    threads a block of it can launch with, on this CUDA device
+    (``cudaFuncGetAttributes``)."""
     lib = _build.load("structured_cg", _SIGNATURES)
     regs, threads = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib.structured_cg_reg_attrs(r, nb, ctypes.addressof(regs),
-                                             ctypes.addressof(threads)),
-                 "structured_cg_reg_attrs")
+    with torch.cuda.device(device):
+        rc = lib.structured_cg_reg_attrs(r, nb, ctypes.addressof(regs),
+                                         ctypes.addressof(threads))
+    _build.check(rc, "structured_cg_reg_attrs")
     return regs.value, threads.value
 
 

@@ -109,14 +109,15 @@ def _check_panels(what, panels):
 
 
 def thomas_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
-                b: torch.Tensor, eps: float) -> torch.Tensor:
+                b: torch.Tensor, eps: float, design: str = None) -> torch.Tensor:
     """Launch the Thomas kernel on contiguous ``(K, n)`` CUDA tensors of one
     dtype (float32 or float64).  The design (:func:`thomas_design`) is
-    recorded in ``thomas_cuda.last_design``."""
+    recorded in ``thomas_cuda.last_design``; ``design="streaming"`` forces
+    that one, for measuring."""
     _check_panels("thomas_cuda", (dl, d, du, b))
     K, n = b.shape
     x = torch.empty_like(b)
-    design = thomas_design(n, b.dtype)
+    design = design or thomas_design(n, b.dtype)
     if design == "streaming":
         ws = torch.empty(2 * -(-K // _SYS) * _SYS * n, dtype=b.dtype, device=b.device)
     else:
