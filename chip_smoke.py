@@ -2630,7 +2630,7 @@ def config3(torch, np, xt, device, card, chain_probe):
         choose_path, fits_structured_cg, register_attrs, register_window, structured_cg_cuda,
         structured_cg_plain,
     )
-    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_design, thomas_plain
+    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 
     rng = np.random.default_rng(SEED)
@@ -2757,14 +2757,13 @@ def config3(torch, np, xt, device, card, chain_probe):
     tiny = float(torch.finfo(torch.float32).tiny)
     th_args = (dlp, dp, dup, bp, tiny)
     xtk = thomas_cuda(*th_args)
-    th_design = thomas_cuda.last_design
     xtp = thomas_plain(*th_args)
     torch.cuda.synchronize()
     # f32, contracted multiply-adds in the kernel vs separate roundings
     th_rel = float((xtk - xtp).abs().max() / xtp.abs().max())
     th_abs = float((xtk - xtp).abs().max())
-    print("thomas kernel vs plain (K=%d, n=%d, f32, design %s): max rel err %.3e, max abs "
-          "err %.3e" % (BATCH, N, th_design, th_rel, th_abs))
+    print("thomas kernel vs plain (K=%d, n=%d, f32): max rel err %.3e, max abs err %.3e"
+          % (BATCH, N, th_rel, th_abs))
     check(bool(torch.isfinite(xtk).all()), "thomas kernel returned non-finite values")
     check(th_rel <= 1e-5, "thomas kernel disagrees with plain: rel %.3e" % th_rel)
     # the card tests' shapes: one long system, many short ones, a ragged
@@ -2777,12 +2776,11 @@ def config3(torch, np, xt, device, card, chain_probe):
             1.0, 1.0, 1.0, 1.0, 0.0)
         rows[3][0, 1] = rows[3][0, 0]
         xs_k = thomas_cuda(*rows, tiny)
-        design_t = thomas_cuda.last_design
         xs_p = thomas_plain(*rows, tiny)
         torch.cuda.synchronize()
         rel_t = float((xs_k - xs_p).abs().max() / xs_p.abs().max())
-        print("thomas kernel vs plain (K=%d, n=%d, f32, zero pivot in system 0, design %s): "
-              "max rel err %.3e" % (K_t, n_t, design_t, rel_t))
+        print("thomas kernel vs plain (K=%d, n=%d, f32, zero pivot in system 0): max rel err "
+              "%.3e" % (K_t, n_t, rel_t))
         check(bool(torch.isfinite(xs_k).all()) and rel_t <= 1e-5,
               "thomas kernel at K=%d, n=%d: rel %.3e" % (K_t, n_t, rel_t))
     # the PyTorch call for the same function: a dense solve of the
@@ -2941,27 +2939,6 @@ def config3(torch, np, xt, device, card, chain_probe):
     th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
     th_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: thomas_cuda(*th_args)),
                           "thomas_kernel")
-    # the two Thomas designs in turns (resident, streaming, streaming,
-    # resident) where the resident one fits
-    th_turns = []
-    for K_t, n_t, dt_t in ((4096, 64, torch.float32), (4096, 512, torch.float32),
-                           (512, 512, torch.float32), (132 * 32, 160, torch.float64)):
-        g = np.random.default_rng(3)
-        rows = [torch.as_tensor(a, dtype=dt_t, device=device)
-                for a in (g.uniform(-0.5, 0.5, size=(K_t, n_t)),
-                          4.0 + 2.0 * g.uniform(size=(K_t, n_t)),
-                          g.uniform(-0.5, 0.5, size=(K_t, n_t)),
-                          g.standard_normal((K_t, n_t)))]
-        eps_t = float(torch.finfo(dt_t).tiny)
-        check(thomas_design(n_t, dt_t) == "resident", "resident design does not fit")
-        x_res = thomas_cuda(*rows, eps_t)
-        x_str = thomas_cuda(*rows, eps_t, design="streaming")
-        diff_t = float((x_res - x_str).abs().max())
-        ms_t = {"resident": [], "streaming": []}
-        for des in ("resident", "streaming", "streaming", "resident"):
-            ms_t[des].append(kernel_ms(device_ms_by_name(
-                torch, lambda: thomas_cuda(*rows, eps_t, design=des)), "thomas_kernel"))
-        th_turns.append((K_t, n_t, dt_t, ms_t, diff_t))
     # the chain floor: the same recurrence on registers, at the same K and n
     probe = chain_probe()
     g = np.random.default_rng(2)
@@ -3006,20 +2983,14 @@ def config3(torch, np, xt, device, card, chain_probe):
           % (cg_ms, cg_dev_ms, cg_shared_ms, cg_shared_dev_ms,
              ", ".join("%s %.4f" % wt for wt in cg_turns), cg_plain_ms, cg_chol_ms,
              cg_solve_ms, BATCH, N, RANK, card))
-    print("  thomas kernel (design %s) %.4f ms (events; device time by name %.4f ms), "
-          "plain %.3f ms, torch.linalg.solve of the materialised batch %.3f ms (K=%d, n=%d) "
-          "[%s]" % (th_design, th_ms, th_dev_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
+    print("  thomas kernel %.4f ms (events; device time by name %.4f ms), plain %.3f ms, "
+          "torch.linalg.solve of the materialised batch %.3f ms (K=%d, n=%d) [%s]"
+          % (th_ms, th_dev_ms, th_plain_ms, th_lib_ms, BATCH, N, card))
     print("  thomas kernel against the one-thread-a-system kernel it replaced: that "
           "kernel's device time %.4f ms is recorded from another run (chip run 14 of PR 13, "
           "NVIDIA H100 80GB HBM3 at 700 W, PERF.md), not measured here; against it this "
           "run's time is %.2fx shorter [%s]"
           % (THOMAS_REPLACED_MS, THOMAS_REPLACED_MS / th_dev_ms, card))
-    for K_t, n_t, dt_t, ms_t, diff_t in th_turns:
-        print("  thomas designs in turns (K=%d, n=%d, %s), device time by name: resident "
-              "%s ms, streaming %s ms; max |x_resident - x_streaming| %.3e [%s]"
-              % (K_t, n_t, str(dt_t).replace("torch.", ""),
-                 " ".join("%.4f" % t for t in ms_t["resident"]),
-                 " ".join("%.4f" % t for t in ms_t["streaming"]), diff_t, card))
     print("  thomas chain floor (the recurrence on registers, K=%d, n=%d): %.4f ms (device "
           "time %.4f ms); the kernel is %.2fx it [%s]"
           % (BATCH, N, chain_ms, chain_dev_ms, th_dev_ms / chain_dev_ms, card))
@@ -3060,8 +3031,7 @@ def config3(torch, np, xt, device, card, chain_probe):
          "replaces": "xitorch_tpu/ops/tridiag.py:38",
          "launches": launches["thomas"], "max_abs_err": th_abs,
          "ms": th_dev_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
-         "bound_by": th_by, "library_ms": th_lib_ms, "design": th_design,
-         "chain_floor_ms": chain_dev_ms},
+         "bound_by": th_by, "library_ms": th_lib_ms, "chain_floor_ms": chain_dev_ms},
     ]
 
 

@@ -26,16 +26,16 @@
 //     kernel's (on an NVIDIA H100 80GB HBM3 it fell with every loader warp
 //     added); with 16-byte copies three loader warps keep up.
 //   * cp and the forward x (y) go where the chain never waits on them:
-//     into shared memory ([position][system], stride 33) when 2 n of them
-//     fit beside the ring ("resident"), else into a device-memory scratch
-//     laid out [block][position][32 systems], one 128-byte store a step
-//     ("streaming").
-//   * Back: x_i = y_i - cp_i x_{i+1}, one FMA a step.  Resident: read from
-//     shared memory and x written over y.  Streaming: the loaders bring the
-//     scratch back in chunks, last first, by 16-byte copies into the ring;
-//     the chain writes each x chunk into a staging tile of the stage, which
-//     the loaders store to the callers' (K, n) layout, one line a system,
-//     before they refill the stage.
+//     into a device-memory scratch laid out [block][position][32 systems],
+//     one 128-byte store a step.  (Keeping them in shared memory beside the
+//     ring where they fit, n <= 600 in float32, gained 3-4 % at n = 160 to
+//     512 and nothing at n = 64 on an NVIDIA H100 80GB HBM3, in turns;
+//     PERF.md: too little for a second design.)
+//   * Back: x_i = y_i - cp_i x_{i+1}, one FMA a step.  The loaders bring
+//     the scratch back in chunks, last first, by 16-byte copies into the
+//     ring; the chain writes each x chunk into a staging tile of the stage,
+//     which the loaders store to the callers' (K, n) layout, one line a
+//     system, before they refill the stage.
 // The recurrence is the reference's, operation for operation: m = d - dl
 // cp, a zero pivot replaced by eps (the dtype's smallest normal number by
 // default), cp = du / m and y = (b - dl y) / m by IEEE division, and the
@@ -45,7 +45,7 @@
 namespace {
 
 constexpr int kSys = 32;                  // systems a block: the chain warp's lanes
-constexpr int kPad = kSys + 1;            // row stride of a [position][system] tile
+constexpr int kPad = kSys + 1;            // row stride of the x staging tile
 constexpr int kChunk = 32;                // positions a ring stage
 constexpr int kStages = 4;
 constexpr int kLoaders = 3;               // loader warps
@@ -196,7 +196,7 @@ __device__ __forceinline__ void store_x(const T* out, T* x, int lw, int lane, in
     x[(size_t)(k0 + s) * n + i0 + lane] = out[lane * kPad + s];
 }
 
-template <typename T, bool kResident>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __restrict__ du,
               const T* __restrict__ b, T* __restrict__ x, T* __restrict__ ws, int n, int K,
@@ -207,8 +207,6 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
   // then the back pass's) goes into stage f % kStages, its phase f / kStages.
   __shared__ __align__(8) unsigned long long full[kStages], empty[kStages];
   T* ring = reinterpret_cast<T*>(smem_raw);
-  T* cpS = ring + kStages * kStageElems<T>;  // resident: [n][kPad] each
-  T* yS = cpS + (size_t)n * kPad;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -218,7 +216,7 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
   const int nchunks = (n + kChunk - 1) / kChunk;
   const int lt = threadIdx.x - 32;        // thread index among the loaders
   const bool vec = n % kPer<T> == 0;
-  // streaming scratch of this block: cp then y, each [n][32]
+  // scratch of this block: cp then y, each [n][32]
   T* cpw = ws + (size_t)blockIdx.x * 2 * n * kSys;
   T* yw = cpw + (size_t)n * kSys;
 
@@ -263,13 +261,8 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
         if (m == T(0)) m = eps;
         cprev = u / m;
         yprev = (bv - l * yprev) / m;
-        if constexpr (kResident) {
-          cpS[(size_t)(i0 + t) * kPad + lane] = cprev;
-          yS[(size_t)(i0 + t) * kPad + lane] = yprev;
-        } else {
-          cpw[(size_t)(i0 + t) * kSys + lane] = cprev;
-          yw[(size_t)(i0 + t) * kSys + lane] = yprev;
-        }
+        cpw[(size_t)(i0 + t) * kSys + lane] = cprev;
+        yw[(size_t)(i0 + t) * kSys + lane] = yprev;
       };
       if (cnt == kChunk) {
         // rows a group of steps ahead in registers, 16 bytes a read
@@ -306,27 +299,11 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
     }
     __threadfence_block();
   }
-  // the scratch and the resident arrays are complete
+  // the scratch is complete
   __syncthreads();
 
   // ---- back substitution ----
-  if constexpr (kResident) {
-    if (warp == 0) {
-      T xn = yprev;  // x_{n-1} = y_{n-1}
-      yS[(size_t)(n - 1) * kPad + lane] = xn;
-#pragma unroll 8
-      for (int i = n - 2; i >= 0; --i) {
-        const size_t o = (size_t)i * kPad + lane;
-        xn = yS[o] - cpS[o] * xn;
-        yS[o] = xn;
-      }
-    }
-    __syncthreads();
-    // x from [position][system] to (K, n): a warp writes one system's
-    // consecutive positions
-    for (int s = warp; s < nsys; s += 1 + kLoaders)
-      for (int i = lane; i < n; i += 32) x[(size_t)(k0 + s) * n + i] = yS[(size_t)i * kPad + s];
-  } else if (warp > 0) {
+  if (warp > 0) {
     // fill nchunks + j holds back chunk j: positions of chunk nchunks - 1 - j
     auto chunk_of = [&](int j) { return nchunks - 1 - j; };
     for (int j = 0; j < nchunks; ++j) {
@@ -377,74 +354,48 @@ thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d, const T* __rest
   }
 }
 
+// Once per instantiation and device: let the kernel take the ring's
+// dynamic shared memory (above the 48 KB a block gets by default).
 template <typename T>
-size_t resident_bytes(int n) {
-  return ring_bytes<T>() + 2 * (size_t)n * kPad * sizeof(T);
-}
-
-// Once per instantiation and device: let the kernel take as much dynamic
-// shared memory as the card allows a block.
-// `avail` receives the dynamic bytes a block may take (beside the static
-// barriers); `cache` holds them per device, 0 until set.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int* cache, int* avail) {
+cudaError_t allow_ring() {
+  static bool done[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int optin = 0;
-    cudaFuncAttributes fa;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)fa.sharedSizeBytes);
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(thomas_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ring_bytes<T>());
     if (e != cudaSuccess) return e;
-    cache[dev] = optin - (int)fa.sharedSizeBytes;
+    done[dev] = true;
   }
-  *avail = cache[dev];
   return cudaSuccess;
 }
 
 template <typename T>
 int launch(const T* dl, const T* d, const T* du, const T* b, T* x, T* ws, int n, int K,
-           T eps, int resident, void* stream) {
-  static int cache_res[kMaxDevices] = {}, cache_str[kMaxDevices] = {};
+           T eps, void* stream) {
   if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (K + kSys - 1) / kSys;
-  int optin = 0;
-  cudaError_t e;
-  if (resident) {
-    e = allow_smem(thomas_kernel<T, true>, cache_res, &optin);
-    if (e != cudaSuccess) return (int)e;
-    if (resident_bytes<T>(n) > (size_t)optin) return (int)cudaErrorInvalidValue;
-    thomas_kernel<T, true><<<blocks, kThreads, resident_bytes<T>(n), (cudaStream_t)stream>>>(
-        dl, d, du, b, x, ws, n, K, eps);
-  } else {
-    e = allow_smem(thomas_kernel<T, false>, cache_str, &optin);
-    if (e != cudaSuccess) return (int)e;
-    thomas_kernel<T, false><<<blocks, kThreads, ring_bytes<T>(), (cudaStream_t)stream>>>(
-        dl, d, du, b, x, ws, n, K, eps);
-  }
+  cudaError_t e = allow_ring<T>();
+  if (e != cudaSuccess) return (int)e;
+  thomas_kernel<T><<<(K + kSys - 1) / kSys, kThreads, ring_bytes<T>(), (cudaStream_t)stream>>>(
+      dl, d, du, b, x, ws, n, K, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entries for ctypes.  dl, d, du, b and x are contiguous (K, n)
-// device arrays (dl[:, 0] and du[:, n-1] are ignored); `resident` picks the
-// design (thomas_resident_fits says where it fits); ws is the streaming
-// design's scratch of 2 * ceil(K / 32) * 32 * n elements (unused when
-// resident).  Returns a cudaError_t (0 on success).
+// device arrays (dl[:, 0] and du[:, n-1] are ignored); ws is a scratch of
+// 2 * ceil(K / 32) * 32 * n elements.  Returns a cudaError_t (0 on
+// success).
 extern "C" int thomas_f32(const float* dl, const float* d, const float* du, const float* b,
-                          float* x, float* ws, int n, int K, float eps, int resident,
-                          void* stream) {
-  return launch<float>(dl, d, du, b, x, ws, n, K, eps, resident, stream);
+                          float* x, float* ws, int n, int K, float eps, void* stream) {
+  return launch<float>(dl, d, du, b, x, ws, n, K, eps, stream);
 }
 
 extern "C" int thomas_f64(const double* dl, const double* d, const double* du,
                           const double* b, double* x, double* ws, int n, int K, double eps,
-                          int resident, void* stream) {
-  return launch<double>(dl, d, du, b, x, ws, n, K, eps, resident, stream);
+                          void* stream) {
+  return launch<double>(dl, d, du, b, x, ws, n, K, eps, stream);
 }

@@ -23,34 +23,16 @@ import torch.nn.functional as F
 from xitorch_tpu_torch.ops import _build
 
 __all__ = ["tridiag_solve", "tridiag_matvec", "tridiag_solve_kernel",
-           "thomas_cuda", "thomas_plain", "thomas_design"]
+           "thomas_cuda", "thomas_plain"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "thomas_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
-    "thomas_f64": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int, _P],
+    "thomas_f32": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "thomas_f64": [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, _P],
 }
 
-# csrc/tridiag.cu: systems a block, and the row stride of the resident cp
-# and y; a Hopper block may opt in to 227 KB of shared memory, of which the
-# kernel's 8 barriers take 64 bytes
-_SYS, _PAD = 32, 33
-_SMEM_DYNAMIC = 232448 - 64
-
-
-def _ring_elems(itemsize: int) -> int:
-    """The ring: 4 stages of dl, d, du, b tiles of 32 systems x (32
-    positions + 16 bytes)."""
-    return 4 * 4 * _SYS * (32 + 16 // itemsize)
-
-
-def thomas_design(n: int, dtype) -> str:
-    """The kernel's design for systems of n unknowns: "resident" (cp and the
-    forward x of the block's 32 systems in shared memory beside the ring)
-    where they fit, else "streaming" (through a device-memory scratch)."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    need = (_ring_elems(itemsize) + 2 * n * _PAD) * itemsize
-    return "resident" if need <= _SMEM_DYNAMIC else "streaming"
+# systems a block of csrc/tridiag.cu
+_SYS = 32
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -109,33 +91,26 @@ def _check_panels(what, panels):
 
 
 def thomas_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
-                b: torch.Tensor, eps: float, design: str = None) -> torch.Tensor:
+                b: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch the Thomas kernel on contiguous ``(K, n)`` CUDA tensors of one
-    dtype (float32 or float64).  The design (:func:`thomas_design`) is
-    recorded in ``thomas_cuda.last_design``; ``design="streaming"`` forces
-    that one, for measuring."""
+    dtype (float32 or float64).  The kernel keeps cp and the forward sweep's
+    x in a device-memory scratch of 2 n values a system."""
     _check_panels("thomas_cuda", (dl, d, du, b))
     K, n = b.shape
     x = torch.empty_like(b)
-    design = design or thomas_design(n, b.dtype)
-    if design == "streaming":
-        ws = torch.empty(2 * -(-K // _SYS) * _SYS * n, dtype=b.dtype, device=b.device)
-    else:
-        ws = x  # not read
+    ws = torch.empty(2 * -(-K // _SYS) * _SYS * n, dtype=b.dtype, device=b.device)
     lib = _build.load("tridiag", _SIGNATURES)
     fn = lib.thomas_f32 if b.dtype == torch.float32 else lib.thomas_f64
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
-                x.data_ptr(), ws.data_ptr(), n, K, eps, int(design == "resident"), stream)
+                x.data_ptr(), ws.data_ptr(), n, K, eps, stream)
     _build.check(rc, "thomas_cuda")
     thomas_cuda.launches += 1
-    thomas_cuda.last_design = design
     return x
 
 
 thomas_cuda.launches = 0
-thomas_cuda.last_design = None
 
 
 def tridiag_solve_kernel(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
