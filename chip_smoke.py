@@ -237,22 +237,34 @@ def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = Tru
     return statistics.median(ts)
 
 
+PROFILE_TRIES = 3
+
+
 def device_ms_by_name(torch, fn, calls: int = REPS) -> dict:
     """Device time of each kernel ``fn()`` launches, ms per call by name,
     from ``torch.profiler`` over ``calls`` calls after one warm-up call.
     Only events on the card count (the profiler also files module loading
-    under device time)."""
+    under device time).  Now and then a trace comes back with no event on
+    the card at all, although the calls launched kernels: such a trace is
+    taken again, up to ``PROFILE_TRIES`` times in all, and each retake is
+    printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key: e.self_device_time_total / calls / 1e3
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if by_name:
+            return by_name
+        print("  profiler: trace %d of %d held no event on the card; taking it again"
+              % (attempt, PROFILE_TRIES))
+    raise AssertionError("the profiler saw no event on the card in %d traces" % PROFILE_TRIES)
 
 
 def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0):
