@@ -71,7 +71,19 @@ paths give it, and drives these configurations through the public API:
   second-order implicit gradients, then ``benchmarks/bench_optimize.py``'s
   512 systems of n = 32 as one joint system through ``rootfinder``
   (broyden1), ``equilibrium`` (anderson_acc) and ``minimize`` (lbfgs),
-  forward and gradient; no kernel of the package is on this path.
+  forward and gradient; no kernel of the package is on this path;
+* BASELINE config 5: the SCF loop of ``models.scf`` (symeig nested in
+  equilibrium) at n = 256, nocc = 8, in float32 with exacteig (each step
+  decomposes the Hamiltonian through the real sweep kernel, which is also
+  held against its plain version on that panel) and in float64 with
+  davidson, forward and the energy's gradient against the float64
+  ``torch.linalg.eigh`` route; then the DEQ model at
+  ``benchmarks/bench_deq.py``'s shape, a few ``torch.optim.Adam`` steps;
+* BASELINE config 4: ``benchmarks/bench_ivp.py``'s 512 chains through
+  ``solve_ivp`` rk45 under ``torch.func.vmap``, the
+  ``examples/02-molecular-dynamics`` problem's gradient to v0 by autodiff
+  and by backsolve, and the neural ODE; then ``quad`` and ``mcquad``
+  against closed forms (no kernel on these paths).
 
 It reads the kernels' launch counters to show that each main path went
 through its kernels, and times kernels, forward and gradient with CUDA
@@ -96,6 +108,8 @@ gate's rows above 512 come from this), without holding the gate to it.
     python3 chip_smoke.py --only dc_level
     python3 chip_smoke.py --only sweep
     python3 chip_smoke.py --only complex
+    python3 chip_smoke.py --only models
+    python3 chip_smoke.py --only integrate
 
 build the kernels and run only config 3's phase (the structured CG and
 Thomas kernels, their designs, the replaced Thomas kernel and the chain
@@ -104,8 +118,9 @@ only the per-level warm start's phase, only config 2's phase (the real
 sweep kernel, its path and cluster size) and the sweep gate's table, or
 only config 2's complex phase (the complex
 sweep kernel, its path, cluster size, waves and designs) and the sweep
-gate's table, with the same last lines: development switches for work
-on those kernels.  The default run is the full script.
+gate's table, only config 5 and the DEQ model, or only config 4 with
+quad and mcquad, with the same last lines: development switches for work
+on those paths.  The default run is the full script.
 """
 from __future__ import annotations
 
@@ -196,6 +211,45 @@ KRON_NCOLS, KRON_NEIG = 4, 8
 KRON_CG = {"rtol": 1e-5, "atol": 1e-6, "max_niter": 600}
 
 
+# BASELINE config 5 (models/scf.py on tests/test_scf.py's recipe): the
+# Hamiltonian's size (the largest n at which the gate sends one matrix to
+# the sweep kernel), occupied orbitals and coupling; the float32 run's f_tol
+# and x_tol: the sweep kernel's eigenvectors (gauge tolerance 4 eps sqrt(n))
+# leave ~2e-5 in the density's residual on the card, far out of reach of
+# the module's float64 defaults
+SCF_N, SCF_NOCC, SCF_G = 256, 8, 0.3
+SCF_TOL32 = 1e-4
+# the DEQ model at benchmarks/bench_deq.py's shape (batch, d_in, hidden,
+# d_out) and its train steps
+DEQ_SHAPE = (256, 64, 256, 8)
+DEQ_STEPS = 5
+# BASELINE config 4 (benchmarks/bench_ivp.py): trajectories, masses a chain,
+# output times over 6 s; the neural ODE's batch, d_in, hidden, d_out
+IVP_B, IVP_M, IVP_NT = 512, 32, 64
+NODE_SHAPE = (256, 16, 64, 4)
+# examples/02-molecular-dynamics's start: jax.random.normal(PRNGKey(0),
+# (4, 2)) * 1.5 as the example draws it, written out here (the port and
+# this script import no JAX)
+EXAMPLE_POS0 = ((2.4339632987976074, 3.0378971099853516),
+                (-0.6503916382789612, -0.11792602390050888),
+                (0.26413634419441223, -1.4581338167190552),
+                (-0.7429481148719788, 0.7415679097175598))
+# the JAX package's float64 gradients of examples/02's loss to v0 = 0 at
+# that start (rk45, atol 1e-8, rtol 1e-7), by each adjoint; tests/
+# test_torch_integrate.py holds these values against JAX and the port's
+# float64 backsolve against JAX's backsolve
+EXAMPLE_GRAD = {
+    "autodiff": ((0.6691269801861585, 0.9338990998552227),
+                 (-4.0637429356801835, -4.555981070577187),
+                 (0.9103032217718112, 2.7905592772681005),
+                 (3.1366926543601195, 1.9332252665780107)),
+    "backsolve": ((0.669567289316317, 0.9332363770228173),
+                  (-4.481839826339452, -1.7765987385130764),
+                  (0.9367823636102668, 2.7687837781081983),
+                  (3.527870111002663, -0.8237188386186441)),
+}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -240,9 +294,11 @@ def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = Tru
 PROFILE_TRIES = 3
 
 
-def device_ms_by_name(torch, fn, calls: int = REPS) -> dict:
+def device_ms_by_name(torch, fn, calls: int = REPS, warmup: bool = True) -> dict:
     """Device time of each kernel ``fn()`` launches, ms per call by name,
-    from ``torch.profiler`` over ``calls`` calls after one warm-up call.
+    from ``torch.profiler`` over ``calls`` calls after one warm-up call
+    (``warmup=False``: none, for a function that already ran at these
+    shapes).
     Only events on the card count (the profiler also files module loading
     under device time).  Now and then a trace comes back with no event on
     the card at all, although the calls launched kernels: such a trace is
@@ -251,7 +307,8 @@ def device_ms_by_name(torch, fn, calls: int = REPS) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -267,11 +324,11 @@ def device_ms_by_name(torch, fn, calls: int = REPS) -> dict:
     raise AssertionError("the profiler saw no event on the card in %d traces" % PROFILE_TRIES)
 
 
-def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0):
+def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0, warmup: bool = True):
     """Summed device time of the kernels ``fn()`` launches, per call (see
     :func:`device_ms_by_name`).  With ``top``, also the ``top`` largest
     entries as ``(name, ms per call)``."""
-    by_name = device_ms_by_name(torch, fn, calls)
+    by_name = device_ms_by_name(torch, fn, calls, warmup)
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
     if not top:
@@ -286,6 +343,40 @@ def bound(nbytes: float, flops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_bound(B: int, n: int, sweeps, rotations):
+    """The real sweep kernel's bound on a run's data, B square panels of n:
+    the panels read once and written once; per matrix the pair dots of
+    every round played (2 width operations each), the rotations that were
+    applied (8 width), and one gauge (upper triangle) and norm refresh
+    before the first sweep and after each.  ``sweeps``, ``rotations``: the
+    kernel's per-matrix counts."""
+    rounds = -(-(n - 1) // 6) * 6
+    sweeps_total, rot_total = float(sweeps.sum()), float(rotations.sum())
+    flops = (sweeps_total * rounds * (n // 2) * 2 * n + rot_total * 8 * n
+             + (sweeps_total + B) * (n * (n - 1) // 2 + n) * 2 * n)
+    return bound(2 * B * n * n * 4, flops)
+
+
+def timed_once(torch, fn):
+    """``(fn(), ms)``: one call timed by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def rel_l2_all(got, ref) -> float:
+    """Relative L2 distance of a sequence of tensors from a reference
+    sequence, over all of them together."""
+    num = sum(float(((g.double() - r.double()) ** 2).sum()) for g, r in zip(got, ref))
+    den = sum(float((r.double() ** 2).sum()) for r in ref)
+    return math.sqrt(num / den)
 
 
 def tile_operations(torch, seg, tile):
@@ -718,16 +809,9 @@ def config2(torch, np, xt, device, card):
     cheb_busy, cheb_top = device_busy_ms(
         torch, lambda: fwd("chebfsi", **CHEBFSI_OPTS), top=4)
 
-    # the kernel's bound on this run's data: the panel read once and written
-    # once; per matrix the pair dots of every round played (2 width
-    # operations each), the rotations that were applied (8 width), and one
-    # gauge (upper triangle) and norm refresh before the first sweep and
-    # after each
     rounds = -(-(N2 - 1) // 6) * 6
     sweeps_total, rot_total = float(sk.sum()), float(rk.sum())
-    flops = (sweeps_total * rounds * (N2 // 2) * 2 * N2 + rot_total * 8 * N2
-             + (sweeps_total + B2) * (N2 * (N2 - 1) // 2 + N2) * 2 * N2)
-    k_bound, k_by = bound(2 * B2 * N2 * N2 * 4, flops)
+    k_bound, k_by = sweep_bound(B2, N2, sk, rk)
     gauge_share = (gauge_ms - copy_ms) * (sweeps_total / B2 + 1) / k_ms
 
     def rate(ms):
@@ -768,7 +852,8 @@ def config2(torch, np, xt, device, card):
     print("    of which: " + "; ".join("%s %.3f ms" % (name[:60], ms)
                                          for name, ms in cheb_top))
 
-    record = {"name": "jacobi_sweep", "route": "cuda",
+    record = {"name": "jacobi_sweep", "path": "config 2: %d x %d^2, with the warm, per-level "
+              "warm and Kron paths' launches" % (B2, N2), "route": "cuda",
               "source": "xitorch_tpu_torch/csrc/jacobi_sweep.cu",
               "replaces": "xitorch_tpu/ops/jacobi_eigh.py:308",
               "launches": sum(counts.values()), "max_abs_err": sq_err,
@@ -3047,6 +3132,433 @@ def config3(torch, np, xt, device, card, chain_probe):
     ]
 
 
+def config5(torch, np, xt, device, card):
+    """BASELINE config 5 through ``models.scf``: ``tests/test_scf.py``'s
+    recipe (a = N(0, 1), g = 0.3) at n = 256, nocc = 8, twice: in float32
+    with ``eig_method="exacteig"`` (each SCF step decomposes the
+    materialised Hamiltonian through the real sweep kernel: batch 1 at
+    n = 256 passes the gate) and in float64 with davidson, as the BASELINE
+    names it.  Each run: the residual of the fixed point, ``converged``,
+    sum(rho) = nocc, forward and forward + gradient of ``scf_energy`` to a
+    and g against the float64 dense route (``torch.linalg.eigh``: the sweep
+    kernels take float32 only), times, the device's idle share (of the
+    float32 forward; of one davidson decomposition at the fixed point for
+    the float64 run, whose whole forward takes minutes to profile), and the
+    sweep kernel's launches.  The kernel is also held against its plain
+    version on the panel this path gives it (the Hamiltonian at the float32
+    fixed point), and ``jacobi_eigh`` warm (the reference's default at this
+    n) is timed against cold there.  Returns the kernel's record at this
+    path's panel, with the path's launches."""
+    from xitorch_tpu_torch.models import scf_density, scf_energy
+    from xitorch_tpu_torch.models.scf import HamiltonianOp, _density, _eig_options
+    from xitorch_tpu_torch.ops.jacobi_eigh import (jacobi_eigh, jacobi_sweep_cuda,
+                                                   jacobi_sweep_plain)
+
+    f32, f64 = torch.float32, torch.float64
+    n, nocc = SCF_N, SCF_NOCC
+    a_np = np.random.default_rng(SEED).standard_normal((n, n))
+    # the float32 run names its own f_tol and x_tol (SCF_TOL32); the
+    # float64 run keeps the module's (f_tol 1e-9; davidson min_eps 1e-9,
+    # max_niter 2000).  Energy and gradient limits against the float64
+    # reference: float32 stops at SCF_TOL32 on a density of norm ~0.5, so
+    # 1e-5 (energy, first order in the density error) and 1e-3 (gradient,
+    # through the two adjoint solves); float64 davidson stops at 1e-9, and
+    # its adjoint's shifted solves at cg's default tolerance, so 1e-9 and
+    # 1e-6
+    runs = {"float32 exacteig": (f32, {"eig_method": "exacteig", "f_tol": SCF_TOL32,
+                                        "x_tol": SCF_TOL32}, 1e-5, 1e-3),
+            "float64 davidson": (f64, {"eig_method": "davidson"}, 1e-9, 1e-6)}
+
+    def inputs(dtype, requires_grad=False):
+        return (torch.tensor(a_np, dtype=dtype, device=device, requires_grad=requires_grad),
+                torch.tensor(SCF_G, dtype=dtype, device=device, requires_grad=requires_grad))
+
+    def energy_grad(dtype, kw):
+        a, g = inputs(dtype, True)
+        e = scf_energy(a, g, nocc=nocc, maxiter=400, **kw)
+        return (e.detach(), *torch.autograd.grad(e, (a, g)))
+
+    jacobi_sweep_cuda.launches = 0
+    e_ref, *g_ref = energy_grad(f64, {"eig_method": "exacteig"})
+    torch.cuda.synchronize()
+    check(jacobi_sweep_cuda.launches == 0,
+          "config 5: the float64 reference went through the sweep kernel")
+    rows, path_sweeps = {}, 0
+    for name, (dtype, kw, e_tol, g_tol) in runs.items():
+        a, g = inputs(dtype)
+        f_tol = kw.get("f_tol", 1e-9)
+
+        def fwd():
+            return scf_density(a, g, nocc=nocc, maxiter=400, return_info=True, **kw)
+
+        if dtype == f32:
+            fwd()  # one call first at these shapes (libraries, kernel attributes)
+        jacobi_sweep_cuda.launches = 0
+        (rho, info), fwd_ms = timed_once(torch, fwd)
+        fwd_sweeps = jacobi_sweep_cuda.launches
+        resid = float(torch.linalg.vector_norm(
+            rho - _density(a, g, rho, nocc, kw["eig_method"],
+                           **_eig_options(kw["eig_method"], None))))
+        occ_err = abs(float(rho.sum()) - nocc)
+        jacobi_sweep_cuda.launches = 0
+        (e, *grads), grad_ms = timed_once(torch, lambda: energy_grad(dtype, kw))
+        grad_sweeps = jacobi_sweep_cuda.launches
+        path_sweeps += fwd_sweeps + grad_sweeps
+        e_rel = abs(float(e) - float(e_ref)) / abs(float(e_ref))
+        g_rel = rel_l2_all(grads, g_ref)
+        if dtype == f32:
+            busy_of, busy_ms_of = "forward", fwd_ms
+            busy = device_busy_ms(torch, fwd, calls=1, warmup=False)
+        else:
+            # one davidson decomposition at the fixed point stands for the
+            # forward, a chain of ~40 of them (profiling it all takes minutes)
+            H64 = HamiltonianOp(a, g, rho)
+
+            def one():
+                return xt.linalg.symeig(H64, nocc, "lowest", method="davidson",
+                                        **_eig_options("davidson", None))
+
+            busy_of = "one davidson symeig at the fixed point"
+            _, busy_ms_of = timed_once(torch, one)
+            busy = device_busy_ms(torch, one, calls=1, warmup=False)
+        idle = max(0.0, 1 - busy / busy_ms_of)
+        print("config 5, SCF %s (n = %d, nocc = %d, g = %.1f) [%s]: converged %.0f after %.0f "
+              "iterations; residual |rho - density(H(rho))| %.2e (f_tol %.0e); |sum(rho) - "
+              "nocc| %.2e; energy %.6f, rel to the float64 eigh route %.2e (limit %.0e); "
+              "gradient to (a, g) rel L2 %.2e (limit %.0e); forward %.3f ms, forward + "
+              "gradient %.3f ms; %s: %.3f ms, device busy %.3f ms, idle share %.0f%%; sweep "
+              "kernel launches %d forward, %d forward + gradient"
+              % (name, n, nocc, SCF_G, card, float(info["converged"]),
+                 float(info["iterations"]), resid, f_tol, occ_err, float(e), e_rel, e_tol,
+                 g_rel, g_tol, fwd_ms, grad_ms, busy_of, busy_ms_of, busy, 100 * idle,
+                 fwd_sweeps, grad_sweeps))
+        check(float(info["converged"]) == 1.0 and resid < f_tol,
+              "config 5 %s: not converged (residual %.3e)" % (name, resid))
+        check(occ_err < (1e-4 if dtype == f32 else 1e-8),
+              "config 5 %s: sum(rho) off nocc by %.3e" % (name, occ_err))
+        check(e_rel <= e_tol and g_rel <= g_tol,
+              "config 5 %s: energy (%.3e) or gradient (%.3e) off the float64 route"
+              % (name, e_rel, g_rel))
+        if dtype == f32:
+            check(fwd_sweeps >= 1 and grad_sweeps >= 1,
+                  "config 5 float32: the sweep kernel was not launched (%d, %d)"
+                  % (fwd_sweeps, grad_sweeps))
+            H = HamiltonianOp(a, g, rho).fullmatrix()[None]
+        else:
+            # davidson's projected matrices are float64: outside the sweep
+            # kernels' window, they never reach the kernel
+            check(fwd_sweeps == 0 and grad_sweeps == 0,
+                  "config 5 float64 davidson launched the sweep kernel")
+        rows[name] = {"converged": float(info["converged"]),
+                      "iterations": float(info["iterations"]), "residual": resid,
+                      "energy_rel": e_rel, "grad_rel_l2": g_rel, "fwd_ms": fwd_ms,
+                      "grad_ms": grad_ms, "busy_of": busy_of, "busy_ms": busy,
+                      "idle_share": idle, "sweeps_fwd": fwd_sweeps,
+                      "sweeps_grad": grad_sweeps}
+
+    # the sweep kernel against its plain version on this path's panel
+    panel = shifted_panel(torch, H.contiguous())
+    tol = float(torch.finfo(f32).eps) * 4.0 * math.sqrt(n)
+    Gk, sk, gk, rk = jacobi_sweep_cuda(panel, 18, tol, return_stats=True)
+    cluster = jacobi_sweep_cuda.last_cluster
+    (Gp, sp), plain_ms = timed_once(torch, lambda: jacobi_sweep_plain(panel, 18, tol))
+    err = sweep_checks(torch, "jacobi_sweep (1, %d, %d), the SCF's Hamiltonian" % (n, n),
+                       panel, Gk, Gp, sk, sp, gk, tol, torch.linalg.eigvalsh(panel.double()),
+                       cluster=cluster)
+    k_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(panel, 18, tol), reps=3, inner=3)
+    lib_ms = timed_ms(torch, lambda: torch.linalg.eigh(panel), reps=3, inner=3)
+    k_bound, k_by = sweep_bound(1, n, sk, rk)
+    print("  sweep kernel at the SCF's panel (1, %d, %d): %.3f ms, plain %.3f ms (one call), "
+          "bound %.4f ms (%s), torch.linalg.eigh of the panel %.3f ms; %d sweeps [%s]"
+          % (n, n, k_ms, plain_ms, k_bound, k_by, lib_ms, int(sk.max()), card))
+
+    # the reference's jacobi_eigh warms the sweep with the DC kernel (row 4)
+    # by default for real input at 192 <= n <= 448, so at this panel; the
+    # port's default is cold.  Warm against cold at this path's shape
+    # (outside the counted run)
+    Hc = H.contiguous()
+    cold_ms = timed_ms(torch, lambda: jacobi_eigh(Hc, precondition=False), reps=3, inner=3)
+    warm_ms = timed_ms(torch, lambda: jacobi_eigh(Hc, precondition=True), reps=3, inner=3)
+    (ec, _, ic), (ew, _, iw) = (jacobi_eigh(Hc, precondition=p, return_info=True)
+                                for p in (False, True))
+    warm_err = float((ew - ec).abs().max() / ec.abs().max())
+    print("  jacobi_eigh at the SCF's panel (1, %d, %d) [%s]: cold %.3f ms (%d sweeps), warm "
+          "start (the DC kernel, then the sweeps; the reference's default here) %.3f ms (%d "
+          "sweeps, guard sent back %d); eigenvalues warm against cold %.2e of the largest"
+          % (n, n, card, cold_ms, int(ic["sweeps"].max()), warm_ms, int(iw["sweeps"].max()),
+             int(iw["guard_bad"].sum()), warm_err))
+    check(warm_err <= 1e-5, "config 5: the warm start's eigenvalues are off the cold ones "
+          "by %.3e" % warm_err)
+    rows["warm_vs_cold"] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
+                            "cold_sweeps": int(ic["sweeps"].max()),
+                            "warm_sweeps": int(iw["sweeps"].max())}
+    print(json.dumps({"phase": "config5", "card": card, "rows": rows}))
+    return {"name": "jacobi_sweep", "path": "config 5: SCF float32 exacteig, 1 x %d^2" % n,
+            "route": "cuda", "source": "xitorch_tpu_torch/csrc/jacobi_sweep.cu",
+            "replaces": "xitorch_tpu/ops/jacobi_eigh.py:308", "launches": path_sweeps,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
+            "bound_by": k_by, "library_ms": lib_ms}
+
+
+def deq_phase(torch, np, xt, device, card):
+    """The DEQ model at ``benchmarks/bench_deq.py``'s shape (batch 256,
+    d_in 64, hidden 256, d_out 8, float32, anderson_acc with the module's
+    defaults) trained by ``torch.optim.Adam(lr=1e-3)`` for a few steps, a
+    new batch a step: the loss and ms of each step, samples/s and the idle
+    share; and the gradient of one step against the float64 run with the
+    same settings.  No kernel of this package is on this path."""
+    from xitorch_tpu_torch.models import DEQParams, deq_loss, init_deq, train_step
+
+    f32, f64 = torch.float32, torch.float64
+    B, d_in, hidden, d_out = DEQ_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_deq(gen, d_in, hidden, d_out, f32, device=device)
+    data = [(torch.randn((B, d_in), generator=gen, device=device),
+             torch.randn((B, d_out), generator=gen, device=device)) for _ in range(DEQ_STEPS)]
+
+    def grads(dtype):
+        ps = DEQParams(*(p.detach().to(dtype).requires_grad_() for p in params))
+        x, y = data[0]
+        return torch.autograd.grad(deq_loss(ps, x.to(dtype), y.to(dtype)), ps)
+
+    # Anderson stops at f_tol 1e-4 on the joint residual of the (256, 256)
+    # state (norm ~1e2): the fixed points differ by ~1e-6 of it, so 1e-4
+    g_rel = rel_l2_all(grads(f32), grads(f64))
+    opt = torch.optim.Adam(params, lr=1e-3)
+    losses, step_ms = [], []
+    for x, y in data:
+        (_, loss), ms = timed_once(torch, lambda: train_step(params, opt, x, y))
+        losses.append(float(loss))
+        step_ms.append(ms)
+    per = statistics.median(step_ms[1:])
+    busy = device_busy_ms(torch, lambda: train_step(params, opt, *data[-1]), calls=1,
+                          warmup=False)
+    print("DEQ train steps (batch %d, d_in %d, hidden %d, d_out %d, float32, anderson_acc, "
+          "Adam lr 1e-3) [%s]: losses %s; ms a step %s (median after the first %.3f: "
+          "%.1f samples/s); device busy %.3f ms a step, idle share %.0f%%; gradient of one "
+          "step rel L2 to the float64 run %.2e (limit 1e-4)"
+          % (B, d_in, hidden, d_out, card, [round(v, 6) for v in losses],
+             [round(v, 3) for v in step_ms], per, B / per * 1e3, busy,
+             100 * max(0.0, 1 - busy / per), g_rel))
+    check(all(math.isfinite(v) for v in losses), "DEQ: a loss is not finite")
+    check(g_rel <= 1e-4, "DEQ: gradient off the float64 run by %.3e" % g_rel)
+    print(json.dumps({"phase": "deq", "card": card, "losses": losses, "step_ms": step_ms,
+                      "samples_per_s": B / per * 1e3, "busy_ms": busy, "grad_rel_l2": g_rel}))
+
+
+def f_osc(torch, t, y, w):
+    """``benchmarks/bench_ivp.py``'s vector field: a damped, driven chain of
+    masses, state (x, v) stacked on the second-last dim, stiffness w."""
+    x, v = y[..., 0, :], y[..., 1, :]
+    lap = 2.0 * x
+    lap = lap - torch.cat([x[..., 1:], torch.zeros_like(x[..., :1])], -1)
+    lap = lap - torch.cat([torch.zeros_like(x[..., :1]), x[..., :-1]], -1)
+    a = -(w[..., None] ** 2) * x - 0.5 * lap - 0.1 * v + torch.sin(t)
+    return torch.stack([v, a], dim=-2)
+
+
+def md_dydt(torch, t, state, masses):
+    """``examples/02-molecular-dynamics``'s pairwise gravity on a dict
+    state."""
+    pos, vel = state["pos"], state["vel"]
+    disp = pos[None, :, :] - pos[:, None, :]
+    dist3 = ((disp ** 2).sum(-1) + 1e-6) ** 1.5
+    acc = (masses[None, :, None] * disp / dist3[..., None]).sum(1)
+    return {"pos": vel, "vel": acc}
+
+
+def osc_dict(torch, t, state, w):
+    """:func:`f_osc` on a dict state ``{"x", "v"}``."""
+    d = f_osc(torch, t, torch.stack([state["x"], state["v"]], -2), w)
+    return {"x": d[..., 0, :], "v": d[..., 1, :]}
+
+
+def config4(torch, np, xt, device, card):
+    """BASELINE config 4 through ``integrate.solve_ivp``:
+    ``benchmarks/bench_ivp.py``'s 512 chains of 32 masses, 64 output times
+    over 6 s, rk45 at rtol 1e-6, atol 1e-8, float32, through
+    ``torch.func.vmap`` (a step size a trajectory); the smallest power-of-two
+    step budget at which every trajectory converges, the bench's accuracy
+    gate against a tighter integration of trajectory 0, trajectories/s and
+    the idle share.  Then ``examples/02-molecular-dynamics``'s problem (4
+    bodies, dict state, 20 times over 2 s, rk45 at atol 1e-8, rtol 1e-7):
+    the float64 gradient of its loss to v0 by autodiff and by backsolve,
+    each against the JAX package's by the same adjoint, with the gradient
+    through one of the bench's chains as a dict state by both adjoints, in
+    float32 and float64, held against float64 autodiff; and the neural
+    ODE's forward and gradient at batch 256, hidden 64, d_in 16, d_out 4
+    against float64.  No kernel of this package is on this path."""
+    from xitorch_tpu_torch.models import NODEParams, init_node, node_forward, node_loss
+
+    solve_ivp = xt.integrate.solve_ivp
+    f32, f64 = torch.float32, torch.float64
+    rows = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ws = 1.0 + torch.rand((IVP_B,), generator=gen, device=device)
+    ts = torch.linspace(0.0, 6.0, IVP_NT, device=device)
+    y0 = torch.stack([torch.ones(IVP_B, IVP_M, device=device),
+                      torch.zeros(IVP_B, IVP_M, device=device)], dim=-2)
+
+    def osc(t, y, w):
+        return f_osc(torch, t, y, w)
+
+    def batched(max_steps):
+        return torch.func.vmap(lambda y, w: solve_ivp(
+            osc, ts, y, params=(w,), method="rk45", rtol=1e-6, atol=1e-8,
+            max_steps=max_steps, return_info=True))(y0, ws)
+
+    budget = 16
+    while True:
+        yt, info = batched(budget)
+        if bool((info["converged"] == 1).all()):
+            break
+        check(budget < 4096, "config 4: trajectories unconverged at a budget of 4096")
+        budget *= 2
+    ref0 = solve_ivp(osc, ts, y0[0], params=(ws[0],), method="rk45", rtol=1e-8, atol=1e-10)
+    err = float((yt[0] - ref0).abs().max())
+    ms = timed_ms(torch, lambda: batched(budget), reps=REPS, inner=1)
+    busy = device_busy_ms(torch, lambda: batched(budget), calls=1, warmup=False)
+    slots = info["iterations"] + info["rejected"]
+    print("config 4, solve_ivp rk45 under torch.func.vmap (%d chains of %d masses, %d output "
+          "times over 6 s, rtol 1e-6, atol 1e-8, float32) [%s]: every trajectory converged at "
+          "a budget of max_steps = %d (the smallest power of two from 16); accepted steps "
+          "%d..%d, rejected %d..%d; max error of trajectory 0 against rtol 1e-8 %.2e (gate "
+          "1e-3); %.3f ms a call (median of %d), %.1f trajectories/s; device busy %.3f ms, "
+          "idle share %.0f%%"
+          % (IVP_B, IVP_M, IVP_NT, card, budget, int(info["iterations"].min()),
+             int(info["iterations"].max()), int(info["rejected"].min()),
+             int(info["rejected"].max()), err, ms, REPS, IVP_B / ms * 1e3, busy,
+             100 * max(0.0, 1 - busy / ms)))
+    check(err < 1e-3, "config 4: rk45 accuracy gate failed: %.3e" % err)
+    rows["bench_ivp"] = {"max_steps": budget, "max_slots": int(slots.max()), "err": err,
+                         "ms": ms, "trajectories_per_s": IVP_B / ms * 1e3, "busy_ms": busy}
+
+    # ---- the gradient through one chain, dict state, both adjoints ----
+    def chain_grad(dtype, adjoint):
+        w = ws[0].to(dtype).requires_grad_()
+        x0, v0 = (y0[0, k].to(dtype).requires_grad_() for k in (0, 1))
+        yt = solve_ivp(lambda t, s, w: osc_dict(torch, t, s, w), ts.to(dtype),
+                       {"x": x0, "v": v0}, params=(w,), method="rk45", rtol=1e-6,
+                       atol=1e-8, adjoint=adjoint)
+        return torch.autograd.grad((yt["x"] ** 2).mean(), (w, x0, v0))
+
+    chain_ref = chain_grad(f64, "autodiff")
+    chain = {}
+    for dtype, adjoint in ((f64, "backsolve"), (f32, "autodiff"), (f32, "backsolve")):
+        g, g_ms = timed_once(torch, lambda: chain_grad(dtype, adjoint))
+        chain["%s %s" % (str(dtype)[6:], adjoint)] = (rel_l2_all(g, chain_ref), g_ms)
+    print("config 4, the gradient of mean(x^2) over trajectory 0's 64 times to (w, x0, v0), "
+          "dict state {x, v}, rtol 1e-6, atol 1e-8 [%s]: rel L2 to the float64 autodiff run "
+          "%s (limit 1e-3: the step control's rtol over 63 intervals)"
+          % (card, "; ".join("%s %.2e (%.1f ms)" % (k, *v) for k, v in chain.items())))
+    check(all(v[0] <= 1e-3 for v in chain.values()),
+          "config 4: chain gradients off the float64 run: %s" % chain)
+    rows["chain_grad"] = {k: v[0] for k, v in chain.items()}
+
+    # ---- examples/02-molecular-dynamics: the gradient to v0 at rest ----
+    pos0 = torch.tensor(EXAMPLE_POS0, dtype=f64, device=device)
+    target = torch.tensor([[1.0, 1.0], [-1.0, 1.0], [-1.0, -1.0], [1.0, -1.0]], dtype=f64,
+                          device=device)
+
+    def md_grad(adjoint):
+        v0 = torch.zeros((4, 2), dtype=f64, device=device, requires_grad=True)
+        yt = solve_ivp(lambda t, s, m: md_dydt(torch, t, s, m),
+                       torch.linspace(0.0, 2.0, 20, dtype=f64, device=device),
+                       {"pos": pos0, "vel": v0},
+                       params=(torch.ones(4, dtype=f64, device=device),), method="rk45",
+                       atol=1e-8, rtol=1e-7, adjoint=adjoint)
+        loss = ((yt["pos"][-1] - target) ** 2).mean()
+        return loss.detach(), torch.autograd.grad(loss, v0)
+
+    # float64 only: the example's rtol 1e-7 lies below float32's eps, and
+    # through the encounter its float32 gradient is not the problem's in
+    # either package (tests/test_torch_integrate.py, ROADMAP.md queue 3).
+    # Each adjoint is held against the JAX package's float64 gradient by the
+    # same adjoint (EXAMPLE_GRAD): the card's reductions run in another
+    # order, which the encounter amplifies (the two packages differ by ~2e-7
+    # on the CPU), so 1e-5 in L2.  The two adjoints differ by ~0.5 at these
+    # tolerances: each carries its own discretisation error through the
+    # encounter (the gap closes as rtol tightens, in the same test file)
+    md = {}
+    for adjoint in ("autodiff", "backsolve"):
+        (loss, g), g_ms = timed_once(torch, lambda: md_grad(adjoint))
+        md[adjoint] = (float(loss), g[0], g_ms)
+    held = {k: rel_l2_all((v[1],), (torch.tensor(EXAMPLE_GRAD[k], dtype=f64, device=device),))
+            for k, v in md.items()}
+    gap = rel_l2_all((md["backsolve"][1],), (md["autodiff"][1],))
+    jax_gap = rel_l2_all(*((torch.tensor(EXAMPLE_GRAD[k], dtype=f64),)
+                           for k in ("backsolve", "autodiff")))
+    print("examples/02 (4 bodies at the example's start, at rest, dict state, 20 times over "
+          "2 s, rk45 atol 1e-8 rtol 1e-7, float64) [%s]: loss %.6f; the gradient to v0 rel L2 "
+          "to the JAX package's by the same adjoint: %s (limit 1e-5: summation order through "
+          "the close encounter); backsolve against autodiff %.4f (JAX's %.4f: the adjoints' "
+          "discretisation error at rtol 1e-7)"
+          % (card, md["autodiff"][0], "; ".join("%s %.2e (%.1f ms)" % (k, held[k], md[k][2])
+                                                 for k in md), gap, jax_gap))
+    check(all(v <= 1e-5 for v in held.values()),
+          "examples/02: a float64 gradient is off the JAX package's: %s" % held)
+    rows["md"] = {"held": held, "adjoint_gap": gap}
+
+    # ---- the neural ODE ----
+    B, d_in, hidden, d_out = NODE_SHAPE
+    params = init_node(gen, d_in, hidden, d_out, f32, device=device)
+    x = torch.randn((B, d_in), generator=gen, device=device)
+    y = torch.randn((B, d_out), generator=gen, device=device)
+
+    def node_run(dtype):
+        ps = NODEParams(*(p.detach().to(dtype).requires_grad_() for p in params))
+        out = node_forward(ps, x.to(dtype))
+        return out.detach(), torch.autograd.grad(node_loss(ps, x.to(dtype), y.to(dtype)), ps)
+
+    (out32, g32), node_ms = timed_once(torch, lambda: node_run(f32))
+    out64, g64 = node_run(f64)
+    f_rel, g_rel = rel_l2_all((out32,), (out64,)), rel_l2_all(g32, g64)
+    print("neural ODE (batch %d, d_in %d, hidden %d, d_out %d, rk45 atol 1e-6 rtol 1e-5, "
+          "float32) [%s]: forward rel L2 to float64 %.2e, gradient of node_loss %.2e (limits "
+          "1e-4: the step control's rtol 1e-5); forward + loss gradient %.3f ms"
+          % (B, d_in, hidden, d_out, card, f_rel, g_rel, node_ms))
+    check(f_rel <= 1e-4 and g_rel <= 1e-4, "neural ODE: off float64 (%.3e, %.3e)"
+          % (f_rel, g_rel))
+    rows["node"] = {"fwd_rel": f_rel, "grad_rel": g_rel, "ms": node_ms}
+    print(json.dumps({"phase": "config4", "card": card, "rows": rows}))
+
+
+def quad_mcquad(torch, np, xt, device, card):
+    """``integrate.quad`` (leggauss and tanhsinh) of a batched integrand
+    against its closed form, and ``mcquad(method="mh")`` of a Gaussian mean
+    within 5 standard errors of the chains, on the card."""
+    from xitorch_tpu_torch._impls.integrate.mcmc import mh
+
+    f64 = torch.float64
+    w = torch.linspace(0.5, 4.0, 64, dtype=f64, device=device)
+    exact = 0.5 * torch.sqrt(math.pi / w) * torch.special.erf(3.0 * torch.sqrt(w))
+    errs = {}
+    for method in ("leggauss", "tanhsinh"):
+        val = xt.integrate.quad(lambda x, w: torch.exp(-w * x * x), 0.0, 3.0, params=(w,),
+                                method=method)
+        errs[method] = float(((val - exact).abs() / exact).max())
+    mu = torch.tensor([0.5, -0.2, 1.0, 0.0], device=device)
+
+    def logp(x, mu):
+        return -0.5 * ((x - mu) ** 2).sum()
+
+    opts = dict(nsamples=64 * 1000, nburnout=500, step_size=0.8)
+    ev = xt.integrate.mcquad(lambda x: x, logp, torch.zeros(4, device=device), pparams=(mu,),
+                             method="mh", **opts)
+    xs, _ = mh(logp, torch.zeros(4, device=device), (mu,), **opts)
+    cmeans = xs.reshape(64, -1, 4).mean(1)
+    se = cmeans.std(0) / math.sqrt(64)
+    z = float(((ev - mu).abs() / se).max())
+    print("quad of exp(-w x^2) over [0, 3], 64 values of w, float64 [%s]: max rel error to "
+          "the closed form leggauss %.2e, tanhsinh %.2e; mcquad mh of a 4-d Gaussian's mean "
+          "(64 chains x 1000, float32): %s against %s, worst %.2f standard errors of the "
+          "chain means (limit 5)"
+          % (card, errs["leggauss"], errs["tanhsinh"], [round(float(v), 4) for v in ev],
+             mu.tolist(), z))
+    check(max(errs.values()) <= 1e-10, "quad off its closed form: %s" % errs)
+    check(z <= 5.0, "mcquad mh: %.2f standard errors off the mean" % z)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3055,7 +3567,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive xitorch_tpu_torch on one card.")
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
-    parser.add_argument("--only", choices=("solve", "dc", "dc_level", "sweep", "complex"),
+    parser.add_argument("--only", choices=("solve", "dc", "dc_level", "sweep", "complex",
+                                           "models", "integrate"),
                         default=None,
                         help="solve: build, then run only config 3's phase (config3, "
                              "rows 1 and 2); dc: only config 2's warm start phase "
@@ -3063,7 +3576,10 @@ def main(argv=None) -> int:
                              "start's phase (per_level_warm, row 7); sweep: only config "
                              "2's phase (config2, row 3) and the sweep gate's table; "
                              "complex: only config 2's complex phase (config2_complex, "
-                             "row 5) and the sweep gate's table; development switches")
+                             "row 5) and the sweep gate's table; models: only config 5 "
+                             "(config5, row 3 at the SCF's panel) and the DEQ model "
+                             "(deq_phase); integrate: only config 4 (config4) and quad/"
+                             "mcquad (quad_mcquad); development switches")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3125,6 +3641,21 @@ def main(argv=None) -> int:
                                          {"rng": config2_rng(np)})
         sweep_gate_table(torch, device, card)
         print(json.dumps({"kernels": [complex_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "models":
+        scf_record = config5(torch, np, xt, device, card)
+        deq_phase(torch, np, xt, device, card)
+        print(json.dumps({"kernels": [scf_record]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "integrate":
+        config4(torch, np, xt, device, card)
+        quad_mcquad(torch, np, xt, device, card)
+        # no kernel of this package is on these paths
+        print(json.dumps({"kernels": []}))
         print("total: %.1f s" % (time.perf_counter() - t_start))
         print_device(torch)
         return 0
@@ -3202,9 +3733,23 @@ def main(argv=None) -> int:
     config1(torch, np, xt, device, card)
     lap("config 1")
 
+    # ---- 16. BASELINE config 5 (SCF: the float32 run decomposes through
+    # the real sweep kernel) and the DEQ model ----
+    scf_record = config5(torch, np, xt, device, card)
+    lap("config 5")
+    deq_phase(torch, np, xt, device, card)
+    lap("DEQ")
+
+    # ---- 17. BASELINE config 4 (solve_ivp), the molecular-dynamics example
+    # and the neural ODE; quad and mcquad (no kernel on these paths) ----
+    config4(torch, np, xt, device, card)
+    lap("config 4")
+    quad_mcquad(torch, np, xt, device, card)
+    lap("quad and mcquad")
+
     print(json.dumps({"kernels": [
         *config3_records,
-        jacobi_record, dc_record, complex_record, fused_record, level_record,
+        jacobi_record, dc_record, complex_record, fused_record, level_record, scf_record,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print_device(torch)

@@ -901,3 +901,52 @@ def test_solve_fused_cg_on_card_raises_outside_the_kernel(cuda, case):
     cpu_kw = {k: v.cpu() for k, v in kw.items()}
     x = xt.linalg.solve(cpu_op, B[0].cpu(), method="fused_cg", **cpu_kw)
     assert bool(torch.isfinite(torch.view_as_real(x) if x.is_complex() else x).all())
+
+
+@pytest.mark.cuda
+def test_scf_float32_exacteig_on_card_goes_through_the_sweep_kernel(cuda):
+    # BASELINE config 5's float32 route: each SCF step decomposes the
+    # materialised 256 x 256 Hamiltonian through the real sweep kernel
+    # (batch 1 at n = 256 passes the gate), and the gradient to a and g
+    # goes through both implicit rules on the card
+    from xitorch_tpu_torch.models import scf_density, scf_energy
+
+    n, nocc = 256, 8
+    a = torch.tensor(np.random.default_rng(0).standard_normal((n, n)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    g = torch.tensor(0.3, device=cuda, requires_grad=True)
+    # the sweep kernel's float32 eigenvectors leave ~2e-5 in the residual
+    kw = dict(nocc=nocc, eig_method="exacteig", f_tol=1e-4, x_tol=1e-4, maxiter=400)
+    jacobi_sweep_cuda.launches = 0
+    rho, info = scf_density(a.detach(), g.detach(), return_info=True, **kw)
+    assert jacobi_sweep_cuda.launches >= 2 and float(info["converged"]) == 1.0
+    assert abs(float(rho.sum()) - nocc) < 1e-3
+    e = scf_energy(a, g, **kw)
+    ga, gg = torch.autograd.grad(e, (a, g))
+    assert bool(torch.isfinite(ga).all()) and bool(torch.isfinite(gg))
+
+
+@pytest.mark.cuda
+def test_vmap_rk45_on_card_matches_per_trajectory_calls(cuda):
+    # per-trajectory adaptive steps under torch.func.vmap on the card: each
+    # trajectory equals its own call and the float64 run on the CPU
+    from xitorch_tpu_torch.integrate import solve_ivp
+
+    def f(t, y, w):
+        return torch.stack([y[1], -(w ** 2) * y[0] - 0.1 * y[1] + torch.sin(t)])
+
+    ws = torch.tensor([1.0, 1.3, 1.9], device=cuda)
+    ts = torch.linspace(0.0, 3.0, 16, device=cuda)
+    y0 = torch.tensor([1.0, 0.0], device=cuda)
+    opts = dict(method="rk45", rtol=1e-6, atol=1e-8, return_info=True)
+    yt, info = torch.func.vmap(lambda w: solve_ivp(f, ts, y0, params=(w,), max_steps=512,
+                                                   **opts))(ws)
+    assert bool((info["converged"] == 1).all())
+    for k in range(3):
+        y1, i1 = solve_ivp(f, ts, y0, params=(ws[k],), **opts)
+        # float32 rounding of a batched against a single call, ~50 steps
+        torch.testing.assert_close(y1, yt[k], rtol=0, atol=1e-5)
+        assert float(i1["iterations"]) == float(info["iterations"][k])
+        y64 = solve_ivp(f, ts.double().cpu(), y0.double().cpu(), params=(ws[k].double().cpu(),),
+                        method="rk45", rtol=1e-10, atol=1e-12)
+        assert float((y1.double().cpu() - y64).abs().max()) < 1e-4

@@ -118,7 +118,15 @@ def test_port_imports_no_jax():
             "xitorch_tpu_torch.grad, xitorch_tpu_torch._impls.optimize.rootsolver, "
             "xitorch_tpu_torch._impls.optimize.equilibrium, "
             "xitorch_tpu_torch._impls.optimize.minimizer, "
-            "xitorch_tpu_torch.utils.assertfuncs, xitorch_tpu_torch._docstr; "
+            "xitorch_tpu_torch.utils.assertfuncs, xitorch_tpu_torch._docstr, "
+            "xitorch_tpu_torch.integrate, xitorch_tpu_torch.integrate._adjoint, "
+            "xitorch_tpu_torch._impls.integrate.adaptive_rk, "
+            "xitorch_tpu_torch._impls.integrate.explicit_rk, "
+            "xitorch_tpu_torch._impls.integrate.implicit_rk, "
+            "xitorch_tpu_torch._impls.integrate.fixed_quad, "
+            "xitorch_tpu_torch._impls.integrate.mcmc, xitorch_tpu_torch.models, "
+            "xitorch_tpu_torch.models.scf, xitorch_tpu_torch.models.deq, "
+            "xitorch_tpu_torch.models.node, xitorch_tpu_torch.utils.pytree; "
             "print(any(m.split('.')[0] in ('jax', 'jaxlib', 'xitorch_tpu') "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=ROOT)

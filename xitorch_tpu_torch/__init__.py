@@ -20,6 +20,17 @@ Ported so far (see ROADMAP.md for the rest):
 * ``linalg.symeig`` / ``lsymeig`` / ``usymeig`` / ``svd`` with exacteig /
   kron_exact / davidson / chebfsi, forward and (implicit) gradient, real and
   complex
+* ``integrate.solve_ivp`` (rk45, rk23, rk4, rk38, mid_point, euler,
+  bwd_euler, trapezoidal, sdirk2; autograd or backsolve adjoint; dict,
+  tuple and list states; the adaptive methods under ``torch.func.vmap``),
+  ``integrate.quad`` (leggauss, tanhsinh) and ``integrate.mcquad`` (mh,
+  mhcustom, dummy1d); not yet ``SQuad``
+* ``models``: the SCF loop (``HamiltonianOp``, ``scf_density``,
+  ``scf_energy``: symeig nested in equilibrium), the DEQ model
+  (``init_deq``, ``deq_forward``, ``deq_loss``, ``train_step`` with a
+  ``torch.optim`` optimizer) and the neural ODE (``init_node``,
+  ``node_forward``, ``node_loss``); where these differ from the JAX
+  package's calls: ``PARITY.md`` beside this file
 * ``ops``: the structured CG kernel, the fused dense CG kernel, the Thomas
   kernel, the one-sided
   Jacobi sweep kernels for real and for complex input (``jacobi_eigh``,
@@ -43,4 +54,6 @@ from xitorch_tpu_torch.utils.exceptions import (  # noqa: F401
 from xitorch_tpu_torch.utils.convergence import assert_converged  # noqa: F401
 from xitorch_tpu_torch.version import __version__  # noqa: F401
 
-from xitorch_tpu_torch import linalg, ops, debug, utils, grad, optimize  # noqa: F401,E402
+from xitorch_tpu_torch import (  # noqa: F401,E402
+    linalg, ops, debug, utils, grad, optimize, integrate, models,
+)

@@ -4,7 +4,9 @@
 keyed by the JAX operator's ``_getparamnames`` (``np.asarray(A.d)`` and so
 on), so both packages compute on identical inputs; :func:`pencil_from_numpy`
 builds the dense hermitian operator A, and the metric M of a generalized
-pencil ``(A, M)``, that ``symeig`` takes.  This module imports no JAX:
+pencil ``(A, M)``, that ``symeig`` takes; :func:`deq_params_from_numpy` and
+:func:`node_params_from_numpy` carry a DEQ's or a neural ODE's parameters
+across.  This module imports no JAX:
 the arrays are plain numpy.  The tensors go to the card unless the caller
 names another device (``device="cpu"``, as the CPU tests do); with no card
 and no device named, both functions raise.
@@ -22,7 +24,8 @@ from xitorch_tpu_torch._core.structured import (
     BandedLowRankOperator, TridiagLowRankOperator,
 )
 
-__all__ = ["operator_from_numpy", "pencil_from_numpy"]
+__all__ = ["operator_from_numpy", "pencil_from_numpy", "deq_params_from_numpy",
+           "node_params_from_numpy"]
 
 _KINDS = ("TridiagLowRankOperator", "BandedLowRankOperator", "MatrixLinearOperator",
           "KronOperator", "KronSumOperator")
@@ -107,3 +110,41 @@ def pencil_from_numpy(a, m=None, device=None, dtype: Optional[torch.dtype] = Non
     M = None if m is None else operator_from_numpy(
         "MatrixLinearOperator", {"mat": m}, device, dtype, is_hermitian=True)
     return A, M
+
+
+def _model_params(cls, params, device, dtype):
+    """``cls`` (a NamedTuple of tensors) from the JAX model's parameters as
+    numpy arrays: a NamedTuple or mapping keyed by the field names, or a
+    sequence in field order.  Leaf tensors that require grad."""
+    device = _device(device)
+    if hasattr(params, "_asdict"):
+        params = params._asdict()
+    if isinstance(params, Mapping):
+        missing = [f for f in cls._fields if f not in params]
+        if missing:
+            raise ValueError("%s needs the fields %s" % (cls.__name__, ", ".join(missing)))
+        params = [params[f] for f in cls._fields]
+    if len(params) != len(cls._fields):
+        raise ValueError("%s has %d fields, got %d arrays"
+                         % (cls.__name__, len(cls._fields), len(params)))
+    return cls(*(torch.tensor(np.asarray(p), dtype=dtype, device=device).requires_grad_()
+                 for p in params))
+
+
+def deq_params_from_numpy(params, device=None, dtype: Optional[torch.dtype] = None):
+    """The port's :class:`~xitorch_tpu_torch.models.DEQParams` from the JAX
+    package's (``W``, ``U``, ``b``, ``Wout``, ``bout`` as numpy arrays, in a
+    NamedTuple, a mapping or a sequence), so both packages compute the same
+    model.  ``device`` as in :func:`operator_from_numpy`."""
+    from xitorch_tpu_torch.models.deq import DEQParams
+
+    return _model_params(DEQParams, params, device, dtype)
+
+
+def node_params_from_numpy(params, device=None, dtype: Optional[torch.dtype] = None):
+    """The port's :class:`~xitorch_tpu_torch.models.NODEParams` from the JAX
+    package's (``W1``, ``b1``, ``W2``, ``b2``, ``Win``, ``Wout``, ``bout``),
+    as :func:`deq_params_from_numpy`."""
+    from xitorch_tpu_torch.models.node import NODEParams
+
+    return _model_params(NODEParams, params, device, dtype)

@@ -6,9 +6,33 @@ user-supplied *callable* with the same signature as the built-in methods.
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Union
+from typing import Any, Callable, Mapping, Sequence, Tuple, Union
 
-__all__ = ["get_method"]
+import torch
+
+__all__ = ["get_method", "partition_params"]
+
+
+def partition_params(params: Sequence[Any]) -> Tuple[tuple, Callable]:
+    """Split ``params`` into the floating-point tensors (the ones a
+    gradient can reach) and everything else, with the function that merges
+    a sequence of tensors back into the original order (counterpart of
+    ``_partition_params`` in xitorch_tpu/optimize/rootfinder.py, where the
+    dynamic members are arrays and Python floats; here a Python float is
+    static, since no gradient reaches it)."""
+    dyn, layout, static = [], [], []
+    for p in params:
+        if torch.is_tensor(p) and (p.is_floating_point() or p.is_complex()):
+            layout.append((True, len(dyn)))
+            dyn.append(p)
+        else:
+            layout.append((False, len(static)))
+            static.append(p)
+
+    def merge(dynparams):
+        return tuple(dynparams[i] if is_dyn else static[i] for is_dyn, i in layout)
+
+    return tuple(dyn), merge
 
 
 def get_method(algname: str, methods: Mapping[str, Callable],
