@@ -83,7 +83,14 @@ paths give it, and drives these configurations through the public API:
   ``solve_ivp`` rk45 under ``torch.func.vmap``, the
   ``examples/02-molecular-dynamics`` problem's gradient to v0 by autodiff
   and by backsolve, and the neural ODE; then ``quad`` and ``mcquad``
-  against closed forms (no kernel on these paths).
+  against closed forms (no kernel on these paths);
+* interpolation and sampled quadrature at ``benchmarks/
+  bench_quad_interp.py``'s workload (512 curves on 1,000 knots, 2,048
+  queries, float32): ``interpolate.Interp1D`` (cspline natural and
+  clamped, whose slopes solve through the Thomas kernel; not-a-knot,
+  linear, pchip) and ``integrate.SQuad`` (cspline, trapz, simpson),
+  forward and gradient, against scipy's float64 splines, with the Thomas
+  kernel held against its plain version on the spline's system.
 
 It reads the kernels' launch counters to show that each main path went
 through its kernels, and times kernels, forward and gradient with CUDA
@@ -110,6 +117,7 @@ gate's rows above 512 come from this), without holding the gate to it.
     python3 chip_smoke.py --only complex
     python3 chip_smoke.py --only models
     python3 chip_smoke.py --only integrate
+    python3 chip_smoke.py --only interpolate
 
 build the kernels and run only config 3's phase (the structured CG and
 Thomas kernels, their designs, the replaced Thomas kernel and the chain
@@ -118,9 +126,9 @@ only the per-level warm start's phase, only config 2's phase (the real
 sweep kernel, its path and cluster size) and the sweep gate's table, or
 only config 2's complex phase (the complex
 sweep kernel, its path, cluster size, waves and designs) and the sweep
-gate's table, only config 5 and the DEQ model, or only config 4 with
-quad and mcquad, with the same last lines: development switches for work
-on those paths.  The default run is the full script.
+gate's table, only config 5 and the DEQ model, only config 4 with
+quad and mcquad, or only Interp1D and SQuad, with the same last lines:
+development switches for work on those paths.  The default run is the full script.
 """
 from __future__ import annotations
 
@@ -227,6 +235,16 @@ DEQ_STEPS = 5
 # output times over 6 s; the neural ODE's batch, d_in, hidden, d_out
 IVP_B, IVP_M, IVP_NT = 512, 32, 64
 NODE_SHAPE = (256, 16, 64, 4)
+# interpolation and sampled quadrature (benchmarks/bench_quad_interp.py's
+# workload, uncut): curves on shared knots, knots, queries; the benchmark's
+# accuracy gate (max abs error over the first GATE_CURVES curves against
+# scipy's float64 spline, relative to max(1, max |ref|)) and the float32
+# gradients' limit against the same path in float64
+NCURVE, NKNOT, NQ = 512, 1000, 2048
+INTERP_GATE, GATE_CURVES = 2e-4, 16
+INTERP_GRAD_TOL = 1e-3
+# queries outside [0, 1] for the clamped spline's mirror extrapolation
+MIRROR_QUERIES = (-0.2, -0.05, 1.05, 1.3)
 # examples/02-molecular-dynamics's start: jax.random.normal(PRNGKey(0),
 # (4, 2)) * 1.5 as the example draws it, written out here (the port and
 # this script import no JAX)
@@ -292,18 +310,26 @@ def timed_ms(torch, fn, reps: int = REPS, inner: int = INNER, warmup: bool = Tru
 
 
 PROFILE_TRIES = 3
+# where the profiler keeps losing the card, the whole call timed by CUDA
+# events stands under this name
+EVENTS_KEY = "(CUDA events: the whole call)"
 
 
-def device_ms_by_name(torch, fn, calls: int = REPS, warmup: bool = True) -> dict:
+def device_ms_by_name(torch, fn, calls: int = REPS, warmup: bool = True,
+                      expect=()) -> dict:
     """Device time of each kernel ``fn()`` launches, ms per call by name,
     from ``torch.profiler`` over ``calls`` calls after one warm-up call
     (``warmup=False``: none, for a function that already ran at these
     shapes).
     Only events on the card count (the profiler also files module loading
     under device time).  Now and then a trace comes back with no event on
-    the card at all, although the calls launched kernels: such a trace is
-    taken again, up to ``PROFILE_TRIES`` times in all, and each retake is
-    printed."""
+    the card at all, or, late in a long process, without the kernels of
+    this package's libraries (launched through ``ctypes``) while PyTorch's
+    own still show: a trace with no event on the card, or with no event
+    whose name holds each part in ``expect``, is taken again, up to
+    ``PROFILE_TRIES`` times in all, and each retake is printed.  If every
+    trace lost them, the call is timed by CUDA events instead (printed),
+    and the result is ``{EVENTS_KEY: ms a call}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -317,23 +343,40 @@ def device_ms_by_name(torch, fn, calls: int = REPS, warmup: bool = True) -> dict
             torch.cuda.synchronize()
         by_name = {e.key: e.self_device_time_total / calls / 1e3
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-        if by_name:
+        missing = [part for part in expect if not any(part in k for k in by_name)]
+        if by_name and not missing:
             return by_name
-        print("  profiler: trace %d of %d held no event on the card; taking it again"
-              % (attempt, PROFILE_TRIES))
-    raise AssertionError("the profiler saw no event on the card in %d traces" % PROFILE_TRIES)
+        print("  profiler: trace %d of %d held %s; taking it again"
+              % (attempt, PROFILE_TRIES, "no event of %s" % missing if by_name
+                 else "no event on the card"))
+    # back to back, so that a short kernel's time is not its launch's
+    ms = timed_ms(torch, fn, reps=max(calls, 1), inner=INNER if calls > 1 else 1,
+                  warmup=False)
+    print("  profiler: no trace of %d held the card's events%s; the call timed by CUDA "
+          "events instead: %.4f ms (device time by name not measured here)"
+          % (PROFILE_TRIES, " of %s" % list(expect) if expect else "", ms))
+    return {EVENTS_KEY: ms}
 
 
-def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0, warmup: bool = True):
+def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0, warmup: bool = True,
+                   expect=()):
     """Summed device time of the kernels ``fn()`` launches, per call (see
-    :func:`device_ms_by_name`).  With ``top``, also the ``top`` largest
-    entries as ``(name, ms per call)``."""
-    by_name = device_ms_by_name(torch, fn, calls, warmup)
+    :func:`device_ms_by_name`; ``expect``: name parts of kernels ``fn()``
+    launches).  With ``top``, also the ``top`` largest entries as ``(name,
+    ms per call)``.  Where the profiler lost the card, the call's time by
+    CUDA events (an upper bound: idle share 0)."""
+    by_name = device_ms_by_name(torch, fn, calls, warmup, expect)
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
     if not top:
         return busy
     return busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def kernel_device_ms(torch, fn, part: str, calls: int = REPS) -> float:
+    """Device time (ms a call) of the one kernel ``fn()`` launches whose
+    name holds ``part`` (:func:`device_ms_by_name`, :func:`kernel_ms`)."""
+    return kernel_ms(device_ms_by_name(torch, fn, calls, expect=(part,)), part)
 
 
 def bound(nbytes: float, flops: float):
@@ -412,7 +455,10 @@ def level_tile_operations(torch, seg):
 
 def kernel_ms(by_name: dict, part: str) -> float:
     """Device time (ms a call) of the one kernel whose name holds ``part``
-    in a :func:`device_ms_by_name` table."""
+    in a :func:`device_ms_by_name` table (or the events time that stands
+    in for it where the profiler lost the card)."""
+    if EVENTS_KEY in by_name:
+        return by_name[EVENTS_KEY]
     hits = [v for k, v in by_name.items() if part in k]
     check(len(hits) == 1, "%d kernels named like %r: %s" % (len(hits), part, sorted(by_name)))
     return hits[0]
@@ -805,7 +851,8 @@ def config2(torch, np, xt, device, card):
     svd_default_ms = once(lambda: xt.linalg.svd(G, NEIG))
     grad_exact_ms = timed_ms(torch, lambda: grad_route("exacteig"), inner=3)
     grad_cheb_ms = once(lambda: grad_route("chebfsi", **cheb_grad_opts))
-    exact_busy, exact_top = device_busy_ms(torch, lambda: fwd("exacteig"), top=4)
+    exact_busy, exact_top = device_busy_ms(torch, lambda: fwd("exacteig"), top=4,
+                                           expect=("jacobi_sweep",))
     cheb_busy, cheb_top = device_busy_ms(
         torch, lambda: fwd("chebfsi", **CHEBFSI_OPTS), top=4)
 
@@ -1836,21 +1883,13 @@ def config2_complex(torch, np, xt, device, card, shared):
             "library_ms": lib_ms}
 
 
-def random_square_matrix(np, n, is_hermitian, lo, hi, minabs=GRID_MINABS, seed=GRID_SEED):
-    """The upstream benchmark's matrix factory (numpy, float64): eigenvalues
-    ``linspace(lo, hi, n)`` pushed out to ``|.| >= minabs``, under a random
-    orthogonal (hermitian) or column-normalised general similarity."""
-    rng = np.random.default_rng(seed)
-    eivals = np.linspace(lo, hi, n)
-    sign = np.where(eivals >= 0, 1.0, -1.0)
-    eivals = np.where(np.abs(eivals) < minabs, sign * minabs, eivals)
-    if is_hermitian:
-        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
-        mat = (q * eivals) @ q.T
-        return (mat + mat.T) * 0.5
-    a = rng.standard_normal((n, n))
-    a = a / np.linalg.norm(a, axis=-2, keepdims=True)
-    return np.linalg.solve(a, eivals[:, None] * a)
+def grid_matrix(xt, n, is_hermitian, lo, hi, dtype, device):
+    """The upstream benchmark's matrix factory: eigenvalues
+    ``linspace(lo, hi, n)`` pushed out to ``|.| >= GRID_MINABS``, under a
+    random orthogonal (hermitian) or column-normalised general similarity,
+    drawn from GRID_SEED (the port's ``create_random_square_matrix``)."""
+    return xt.utils.create_random_square_matrix(n, is_hermitian, lo, hi, GRID_MINABS,
+                                                 GRID_SEED, dtype=dtype, device=device)
 
 
 def dense_batch(torch, np, device, lo=DENSE_RANGE[0]):
@@ -1918,8 +1957,7 @@ def fused_cg_kernel_phase(torch, np, xt, device, card):
     for lo, hi in GRID_RANGES:
         for n in GRID_SIZES:
             if lo >= 0:
-                one = torch.as_tensor(random_square_matrix(np, n, True, lo, hi),
-                                      dtype=torch.float32, device=device)[None].contiguous()
+                one = grid_matrix(xt, n, True, lo, hi, torch.float32, device)[None].contiguous()
                 B1 = torch.as_tensor(rng.standard_normal((1, n, GRID_NCOLS)),
                                      dtype=torch.float32, device=device)
                 points.append(("grid (%g, %g) n=%d" % (lo, hi, n), one, B1))
@@ -2150,8 +2188,7 @@ def path_a(torch, np, xt, device, card, batched):
     for herm in (True, False):
         for lo, hi in GRID_RANGES:
             for n in GRID_SIZES:
-                mat = torch.as_tensor(random_square_matrix(np, n, herm, lo, hi),
-                                      dtype=torch.float32, device=device)
+                mat = grid_matrix(xt, n, herm, lo, hi, torch.float32, device)
                 A = xt.LinearOperator.m(mat, is_hermitian=herm)
                 B = torch.as_tensor(rng.standard_normal((n, GRID_NCOLS)),
                                     dtype=torch.float32, device=device)
@@ -2207,8 +2244,7 @@ def path_a(torch, np, xt, device, card, batched):
                     if n == GRID_SIZES[-1]:
                         report(tag + " gmres(100)", n,
                                run(A, B, "gmres", mat, restart=100, **kw), gate, floor)
-                    mat64 = torch.as_tensor(random_square_matrix(np, n, herm, lo, hi),
-                                            device=device)
+                    mat64 = grid_matrix(xt, n, herm, lo, hi, torch.float64, device)
                     A64 = xt.LinearOperator.m(mat64, is_hermitian=False)
                     gate64 = "converge" if lo > 0 else "report"
                     report(tag + " bicgstab, float64", n,
@@ -3028,14 +3064,13 @@ def config3(torch, np, xt, device, card, chain_probe):
             *cg_args, path=path, **cg_kw))))
     cg_ms = statistics.median(t for w, t in cg_turns if w == "register")
     cg_shared_ms = statistics.median(t for w, t in cg_turns if w == "shared")
-    cg_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: structured_cg_cuda(
-        *cg_args, path="register", **cg_kw)), "structured_cg_reg_kernel")
-    cg_shared_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: structured_cg_cuda(
-        *cg_args, path="shared", **cg_kw)), "structured_cg_kernel")
+    cg_dev_ms = kernel_device_ms(torch, lambda: structured_cg_cuda(
+        *cg_args, path="register", **cg_kw), "structured_cg_reg_kernel")
+    cg_shared_dev_ms = kernel_device_ms(torch, lambda: structured_cg_cuda(
+        *cg_args, path="shared", **cg_kw), "structured_cg_kernel")
     cg_plain_ms = timed_ms(torch, lambda: structured_cg_plain(*cg_args, **cg_kw))
     th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
-    th_dev_ms = kernel_ms(device_ms_by_name(torch, lambda: thomas_cuda(*th_args)),
-                          "thomas_kernel")
+    th_dev_ms = kernel_device_ms(torch, lambda: thomas_cuda(*th_args), "thomas_kernel")
     # the chain floor: the same recurrence on registers, at the same K and n
     probe = chain_probe()
     g = np.random.default_rng(2)
@@ -3051,7 +3086,7 @@ def config3(torch, np, xt, device, card, chain_probe):
                               stream) == 0, "the chain probe did not launch")
 
     chain_ms = timed_ms(torch, chain_run)
-    chain_dev_ms = kernel_ms(device_ms_by_name(torch, chain_run), "chain_kernel")
+    chain_dev_ms = kernel_device_ms(torch, chain_run, "chain_kernel")
     check(bool(torch.isfinite(probe_out).all()), "the chain probe gave non-finite values")
     # the plain Thomas loop takes ~120 ms a call: fewer calls
     th_plain_ms = timed_ms(torch, lambda: thomas_plain(*th_args), reps=3, inner=1)
@@ -3062,8 +3097,10 @@ def config3(torch, np, xt, device, card, chain_probe):
     grad_ms = timed_ms(torch, lambda: grads("structured_cg"))
     grad_plain_ms = timed_ms(torch, lambda: grads(plain_structured_cg))
     fwd_busy = device_busy_ms(torch, lambda: xt.linalg.solve(
-        A, bT, method="structured_cg", rtol=RTOL, atol=ATOL))
-    grad_busy = device_busy_ms(torch, lambda: grads("structured_cg"))
+        A, bT, method="structured_cg", rtol=RTOL, atol=ATOL),
+        expect=("structured_cg_reg_kernel",))
+    grad_busy = device_busy_ms(torch, lambda: grads("structured_cg"),
+                               expect=("structured_cg_reg_kernel",))
     # the eager convergence checks of this phase's structured_cg solves
     # without info were queued behind them; they report here, and none warns
     with warnings.catch_warnings(record=True) as caught:
@@ -3123,7 +3160,7 @@ def config3(torch, np, xt, device, card, chain_probe):
          "ms": cg_dev_ms, "plain_ms": cg_plain_ms, "bound_ms": cg_bound,
          "bound_by": cg_by, "library_ms": cg_chol_ms, "design": cg_design,
          "shared_design_ms": cg_shared_dev_ms},
-        {"name": "thomas", "route": "cuda",
+        {"name": "thomas", "path": "config 3: V = None, %d x %d" % (BATCH, N), "route": "cuda",
          "source": "xitorch_tpu_torch/csrc/tridiag.cu",
          "replaces": "xitorch_tpu/ops/tridiag.py:38",
          "launches": launches["thomas"], "max_abs_err": th_abs,
@@ -3208,7 +3245,8 @@ def config5(torch, np, xt, device, card):
         g_rel = rel_l2_all(grads, g_ref)
         if dtype == f32:
             busy_of, busy_ms_of = "forward", fwd_ms
-            busy = device_busy_ms(torch, fwd, calls=1, warmup=False)
+            busy = device_busy_ms(torch, fwd, calls=1, warmup=False,
+                                  expect=("jacobi_sweep",))
         else:
             # one davidson decomposition at the fixed point stands for the
             # forward, a chain of ~40 of them (profiling it all takes minutes)
@@ -3559,6 +3597,297 @@ def quad_mcquad(torch, np, xt, device, card):
     check(z <= 5.0, "mcquad mh: %.2f standard errors off the mean" % z)
 
 
+def interp_data(np):
+    """``benchmarks/bench_quad_interp.py``'s data, as it draws it (float64
+    numpy): a jittered-uniform grid of NKNOT knots on [0, 1] (spacing at
+    least 0.5 / NKNOT), NCURVE random-walk curves on it, NQ queries."""
+    rng = np.random.default_rng(6)
+    x = (np.arange(NKNOT) + 0.25 * rng.uniform(-1, 1, NKNOT)) / NKNOT
+    x = np.sort(x)
+    x[0], x[-1] = 0.0, 1.0
+    y = np.cumsum(rng.standard_normal((NCURVE, NKNOT)), axis=-1) / 30.0
+    xq = np.linspace(0.001, 0.999, NQ)
+    return x, y, xq
+
+
+def interp_gate(np, out, ref) -> float:
+    """The benchmark's gate: the largest absolute error over the first
+    GATE_CURVES curves, as a share of max(1, max |ref|)."""
+    err = float(np.max(np.abs(np.asarray(out, np.float64)[:GATE_CURVES] - ref)))
+    return err / max(1.0, float(np.max(np.abs(ref))))
+
+
+def interp_squad(torch, np, xt, device, card):
+    """``interpolate.Interp1D`` and ``integrate.SQuad`` at
+    ``benchmarks/bench_quad_interp.py``'s workload, uncut: 512 curves on
+    1,000 shared knots, 2,048 queries, float32, construction plus
+    evaluation in each call as the benchmark's body does.
+
+    First the Thomas kernel against its plain version on the system this
+    path gives it (the natural spline's (1,000,) diagonals broadcast to
+    (512, 1,000), as ``tridiag_solve_kernel`` copies them), in float32
+    (config 3's limit) and float64, with its time, bound and the PyTorch
+    call for the same function (``torch.linalg.solve`` of the one dense
+    spline matrix against the 512 right-hand sides).  Then, counted: (a)
+    the natural spline (the Thomas route) forward, and forward plus the
+    gradient to y and x; (b) the default not-a-knot (dense); (c) clamped
+    (Thomas) with mirror extrapolation at MIRROR_QUERIES; (d) linear and
+    pchip; SQuad cspline integrate and cumsum, trapz and simpson integrate,
+    forward and gradient to y.  Each is held to the benchmark's gate
+    against scipy / numpy in float64 (simpson against the same path in
+    float64), the gradients to INTERP_GRAD_TOL relative L2 of the float64
+    path, and the Thomas launches to 1 a forward and 2 a gradient, none on
+    the dense and SQuad routes.  Times a call, curve-evals/s and
+    integrations/s, beside the plain Thomas version for (a) and the dense
+    route for (a) and (c), and the device idle share.  Returns the Thomas
+    kernel's record at this path's shape, with this path's launches."""
+    import scipy.integrate
+    from scipy.interpolate import CubicSpline, PchipInterpolator
+
+    from xitorch_tpu_torch._impls.interpolate.interp_1d import spline_tridiag_system
+    from xitorch_tpu_torch.ops import tridiag
+    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain, tridiag_solve_kernel
+
+    Interp1D, SQuad = xt.interpolate.Interp1D, xt.integrate.SQuad
+    f32, f64 = torch.float32, torch.float64
+    x_np, y_np, xq_np = interp_data(np)
+    xc_np = np.concatenate([xq_np, MIRROR_QUERIES])
+
+    def dev(a, dtype=f32, grad=False):
+        return torch.tensor(a, dtype=dtype, device=device, requires_grad=grad)
+
+    x, y, xq, xqc = dev(x_np), dev(y_np), dev(xq_np), dev(xc_np)
+    w = dev(np.random.default_rng(SEED).standard_normal((NCURVE, NQ)))
+    rows = {}
+
+    # ---- the Thomas kernel at this path's system ----
+    th = {}
+    for dtype in (f32, f64):
+        dl, d, du, r = spline_tridiag_system(x.to(dtype), y.to(dtype), "natural")
+        flat = [a.expand(NCURVE, NKNOT).contiguous() for a in (dl, d, du, r)]
+        eps = float(torch.finfo(dtype).tiny)
+        thomas_cuda.launches = 0
+        xk = thomas_cuda(*flat, eps)
+        xw = tridiag_solve_kernel(dl, d, du, r)  # the wrapper's own broadcast
+        xp = thomas_plain(*flat, eps)
+        torch.cuda.synchronize()
+        check(thomas_cuda.launches == 2, "thomas: %d launches, expected 2" % thomas_cuda.launches)
+        rel = float((xk - xp).abs().max() / xp.abs().max())
+        th[dtype] = {"rel": rel, "abs": float((xk - xp).abs().max()),
+                     "wrapper_rel": float((xw - xp).abs().max() / xp.abs().max()),
+                     "args": (*flat, eps), "system": (dl, d, du, r), "x": xk}
+    lim = {f32: 1e-5, f64: 1e-12}
+    for dtype, t in th.items():
+        print("thomas kernel vs plain at the natural spline's system (K=%d, n=%d, %s, "
+              "diagonals broadcast from (n,)): max rel err %.3e (limit %.0e), max abs err "
+              "%.3e; through tridiag_solve_kernel's broadcast %.3e"
+              % (NCURVE, NKNOT, str(dtype)[6:], t["rel"], lim[dtype], t["abs"],
+                 t["wrapper_rel"]))
+        check(bool(torch.isfinite(t["x"]).all()) and max(t["rel"], t["wrapper_rel"])
+              <= lim[dtype], "thomas kernel at the spline's system (%s): rel %.3e"
+              % (dtype, t["rel"]))
+    th_args, th_abs = th[f32]["args"], th[f32]["abs"]
+    dl, d, du, r = th[f32]["system"]
+    # the PyTorch call for the same function: the one dense spline matrix
+    # against the 512 right-hand sides
+    T_dense = (torch.diag_embed(d) + torch.diag_embed(dl[1:], offset=-1)
+               + torch.diag_embed(du[:-1], offset=1))
+    rT = r.T.contiguous()
+    x_lib = torch.linalg.solve(T_dense, rT).T
+    lib_rel = float((th[f32]["x"] - x_lib).abs().max() / x_lib.abs().max())
+    check(lib_rel <= 1e-4, "thomas kernel disagrees with torch.linalg.solve of the spline "
+          "matrix: rel %.3e" % lib_rel)
+    th_ms = timed_ms(torch, lambda: thomas_cuda(*th_args))
+    th_dev_ms = kernel_device_ms(torch, lambda: thomas_cuda(*th_args), "thomas_kernel")
+    th_plain_ms = timed_ms(torch, lambda: thomas_plain(*th_args), reps=3, inner=1)
+    th_lib_ms = timed_ms(torch, lambda: torch.linalg.solve(T_dense, rT), reps=3, inner=3)
+    # as row 2's bound: dl, d, du, b read once, x written once; ~8
+    # operations a row
+    th_bound, th_by = bound(5 * NKNOT * NCURVE * 4, 8.0 * NKNOT * NCURVE)
+    print("  thomas kernel at (%d, %d) float32: %.4f ms (events; device time by name %.4f "
+          "ms), plain %.3f ms, torch.linalg.solve of the dense (%d, %d) spline matrix "
+          "against %d right-hand sides %.3f ms (rel %.2e to the kernel), bound %.4f ms (%s) "
+          "[%s]" % (NCURVE, NKNOT, th_ms, th_dev_ms, th_plain_ms, NKNOT, NKNOT, NCURVE,
+                    th_lib_ms, lib_rel, th_bound, th_by, card))
+    del T_dense, th
+
+    # ---- the references (float64, scipy and numpy) on the first curves ----
+    xg, yg = x_np, y_np[:GATE_CURVES]
+    mirrored = np.where(xc_np < 0, -xc_np, np.where(xc_np > 1, 2 - xc_np, xc_np))
+    refs = {
+        "natural": CubicSpline(xg, yg.T, bc_type="natural")(xq_np).T,
+        "not-a-knot": CubicSpline(xg, yg.T, bc_type="not-a-knot")(xq_np).T,
+        "clamped": CubicSpline(xg, yg.T, bc_type="clamped")(mirrored).T,
+        "linear": np.stack([np.interp(xq_np, xg, yy) for yy in yg]),
+        "pchip": PchipInterpolator(xg, yg.T)(xq_np).T,
+    }
+    nat = CubicSpline(xg, yg.T, bc_type="natural")
+    sq_refs = {"cspline integrate": nat.integrate(xg[0], xg[-1]),
+               "cspline cumsum": nat.antiderivative()(xg).T,
+               "trapz integrate": scipy.integrate.trapezoid(yg, xg, axis=-1)}
+
+    # the calls, as a user makes them
+    def interp(method, bc_type=None, q=xq, yy=y, xx=x):
+        kw = {} if bc_type is None else {"bc_type": bc_type}
+        return Interp1D(xx, yy, method=method, **kw)(q)
+
+    calls = {
+        "(a) cspline natural": lambda: interp("cspline", "natural"),
+        "(b) cspline not-a-knot": lambda: interp("cspline"),
+        "(c) cspline clamped": lambda: interp("cspline", "clamped", xqc),
+        "(d) linear": lambda: interp("linear"),
+        "(d) pchip": lambda: interp("pchip"),
+    }
+    sq = {m: SQuad(x, method=m) for m in ("cspline", "trapz", "simpson")}
+    sq_calls = {
+        "cspline integrate": lambda yy=y: sq["cspline"].integrate(yy),
+        "cspline cumsum": lambda yy=y: sq["cspline"].cumsum(yy),
+        "trapz integrate": lambda yy=y: sq["trapz"].integrate(yy),
+        "simpson integrate": lambda yy=y: sq["simpson"].integrate(yy),
+    }
+
+    def interp_grads(dtype):
+        xx, yy = dev(x_np, dtype, True), dev(y_np, dtype, True)
+        out = interp("cspline", "natural", xq.to(dtype), yy, xx)
+        return torch.autograd.grad((out * w.to(dtype)).sum(), (xx, yy))
+
+    def squad_grad(dtype, name):
+        method, what = name.split()
+        yy = dev(y_np, dtype, True)
+        s_ = SQuad(dev(x_np, dtype), method=method)
+        if what == "integrate":
+            loss = (s_.integrate(yy) * w[:, 0].to(dtype)).sum()
+        else:
+            loss = (s_.cumsum(yy) * w[:, :NKNOT].to(dtype)).sum()
+        return torch.autograd.grad(loss, yy)
+
+    # ---- the main path, counted ----
+    launches = {}
+    thomas_cuda.launches = 0
+    outs = {}
+    for name, fn in calls.items():
+        before = thomas_cuda.launches
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        launches[name] = thomas_cuda.launches - before
+    before = thomas_cuda.launches
+    g32 = interp_grads(f32)
+    torch.cuda.synchronize()
+    launches["(a) natural forward + gradient to x, y"] = thomas_cuda.launches - before
+    sq_outs, sq_g32 = {}, {}
+    before = thomas_cuda.launches
+    for name, fn in sq_calls.items():
+        sq_outs[name] = fn()
+        sq_g32[name] = squad_grad(f32, name)
+    torch.cuda.synchronize()
+    launches["SQuad"] = thomas_cuda.launches - before
+    path_launches = thomas_cuda.launches
+    print("interpolate/SQuad thomas launches: %s; %d in all" % (launches, path_launches))
+    expect = {"(a) cspline natural": 1, "(b) cspline not-a-knot": 0, "(c) cspline clamped": 1,
+              "(d) linear": 0, "(d) pchip": 0, "(a) natural forward + gradient to x, y": 2,
+              "SQuad": 0}
+    check(launches == expect, "thomas launches on the interpolation path: %s, expected %s"
+          % (launches, expect))
+
+    # ---- the gates ----
+    gates = {}
+    for name, key in (("(a) cspline natural", "natural"), ("(b) cspline not-a-knot",
+                                                           "not-a-knot"),
+                      ("(c) cspline clamped", "clamped"), ("(d) linear", "linear"),
+                      ("(d) pchip", "pchip")):
+        out = outs[name]
+        check(tuple(out.shape) == (NCURVE, out.shape[-1]) and bool(torch.isfinite(out).all()),
+              "%s: non-finite or misshapen output" % name)
+        gates[name] = interp_gate(np, out.cpu(), refs[key])
+    for name in ("cspline integrate", "cspline cumsum", "trapz integrate"):
+        out = sq_outs[name]
+        check(bool(torch.isfinite(out).all()), "SQuad %s: non-finite output" % name)
+        gates["SQuad " + name] = interp_gate(np, out.cpu(), sq_refs[name])
+    s64 = SQuad(dev(x_np, f64), method="simpson").integrate(dev(y_np, f64))
+    gates["SQuad simpson integrate (against float64)"] = interp_gate(
+        np, sq_outs["simpson integrate"].cpu(), s64[:GATE_CURVES].cpu().numpy())
+    g64 = interp_grads(f64)
+    grad_rel = {"(a) natural, to x": rel_l2_all(g32[:1], g64[:1]),
+                "(a) natural, to y": rel_l2_all(g32[1:], g64[1:])}
+    for name in sq_calls:
+        grad_rel["SQuad %s, to y" % name] = rel_l2_all(sq_g32[name], squad_grad(f64, name))
+    print("interpolate/SQuad gates [%s]: max abs err over the first %d curves / max(1, "
+          "max |ref|) (limit %.0e): %s; float32 gradients' rel L2 to float64 (limit %.0e): %s"
+          % (card, GATE_CURVES, INTERP_GATE,
+             ", ".join("%s %.2e" % kv for kv in gates.items()), INTERP_GRAD_TOL,
+             ", ".join("%s %.2e" % kv for kv in grad_rel.items())))
+    check(max(gates.values()) <= INTERP_GATE, "interpolate/SQuad gate: %s" % gates)
+    check(max(grad_rel.values()) <= INTERP_GRAD_TOL, "interpolate/SQuad gradients: %s"
+          % grad_rel)
+    rows["gates"], rows["grad_rel_l2"], rows["launches"] = gates, grad_rel, launches
+
+    # ---- timing, outside the counted run ----
+    def plain_thomas(fn):
+        """``fn`` with the Thomas kernel's plain version in its place."""
+        def run():
+            saved = tridiag.thomas_cuda
+            tridiag.thomas_cuda = thomas_plain
+            try:
+                return fn()
+            finally:
+                tridiag.thomas_cuda = saved
+        return run
+
+    def dense(bc_type, q=xq):
+        return lambda: Interp1D(x, y, method="cspline", bc_type=bc_type,
+                                use_tridiag=False)(q)
+
+    timed = {name: timed_ms(torch, fn, reps=3, inner=3) for name, fn in calls.items()}
+    timed["(a) natural forward + gradient to x, y"] = timed_ms(
+        torch, lambda: interp_grads(f32), reps=3, inner=3)
+    base = {
+        "(a) cspline natural": {
+            "plain thomas": timed_ms(torch, plain_thomas(calls["(a) cspline natural"]),
+                                     reps=3, inner=1),
+            "dense route": timed_ms(torch, dense("natural"), reps=3, inner=3)},
+        "(a) natural forward + gradient to x, y": {
+            "plain thomas": timed_ms(torch, plain_thomas(lambda: interp_grads(f32)),
+                                     reps=3, inner=1)},
+        "(c) cspline clamped": {"dense route": timed_ms(torch, dense("clamped", xqc),
+                                                         reps=3, inner=3)},
+    }
+    for name, fn in sq_calls.items():
+        timed["SQuad " + name] = timed_ms(torch, fn, reps=3, inner=10)
+        timed["SQuad %s + gradient to y" % name] = timed_ms(
+            torch, lambda name=name: squad_grad(f32, name), reps=3, inner=3)
+    busy = {}
+    thomas = ("thomas_kernel",)
+    for name, fn, expect in (
+            ("(a) cspline natural", calls["(a) cspline natural"], thomas),
+            ("(a) natural forward + gradient to x, y", lambda: interp_grads(f32), thomas),
+            ("(b) cspline not-a-knot", calls["(b) cspline not-a-knot"], ()),
+            ("SQuad cspline integrate", sq_calls["cspline integrate"], ())):
+        b_ms = device_busy_ms(torch, fn, calls=3, expect=expect)
+        busy[name] = {"busy_ms": b_ms, "idle_share": max(0.0, 1 - b_ms / timed[name])}
+    print("interpolate/SQuad timing [%s], median of 3 repetitions, per call (each Interp1D "
+          "call builds the spline: its sort check reads one value back from the card):"
+          % card)
+    for name, ms in timed.items():
+        what = "integrations/s" if name.startswith("SQuad") else "curve-evals/s"
+        extra = "".join(", %s %.3f ms (%.1f %s)" % (k, v, NCURVE / v * 1e3, what)
+                        for k, v in base.get(name, {}).items())
+        idle = ("; device busy %.3f ms, idle share %.0f%%"
+                % (busy[name]["busy_ms"], 100 * busy[name]["idle_share"])
+                if name in busy else "")
+        print("  %s: %.3f ms, %.1f %s%s%s" % (name, ms, NCURVE / ms * 1e3, what, extra, idle))
+    rows["ms"], rows["baseline_ms"], rows["busy"] = timed, base, busy
+    rows["thomas"] = {"ms": th_ms, "device_ms": th_dev_ms, "plain_ms": th_plain_ms,
+                      "library_ms": th_lib_ms, "bound_ms": th_bound}
+    print(json.dumps({"phase": "interp_squad", "card": card, "rows": rows}))
+    return {"name": "thomas", "path": "interpolate: natural/clamped spline, %d x %d, "
+            "diagonals broadcast from (%d,)" % (NCURVE, NKNOT, NKNOT),
+            "route": "cuda", "source": "xitorch_tpu_torch/csrc/tridiag.cu",
+            "replaces": "xitorch_tpu/ops/tridiag.py:38", "launches": path_launches,
+            "max_abs_err": th_abs, "ms": th_dev_ms,
+            "plain_ms": th_plain_ms, "bound_ms": th_bound, "bound_by": th_by,
+            "library_ms": th_lib_ms}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3568,7 +3897,7 @@ def main(argv=None) -> int:
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
     parser.add_argument("--only", choices=("solve", "dc", "dc_level", "sweep", "complex",
-                                           "models", "integrate"),
+                                           "models", "integrate", "interpolate"),
                         default=None,
                         help="solve: build, then run only config 3's phase (config3, "
                              "rows 1 and 2); dc: only config 2's warm start phase "
@@ -3579,7 +3908,9 @@ def main(argv=None) -> int:
                              "row 5) and the sweep gate's table; models: only config 5 "
                              "(config5, row 3 at the SCF's panel) and the DEQ model "
                              "(deq_phase); integrate: only config 4 (config4) and quad/"
-                             "mcquad (quad_mcquad); development switches")
+                             "mcquad (quad_mcquad); interpolate: only Interp1D and SQuad "
+                             "(interp_squad, row 2 at the spline's system); development "
+                             "switches")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3656,6 +3987,11 @@ def main(argv=None) -> int:
         quad_mcquad(torch, np, xt, device, card)
         # no kernel of this package is on these paths
         print(json.dumps({"kernels": []}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "interpolate":
+        print(json.dumps({"kernels": [interp_squad(torch, np, xt, device, card)]}))
         print("total: %.1f s" % (time.perf_counter() - t_start))
         print_device(torch)
         return 0
@@ -3747,9 +4083,15 @@ def main(argv=None) -> int:
     quad_mcquad(torch, np, xt, device, card)
     lap("quad and mcquad")
 
+    # ---- 18. interpolate and SQuad (the natural and clamped splines solve
+    # through the Thomas kernel) ----
+    interp_record = interp_squad(torch, np, xt, device, card)
+    lap("interpolate and SQuad")
+
     print(json.dumps({"kernels": [
         *config3_records,
         jacobi_record, dc_record, complex_record, fused_record, level_record, scf_record,
+        interp_record,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print_device(torch)

@@ -950,3 +950,68 @@ def test_vmap_rk45_on_card_matches_per_trajectory_calls(cuda):
         y64 = solve_ivp(f, ts.double().cpu(), y0.double().cpu(), params=(ws[k].double().cpu(),),
                         method="rk45", rtol=1e-10, atol=1e-12)
         assert float((y1.double().cpu() - y64).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_thomas_kernel_at_the_splines_system(cuda, dtype, tol):
+    # the natural spline of bench_quad_interp.py's data: (1000,) diagonals
+    # broadcast against 512 right-hand sides, as Interp1D gives them
+    from xitorch_tpu_torch._impls.interpolate.interp_1d import spline_tridiag_system
+    from xitorch_tpu_torch.ops.tridiag import tridiag_solve_kernel
+
+    x, y, _ = _chip_smoke().interp_data(np)
+    dl, d, du, r = spline_tridiag_system(torch.tensor(x, dtype=dtype, device=cuda),
+                                         torch.tensor(y, dtype=dtype, device=cuda), "natural")
+    assert dl.shape == (1000,) and r.shape == (512, 1000)
+    flat = [a.expand(512, 1000).contiguous() for a in (dl, d, du, r)]
+    eps = float(torch.finfo(dtype).tiny)
+    thomas_cuda.launches = 0
+    xw = tridiag_solve_kernel(dl, d, du, r)
+    assert thomas_cuda.launches == 1
+    xp = thomas_plain(*flat, eps)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xw).all())
+    assert float((xw - xp).abs().max() / xp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_interp1d_natural_on_card_launches_the_thomas_kernel(cuda):
+    from scipy.interpolate import CubicSpline
+
+    x, y, xq = _chip_smoke().interp_data(np)
+    xt_, yt, xqt = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (x, y, xq))
+    thomas_cuda.launches = 0
+    out = xt.interpolate.Interp1D(xt_, yt, method="cspline", bc_type="natural")(xqt)
+    torch.cuda.synchronize()
+    assert thomas_cuda.launches == 1
+    ref = CubicSpline(x, y[:16].T, bc_type="natural")(xq).T
+    err = float(np.abs(out[:16].double().cpu().numpy() - ref).max())
+    assert err <= 2e-4 * max(1.0, float(np.abs(ref).max()))
+    # the gradient to y and x: one more launch (the transposed solve)
+    xg, yg = xt_.clone().requires_grad_(), yt.clone().requires_grad_()
+    thomas_cuda.launches = 0
+    out = xt.interpolate.Interp1D(xg, yg, method="cspline", bc_type="natural")(xqt)
+    gx, gy = torch.autograd.grad(out.sum(), (xg, yg))
+    torch.cuda.synchronize()
+    assert thomas_cuda.launches == 2
+    assert bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gy).all())
+    # the dense routes launch nothing
+    thomas_cuda.launches = 0
+    xt.interpolate.Interp1D(xt_, yt)(xqt)
+    xt.integrate.SQuad(xt_).integrate(yt)
+    torch.cuda.synchronize()
+    assert thomas_cuda.launches == 0
+
+
+@pytest.mark.cuda
+def test_squad_on_card_within_its_gate(cuda):
+    from scipy.interpolate import CubicSpline
+
+    x, y, _ = _chip_smoke().interp_data(np)
+    xt_, yt = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (x, y))
+    out = xt.integrate.SQuad(xt_, method="cspline").integrate(yt)
+    assert out.shape == (512,) and out.device.type == "cuda"
+    ref = CubicSpline(x, y[:16].T, bc_type="natural").integrate(x[0], x[-1])
+    err = float(np.abs(out[:16].double().cpu().numpy() - ref).max())
+    assert err <= 2e-4 * max(1.0, float(np.abs(ref).max()))

@@ -126,7 +126,16 @@ def test_port_imports_no_jax():
             "xitorch_tpu_torch._impls.integrate.fixed_quad, "
             "xitorch_tpu_torch._impls.integrate.mcmc, xitorch_tpu_torch.models, "
             "xitorch_tpu_torch.models.scf, xitorch_tpu_torch.models.deq, "
-            "xitorch_tpu_torch.models.node, xitorch_tpu_torch.utils.pytree; "
+            "xitorch_tpu_torch.models.node, xitorch_tpu_torch.utils.pytree, "
+            "xitorch_tpu_torch.interpolate, xitorch_tpu_torch.interpolate.interp1, "
+            "xitorch_tpu_torch._impls.interpolate.interp_1d, "
+            "xitorch_tpu_torch.integrate.squad, "
+            "xitorch_tpu_torch._impls.integrate.samples_quad, "
+            "xitorch_tpu_torch._core.editable_module, xitorch_tpu_torch._core.packer, "
+            "xitorch_tpu_torch._core.pure, xitorch_tpu_torch.utils.types, "
+            "xitorch_tpu_torch.utils.attr, xitorch_tpu_torch.utils.decorators, "
+            "xitorch_tpu_torch.utils.tupleops, xitorch_tpu_torch.debug.profiling, "
+            "xitorch_tpu_torch.debug.__main__; "
             "print(any(m.split('.')[0] in ('jax', 'jaxlib', 'xitorch_tpu') "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -24,7 +24,15 @@ Ported so far (see ROADMAP.md for the rest):
   bwd_euler, trapezoidal, sdirk2; autograd or backsolve adjoint; dict,
   tuple and list states; the adaptive methods under ``torch.func.vmap``),
   ``integrate.quad`` (leggauss, tanhsinh) and ``integrate.mcquad`` (mh,
-  mhcustom, dummy1d); not yet ``SQuad``
+  mhcustom, dummy1d) and ``integrate.SQuad`` (cspline, simpson, trapz)
+* ``interpolate.Interp1D`` (cspline with four boundary conditions, pchip,
+  linear; every extrapolation): the natural and clamped splines on 128 or
+  more knots solve for their slopes through the Thomas kernel
+* ``EditableModule``, ``Packer``, ``make_pure`` / ``get_pure_function``,
+  ``make_sibling``; ``debug.profile`` / ``annotate`` on ``torch.profiler``
+  and ``python -m xitorch_tpu_torch.debug script.py``; the ``utils``
+  helpers of the JAX package (dtype maps, attribute paths, ``deprecated``,
+  ``tuple_axpy1``, the random test matrices)
 * ``models``: the SCF loop (``HamiltonianOp``, ``scf_density``,
   ``scf_energy``: symeig nested in equilibrium), the DEQ model
   (``init_deq``, ``deq_forward``, ``deq_loss``, ``train_step`` with a
@@ -45,6 +53,9 @@ from xitorch_tpu_torch._core.structured import (  # noqa: F401
     BandedLowRankOperator, TridiagLowRankOperator,
 )
 from xitorch_tpu_torch._core.kron import KronOperator, KronSumOperator  # noqa: F401
+from xitorch_tpu_torch._core.editable_module import EditableModule  # noqa: F401
+from xitorch_tpu_torch._core.packer import Packer  # noqa: F401
+from xitorch_tpu_torch._core.pure import make_pure, make_sibling  # noqa: F401
 from xitorch_tpu_torch.debug.modes import (  # noqa: F401
     set_debug_mode, is_debug_enabled, enable_debug, disable_debug,
 )
@@ -54,6 +65,9 @@ from xitorch_tpu_torch.utils.exceptions import (  # noqa: F401
 from xitorch_tpu_torch.utils.convergence import assert_converged  # noqa: F401
 from xitorch_tpu_torch.version import __version__  # noqa: F401
 
+# the reference's name for make_pure
+get_pure_function = make_pure
+
 from xitorch_tpu_torch import (  # noqa: F401,E402
-    linalg, ops, debug, utils, grad, optimize, integrate, models,
+    linalg, ops, debug, utils, grad, optimize, integrate, interpolate, models,
 )

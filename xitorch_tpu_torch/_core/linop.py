@@ -212,6 +212,23 @@ class LinearOperator:
     def fullmatrix(self) -> torch.Tensor:
         return self._fullmatrix()
 
+    def scipy_linalg_op(self):
+        """The operator as a ``scipy.sparse.linalg.LinearOperator`` (each
+        product runs here on the operator's device; vectors travel as
+        numpy arrays through the host)."""
+        import scipy.sparse.linalg
+
+        def to_t(v) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(v), dtype=self.dtype, device=self.device)
+
+        return scipy.sparse.linalg.LinearOperator(
+            shape=tuple(self.shape[-2:]),
+            matvec=lambda v: _np(self.mv(to_t(v))),
+            rmatvec=lambda v: _np(self.rmv(to_t(v))),
+            matmat=lambda m: _np(self.mm(to_t(m))),
+            rmatmat=lambda m: _np(self.rmm(to_t(m))),
+            dtype=np.dtype(str(self.dtype)[len("torch."):]))
+
     # ------------------------- properties -------------------------
     @property
     def H(self) -> "LinearOperator":
@@ -235,6 +252,15 @@ class LinearOperator:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    # capability flags of the reference's API
+    @property
+    def is_mv_implemented(self) -> bool:
+        return True
+
+    @property
+    def is_getparamnames_implemented(self) -> bool:
+        return True
 
     @property
     def is_fullmatrix_implemented(self) -> bool:

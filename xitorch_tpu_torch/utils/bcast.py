@@ -9,7 +9,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["normalize_bcast_dims", "get_bcasted_dims"]
+__all__ = ["normalize_bcast_dims", "get_bcasted_dims", "match_dim"]
 
 
 def normalize_bcast_dims(*shapes: Sequence[int]):
@@ -22,3 +22,14 @@ def get_bcasted_dims(*shapes: Sequence[int]) -> Tuple[int, ...]:
     """Return the broadcasted shape of the given shapes."""
     return tuple(torch.broadcast_shapes(*[tuple(s) for s in shapes]))
 
+
+
+def match_dim(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Broadcast all tensors on their leading (non-last) dimensions.
+
+    The last dimension of each input is kept as-is; everything before it is
+    broadcast to a common shape (views, no copies).  Used by the
+    searchsorted/gather steps of interpolation.
+    """
+    batch = get_bcasted_dims(*[x.shape[:-1] for x in xs])
+    return tuple(x.expand(*batch, x.shape[-1]) for x in xs)

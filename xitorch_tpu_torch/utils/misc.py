@@ -1,4 +1,4 @@
-"""Method registry lookup (counterpart of ``get_method`` in
+"""Method registry lookup and option plumbing (counterpart of
 xitorch_tpu/utils/misc.py).
 
 Each functional accepts a method *string* (registry lookup) or a
@@ -6,11 +6,23 @@ user-supplied *callable* with the same signature as the built-in methods.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["get_method", "partition_params"]
+__all__ = ["get_method", "partition_params", "set_default_option", "get_and_pop_keys"]
+
+
+def set_default_option(defopt: Mapping[str, Any], opt: Mapping[str, Any]) -> Dict[str, Any]:
+    """Return a dict with ``defopt`` keys overridden by ``opt``."""
+    res = dict(defopt)
+    res.update(opt)
+    return res
+
+
+def get_and_pop_keys(dct: Dict[str, Any], keys: Sequence[str]) -> Dict[str, Any]:
+    """Remove ``keys`` from ``dct`` in place and return them as a new dict."""
+    return {k: dct.pop(k) for k in keys}
 
 
 def partition_params(params: Sequence[Any]) -> Tuple[tuple, Callable]:
