@@ -90,7 +90,15 @@ paths give it, and drives these configurations through the public API:
   clamped, whose slopes solve through the Thomas kernel; not-a-knot,
   linear, pchip) and ``integrate.SQuad`` (cspline, trapz, simpson),
   forward and gradient, against scipy's float64 splines, with the Thomas
-  kernel held against its plain version on the spline's system.
+  kernel held against its plain version on the spline's system;
+* serving at config 3's full width: the structured-CG forward and the
+  ``V = None`` route through ``serving.export_bytes``, ``import_bytes``
+  and ``aot_compile``, served against eager (the kernel once a served
+  call), timed beside it; a ``cg`` export raises the error that names it;
+* ``jacobi_eigh(deflate=True)`` on config 2's batch: its gates, launches
+  (the DC kernel once, the sweep kernel on the stage-1 windows, the
+  stage-2 windows and the finisher), timed beside the cold and the warm
+  call, and each kernel held against its plain version at those shapes.
 
 It reads the kernels' launch counters to show that each main path went
 through its kernels, and times kernels, forward and gradient with CUDA
@@ -118,6 +126,8 @@ gate's rows above 512 come from this), without holding the gate to it.
     python3 chip_smoke.py --only models
     python3 chip_smoke.py --only integrate
     python3 chip_smoke.py --only interpolate
+    python3 chip_smoke.py --only serving
+    python3 chip_smoke.py --only deflate
 
 build the kernels and run only config 3's phase (the structured CG and
 Thomas kernels, their designs, the replaced Thomas kernel and the chain
@@ -127,7 +137,8 @@ sweep kernel, its path and cluster size) and the sweep gate's table, or
 only config 2's complex phase (the complex
 sweep kernel, its path, cluster size, waves and designs) and the sweep
 gate's table, only config 5 and the DEQ model, only config 4 with
-quad and mcquad, or only Interp1D and SQuad, with the same last lines:
+quad and mcquad, only Interp1D and SQuad, only config 3 exported and
+served, or only ``jacobi_eigh(deflate=True)``, with the same last lines:
 development switches for work on those paths.  The default run is the full script.
 """
 from __future__ import annotations
@@ -324,10 +335,11 @@ def device_ms_by_name(torch, fn, calls: int = REPS, warmup: bool = True,
     Only events on the card count (the profiler also files module loading
     under device time).  Now and then a trace comes back with no event on
     the card at all, or, late in a long process, without the kernels of
-    this package's libraries (launched through ``ctypes``) while PyTorch's
-    own still show: a trace with no event on the card, or with no event
-    whose name holds each part in ``expect``, is taken again, up to
-    ``PROFILE_TRIES`` times in all, and each retake is printed.  If every
+    this package's libraries (launched through ``ctypes``), or some of
+    their launches, while PyTorch's own still show: a trace with no event
+    on the card, or where the events whose name holds a part in ``expect``
+    are missing or not the same number for every call, is taken again, up
+    to ``PROFILE_TRIES`` times in all, and each retake is printed.  If every
     trace lost them, the call is timed by CUDA events instead (printed),
     and the result is ``{EVENTS_KEY: ms a call}``."""
     from torch.autograd import DeviceType
@@ -341,14 +353,20 @@ def device_ms_by_name(torch, fn, calls: int = REPS, warmup: bool = True,
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        by_name = {e.key: e.self_device_time_total / calls / 1e3
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        by_name = {e.key: e.self_device_time_total / calls / 1e3 for e in events}
         missing = [part for part in expect if not any(part in k for k in by_name)]
-        if by_name and not missing:
+        # an expected kernel whose count is not the same for every call: the
+        # trace lost some of its launches
+        partial = [part for part in expect if part not in missing
+                   and sum(e.count for e in events if part in e.key) % calls]
+        if by_name and not missing and not partial:
             return by_name
+        held = ("no event of %s" % missing if missing else
+                "not every call's launches of %s" % partial) if by_name \
+            else "no event on the card"
         print("  profiler: trace %d of %d held %s; taking it again"
-              % (attempt, PROFILE_TRIES, "no event of %s" % missing if by_name
-                 else "no event on the card"))
+              % (attempt, PROFILE_TRIES, held))
     # back to back, so that a short kernel's time is not its launch's
     ms = timed_ms(torch, fn, reps=max(calls, 1), inner=INNER if calls > 1 else 1,
                   warmup=False)
@@ -363,14 +381,29 @@ def device_busy_ms(torch, fn, calls: int = REPS, top: int = 0, warmup: bool = Tr
     """Summed device time of the kernels ``fn()`` launches, per call (see
     :func:`device_ms_by_name`; ``expect``: name parts of kernels ``fn()``
     launches).  With ``top``, also the ``top`` largest entries as ``(name,
-    ms per call)``.  Where the profiler lost the card, the call's time by
-    CUDA events (an upper bound: idle share 0)."""
+    ms per call)``.  Where the profiler lost the card, None: the call's time
+    by CUDA events (:data:`EVENTS_KEY`) holds host time, so it gives no
+    device busy time and no idle share (:func:`idle_share`)."""
     by_name = device_ms_by_name(torch, fn, calls, warmup, expect)
-    busy = sum(by_name.values())
-    check(busy > 0, "the profiler saw no device time")
+    busy = None if EVENTS_KEY in by_name else sum(by_name.values())
+    check(busy is None or busy > 0, "the profiler saw no device time")
     if not top:
         return busy
     return busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def idle_share(busy, ms: float):
+    """The device's idle share of a call of ``ms`` with ``busy`` ms of device
+    time, None where the busy time was not measured."""
+    return None if busy is None else max(0.0, 1 - busy / ms)
+
+
+def busy_text(busy, ms: float) -> str:
+    """``device busy B ms, idle share I %``, or that neither was measured
+    (the profiler lost the card: :func:`device_busy_ms` gave None)."""
+    if busy is None:
+        return "device busy and idle share not measured (the profiler lost the card)"
+    return "device busy %.3f ms, idle share %.0f%%" % (busy, 100 * idle_share(busy, ms))
 
 
 def kernel_device_ms(torch, fn, part: str, calls: int = REPS) -> float:
@@ -889,13 +922,11 @@ def config2(torch, np, xt, device, card):
     print("  symeig grads/s (forward + backward to the dense A): exacteig route %.1f "
           "(%.3f ms), chebfsi route %.1f (%.3f ms) [%s]"
           % (rate(grad_exact_ms), grad_exact_ms, rate(grad_cheb_ms), grad_cheb_ms, card))
-    print("  exacteig forward: device busy %.3f ms per call (torch.profiler), idle "
-          "share %.0f%% [%s]"
-          % (exact_busy, 100 * max(0.0, 1 - exact_busy / exact_ms), card))
+    print("  exacteig forward: %s a call (torch.profiler) [%s]"
+          % (busy_text(exact_busy, exact_ms), card))
     print("    of which: " + "; ".join("%s %.3f ms" % (name[:60], ms)
                                          for name, ms in exact_top))
-    print("  chebfsi forward: device busy %.3f ms per call, idle share %.0f%% [%s]"
-          % (cheb_busy, 100 * max(0.0, 1 - cheb_busy / cheb_ms), card))
+    print("  chebfsi forward: %s a call [%s]" % (busy_text(cheb_busy, cheb_ms), card))
     print("    of which: " + "; ".join("%s %.3f ms" % (name[:60], ms)
                                          for name, ms in cheb_top))
 
@@ -1288,11 +1319,10 @@ def config2_warm(torch, np, xt, device, card, shared):
           "%.3f, mean %.2f a matrix) vs cold %.3f ms (sweep kernel %.3f, mean %.2f) [%s]"
           % (warm_ms, k_ms, tail_ms, warm_sweep_ms, float(sw.mean()), cold_ms,
              shared["cold_kernel_ms"], float(sc.mean()), card))
-    print("  symeig exacteig decomps/s: warm %.1f (%.3f ms, device busy %.3f ms, idle "
-          "share %.0f%%), cold %.1f (%.3f ms, device busy %.3f ms, idle share %.0f%%) [%s]"
-          % (B2 / sym_warm_ms * 1e3, sym_warm_ms, warm_busy,
-             100 * max(0.0, 1 - warm_busy / sym_warm_ms), B2 / sym_cold_ms * 1e3,
-             sym_cold_ms, cold_busy, 100 * max(0.0, 1 - cold_busy / sym_cold_ms), card))
+    print("  symeig exacteig decomps/s: warm %.1f (%.3f ms, %s), cold %.1f (%.3f ms, %s) "
+          "[%s]" % (B2 / sym_warm_ms * 1e3, sym_warm_ms, busy_text(warm_busy, sym_warm_ms),
+                    B2 / sym_cold_ms * 1e3, sym_cold_ms, busy_text(cold_busy, sym_cold_ms),
+                    card))
     print("    warm, of which: " + "; ".join("%s %.3f ms" % (name[:60], ms)
                                                for name, ms in warm_top))
     print("  precondition=None is the cold sweep; faster in this run: %s"
@@ -1519,9 +1549,9 @@ def per_level_warm(torch, np, xt, device, card):
         if npad == 768:
             busy, top = device_busy_ms(torch, lambda: jacobi_eigh(big, precondition=True),
                                        calls=2, top=5)
-            print("  warm jacobi_eigh at %s: device busy %.3f ms a call, idle share %.0f%%; "
-                  "of which: %s" % (tag, busy, 100 * max(0.0, 1 - busy / warm_ms),
-                                    "; ".join("%s %.3f ms" % (nm[:50], ms) for nm, ms in top)))
+            print("  warm jacobi_eigh at %s: %s a call; of which: %s"
+                  % (tag, busy_text(busy, warm_ms),
+                     "; ".join("%s %.3f ms" % (nm[:50], ms) for nm, ms in top)))
             record.update({"ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
                            "bound_by": k_by})
     record.update({"name": "dc_level", "route": "cuda",
@@ -1870,11 +1900,10 @@ def config2_complex(torch, np, xt, device, card, shared):
           "[%s]" % (k_ms, plain_ms, k_bound, k_by, lib_ms, sweeps_total / B2, rot_total,
                     sweeps_total * rounds * (N2 // 2), B2, N2, W, card))
     print("  jacobi_eigh (complex64) %.3f ms; symeig default %.1f decomps/s (%.3f ms, "
-          "device busy %.3f ms, idle share %.0f%%); svd %.1f decomps/s (%.3f ms) vs "
-          "torch.linalg.svd %.3f ms; gradient %.1f grads/s (%.3f ms) [%s]"
-          % (je_ms, B2 / sym_ms * 1e3, sym_ms, sym_busy,
-             100 * max(0.0, 1 - sym_busy / sym_ms), B2 / svd_ms * 1e3, svd_ms, svd_lib_ms,
-             B2 / grad_ms * 1e3, grad_ms, card))
+          "%s); svd %.1f decomps/s (%.3f ms) vs torch.linalg.svd %.3f ms; gradient %.1f "
+          "grads/s (%.3f ms) [%s]"
+          % (je_ms, B2 / sym_ms * 1e3, sym_ms, busy_text(sym_busy, sym_ms),
+             B2 / svd_ms * 1e3, svd_ms, svd_lib_ms, B2 / grad_ms * 1e3, grad_ms, card))
     return {"name": "jacobi_sweep_complex", "route": "cuda",
             "source": "xitorch_tpu_torch/csrc/jacobi_sweep_complex.cu",
             "replaces": "xitorch_tpu/ops/jacobi_eigh.py:420",
@@ -2261,8 +2290,8 @@ def path_a(torch, np, xt, device, card, batched):
                         ms = timed_ms(torch, call, reps=3, inner=1)
                         busy[method] = (device_busy_ms(torch, call, calls=3), ms)
     for method, (b_ms, ms) in busy.items():
-        print("  %s at n = 700, range (0.2, 1): %.3f ms a call, device busy %.3f ms, idle "
-              "share %.0f%% [%s]" % (method, ms, b_ms, 100 * max(0.0, 1 - b_ms / ms), card))
+        print("  %s at n = 700, range (0.2, 1): %.3f ms a call, %s [%s]"
+              % (method, ms, busy_text(b_ms, ms), card))
 
     # ---- the batched point: 64 x (700 x 700), forward and gradient ----
     mats, B, w = batched
@@ -2318,8 +2347,7 @@ def path_a(torch, np, xt, device, card, batched):
                   "%d times, not 2" % n_grad)
             launches += n_fwd + n_grad
             fb = device_busy_ms(torch, lambda: xt.linalg.solve(Aop, B, method=method, **opts))
-            print("    fused_cg forward: device busy %.3f ms, idle share %.0f%% [%s]"
-                  % (fb, 100 * max(0.0, 1 - fb / fwd_ms), card))
+            print("    fused_cg forward: %s [%s]" % (busy_text(fb, fwd_ms), card))
             busy["fused_cg, batched"] = (fb, fwd_ms)
         rows[-1].update({"x_rel_err": xerr, "grad_rel_l2": [rA, rB], "forward_ms": fwd_ms,
                          "forward_and_gradient_ms": grad_ms})
@@ -2716,10 +2744,8 @@ def config1(torch, np, xt, device, card):
             # one profiled route stands for all, the others stay unprofiled
             fwd_busy = device_busy_ms(torch, lambda: run(a32, b32, joint), calls=1)
             grad_busy = device_busy_ms(torch, lambda: grads(f32, joint), calls=1)
-            busy_txt = ("device busy %.3f ms, idle share %.0f%%; forward + gradient device "
-                        "busy %.3f ms, idle share %.0f%%"
-                        % (fwd_busy, 100 * max(0.0, 1 - fwd_busy / fwd_ms), grad_busy,
-                           100 * max(0.0, 1 - grad_busy / grad_ms)))
+            busy_txt = "%s; forward + gradient %s" % (busy_text(fwd_busy, fwd_ms),
+                                                       busy_text(grad_busy, grad_ms))
         else:
             fwd_busy = grad_busy = None
             busy_txt = "idle share not measured (profiled: %s)" % PROFILED_OPT
@@ -3135,10 +3161,8 @@ def config3(torch, np, xt, device, card, chain_probe):
           "path %.1f grads/s (%.3f ms) [%s]"
           % (BATCH / grad_ms * 1e3, grad_ms, BATCH / grad_plain_ms * 1e3, grad_plain_ms,
              card))
-    print("  device busy per call (torch.profiler): FWD %.3f ms (idle share %.0f%%), "
-          "GRAD %.3f ms (idle share %.0f%%) [%s]"
-          % (fwd_busy, 100 * max(0.0, 1 - fwd_busy / fwd_ms), grad_busy,
-             100 * max(0.0, 1 - grad_busy / grad_ms), card))
+    print("  per call (torch.profiler): FWD %s, GRAD %s [%s]"
+          % (busy_text(fwd_busy, fwd_ms), busy_text(grad_busy, grad_ms), card))
 
     # bounds.  CG: d, the 2 nb band planes, the r planes of V and b read
     # once, x written once; per step and system the stencil, the rank-r
@@ -3259,17 +3283,17 @@ def config5(torch, np, xt, device, card):
             busy_of = "one davidson symeig at the fixed point"
             _, busy_ms_of = timed_once(torch, one)
             busy = device_busy_ms(torch, one, calls=1, warmup=False)
-        idle = max(0.0, 1 - busy / busy_ms_of)
+        idle = idle_share(busy, busy_ms_of)
         print("config 5, SCF %s (n = %d, nocc = %d, g = %.1f) [%s]: converged %.0f after %.0f "
               "iterations; residual |rho - density(H(rho))| %.2e (f_tol %.0e); |sum(rho) - "
               "nocc| %.2e; energy %.6f, rel to the float64 eigh route %.2e (limit %.0e); "
               "gradient to (a, g) rel L2 %.2e (limit %.0e); forward %.3f ms, forward + "
-              "gradient %.3f ms; %s: %.3f ms, device busy %.3f ms, idle share %.0f%%; sweep "
-              "kernel launches %d forward, %d forward + gradient"
+              "gradient %.3f ms; %s: %.3f ms, %s; sweep kernel launches %d forward, %d "
+              "forward + gradient"
               % (name, n, nocc, SCF_G, card, float(info["converged"]),
                  float(info["iterations"]), resid, f_tol, occ_err, float(e), e_rel, e_tol,
-                 g_rel, g_tol, fwd_ms, grad_ms, busy_of, busy_ms_of, busy, 100 * idle,
-                 fwd_sweeps, grad_sweeps))
+                 g_rel, g_tol, fwd_ms, grad_ms, busy_of, busy_ms_of,
+                 busy_text(busy, busy_ms_of), fwd_sweeps, grad_sweeps))
         check(float(info["converged"]) == 1.0 and resid < f_tol,
               "config 5 %s: not converged (residual %.3e)" % (name, resid))
         check(occ_err < (1e-4 if dtype == f32 else 1e-8),
@@ -3373,11 +3397,11 @@ def deq_phase(torch, np, xt, device, card):
                           warmup=False)
     print("DEQ train steps (batch %d, d_in %d, hidden %d, d_out %d, float32, anderson_acc, "
           "Adam lr 1e-3) [%s]: losses %s; ms a step %s (median after the first %.3f: "
-          "%.1f samples/s); device busy %.3f ms a step, idle share %.0f%%; gradient of one "
-          "step rel L2 to the float64 run %.2e (limit 1e-4)"
+          "%.1f samples/s); a step: %s; gradient of one step rel L2 to the float64 run "
+          "%.2e (limit 1e-4)"
           % (B, d_in, hidden, d_out, card, [round(v, 6) for v in losses],
-             [round(v, 3) for v in step_ms], per, B / per * 1e3, busy,
-             100 * max(0.0, 1 - busy / per), g_rel))
+             [round(v, 3) for v in step_ms], per, B / per * 1e3, busy_text(busy, per),
+             g_rel))
     check(all(math.isfinite(v) for v in losses), "DEQ: a loss is not finite")
     check(g_rel <= 1e-4, "DEQ: gradient off the float64 run by %.3e" % g_rel)
     print(json.dumps({"phase": "deq", "card": card, "losses": losses, "step_ms": step_ms,
@@ -3461,12 +3485,11 @@ def config4(torch, np, xt, device, card):
           "times over 6 s, rtol 1e-6, atol 1e-8, float32) [%s]: every trajectory converged at "
           "a budget of max_steps = %d (the smallest power of two from 16); accepted steps "
           "%d..%d, rejected %d..%d; max error of trajectory 0 against rtol 1e-8 %.2e (gate "
-          "1e-3); %.3f ms a call (median of %d), %.1f trajectories/s; device busy %.3f ms, "
-          "idle share %.0f%%"
+          "1e-3); %.3f ms a call (median of %d), %.1f trajectories/s; %s"
           % (IVP_B, IVP_M, IVP_NT, card, budget, int(info["iterations"].min()),
              int(info["iterations"].max()), int(info["rejected"].min()),
-             int(info["rejected"].max()), err, ms, REPS, IVP_B / ms * 1e3, busy,
-             100 * max(0.0, 1 - busy / ms)))
+             int(info["rejected"].max()), err, ms, REPS, IVP_B / ms * 1e3,
+             busy_text(busy, ms)))
     check(err < 1e-3, "config 4: rk45 accuracy gate failed: %.3e" % err)
     rows["bench_ivp"] = {"max_steps": budget, "max_slots": int(slots.max()), "err": err,
                          "ms": ms, "trajectories_per_s": IVP_B / ms * 1e3, "busy_ms": busy}
@@ -3863,7 +3886,7 @@ def interp_squad(torch, np, xt, device, card):
             ("(b) cspline not-a-knot", calls["(b) cspline not-a-knot"], ()),
             ("SQuad cspline integrate", sq_calls["cspline integrate"], ())):
         b_ms = device_busy_ms(torch, fn, calls=3, expect=expect)
-        busy[name] = {"busy_ms": b_ms, "idle_share": max(0.0, 1 - b_ms / timed[name])}
+        busy[name] = {"busy_ms": b_ms, "idle_share": idle_share(b_ms, timed[name])}
     print("interpolate/SQuad timing [%s], median of 3 repetitions, per call (each Interp1D "
           "call builds the spline: its sort check reads one value back from the card):"
           % card)
@@ -3871,9 +3894,7 @@ def interp_squad(torch, np, xt, device, card):
         what = "integrations/s" if name.startswith("SQuad") else "curve-evals/s"
         extra = "".join(", %s %.3f ms (%.1f %s)" % (k, v, NCURVE / v * 1e3, what)
                         for k, v in base.get(name, {}).items())
-        idle = ("; device busy %.3f ms, idle share %.0f%%"
-                % (busy[name]["busy_ms"], 100 * busy[name]["idle_share"])
-                if name in busy else "")
+        idle = "; " + busy_text(busy[name]["busy_ms"], ms) if name in busy else ""
         print("  %s: %.3f ms, %.1f %s%s%s" % (name, ms, NCURVE / ms * 1e3, what, extra, idle))
     rows["ms"], rows["baseline_ms"], rows["busy"] = timed, base, busy
     rows["thomas"] = {"ms": th_ms, "device_ms": th_dev_ms, "plain_ms": th_plain_ms,
@@ -3888,6 +3909,383 @@ def interp_squad(torch, np, xt, device, card):
             "library_ms": th_lib_ms}
 
 
+def launches_by_name(torch, fn, part: str, calls: int = REPS):
+    """Launches a call of the kernels whose name holds ``part``, counted from
+    ``torch.profiler``'s events on the card over ``calls`` calls after one
+    warm-up call.  A trace that lost some of them (no event, or a count
+    that is not the same for every call: late in a long process the
+    profiler drops this package's kernels, see :func:`device_ms_by_name`) is
+    taken again, up to ``PROFILE_TRIES`` times in all; None where every
+    trace lost some."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and part in e.key)
+        if n and n % calls == 0:
+            return n // calls
+        print("  profiler: trace %d of %d held %d events of %r in %d calls; taking it again"
+              % (attempt, PROFILE_TRIES, n, part, calls))
+    return None
+
+
+def serving_phase(torch, np, xt, device, card):
+    """``serving`` at config 3's full width (``bench.py:84-133``: 512 x 1024,
+    rank 4, float32): ``export_bytes`` then ``import_bytes`` of the
+    structured-CG forward and of the ``V = None`` (Thomas) route, the served
+    ``x`` against the eager ``x`` and config 3's gate, the kernel's launches
+    a served call (the counter, and the kernel's events in the profiler's
+    trace), the blob's size and the times to export and import, the served
+    program and ``aot_compile``'s module timed beside the eager call with
+    the device's idle share, each served kernel against its plain version;
+    and a ``cg`` export, which must raise the error that names it.  Returns
+    the two kernels' records for the JSON line."""
+    import warnings
+
+    import xitorch_tpu_torch.serving as serving
+    from xitorch_tpu_torch.ops.structured_cg import structured_cg_cuda, structured_cg_plain
+    from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
+
+    rng = np.random.default_rng(SEED)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+
+    d_np, V_np, b_np = config3_arrays(np, rng)
+    d, V, b = dev(d_np), dev(V_np), dev(b_np)
+    c = torch.tensor(1.0, device=device)
+
+    def cg_fn(d, c, V, b):
+        return xt.linalg.solve(xt.TridiagLowRankOperator(d, c, V), b, method="structured_cg",
+                               rtol=RTOL, atol=ATOL)
+
+    def thomas_fn(d, c, b):
+        return xt.linalg.solve(xt.TridiagLowRankOperator(d, c), b, method="structured_cg",
+                               rtol=RTOL, atol=ATOL)
+
+    # the flat layout the kernels take, for the plain versions
+    ones = torch.ones((BATCH, N), dtype=torch.float32, device=device)
+    lower, upper = ones.clone(), ones.clone()
+    lower[:, 0] = 0.0
+    upper[:, -1] = 0.0
+    max_niter = min(2 * N, 400)
+    cg_flat = (d, lower[:, None], upper[:, None], V.transpose(1, 2).contiguous(), b[..., 0],
+               (1,))
+    th_flat = (lower, d, upper, b[..., 0].contiguous(), float(torch.finfo(torch.float32).tiny))
+
+    def cg_plain():
+        return structured_cg_plain(*cg_flat, rtol=RTOL, atol=ATOL, max_niter=max_niter)[0]
+
+    def th_plain():
+        return thomas_plain(*th_flat)
+
+    routes = (("structured_cg", cg_fn, (d, c, V, b), structured_cg_cuda,
+               "structured_cg_reg_kernel", cg_plain, "xitorch_tpu/ops/structured_cg.py:58"),
+              ("thomas", thomas_fn, (d, c, b), thomas_cuda, "thomas_kernel", th_plain,
+               "xitorch_tpu/ops/tridiag.py:38"))
+    rows, records = {}, []
+    for name, fn, args, kernel, part, plain, replaces in routes:
+        t0 = time.perf_counter()
+        blob = serving.export_bytes(fn, args)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = serving.import_bytes(blob)
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled = serving.aot_compile(fn, args)
+        aot_s = time.perf_counter() - t0
+        eager = fn(*args)
+        # the main path: one served call
+        kernel.launches = 0
+        x = served(*args)
+        torch.cuda.synchronize()
+        n_served = kernel.launches
+        x_aot = compiled(*args)
+        Aop = xt.TridiagLowRankOperator(d, c, V if name == "structured_cg" else None)
+        resid = float(torch.linalg.norm(Aop.mm(x) - b, dim=-2).max())
+        rel = float(torch.linalg.norm(x - eager) / torch.linalg.norm(eager))
+        rel_aot = float(torch.linalg.norm(x_aot - eager) / torch.linalg.norm(eager))
+        x_plain = plain()
+        abs_err = float((x[..., 0] - x_plain).abs().max())
+        per_call = launches_by_name(torch, lambda: served(*args), part)
+        print("serving %s (%d x %d%s, float32) [%s]: blob %d bytes, export %.2f s, import "
+              "%.2f s, aot_compile %.2f s; served x vs eager rel %.2e, aot_compile's %.2e; "
+              "measured max |Ax-b| %.3e (gate %.0e); %s launches: %d in the served call "
+              "(counter), %s a call (the profiler's events); served vs plain max abs %.3e"
+              % (name, BATCH, N, ", rank %d" % RANK if name == "structured_cg" else ", V None",
+                 card, len(blob), export_s, import_s, aot_s, rel, rel_aot, resid, RESID_GATE,
+                 name, n_served, "not measured (every trace lost some)" if per_call is None
+                 else "%d" % per_call,
+                 abs_err))
+        check(bool(torch.isfinite(x).all()) and tuple(x.shape) == (BATCH, N, 1),
+              "serving %s: bad solution" % name)
+        check(rel <= 1e-6 and rel_aot <= 1e-6, "serving %s: served x off eager by %.3e "
+              "(aot_compile %.3e)" % (name, rel, rel_aot))
+        check(resid < RESID_GATE, "serving %s: residual %.3e above the gate" % (name, resid))
+        check(n_served == 1, "serving %s: the served call launched the kernel %d times"
+              % (name, n_served))
+        check(per_call is None or per_call == 1, "serving %s: the profiler saw %s launches "
+              "a served call" % (name, per_call))
+        check(abs_err <= 1e-4 * float(x_plain.abs().max()),
+              "serving %s: the served kernel disagrees with its plain version by %.3e"
+              % (name, abs_err))
+        eager_ms = timed_ms(torch, lambda: fn(*args))
+        served_ms = timed_ms(torch, lambda: served(*args))
+        aot_ms = timed_ms(torch, lambda: compiled(*args))
+        eager_busy = device_busy_ms(torch, lambda: fn(*args), expect=(part,))
+        served_busy = device_busy_ms(torch, lambda: served(*args), expect=(part,))
+        aot_busy = device_busy_ms(torch, lambda: compiled(*args), expect=(part,))
+        plain_ms = timed_ms(torch, plain, reps=3, inner=1)
+        # the kernel's time at the served call's inputs: launched alone, so
+        # that where the profiler loses its events the CUDA events that stand
+        # in time the launch and not the served call's host work
+        if name == "structured_cg":
+            k_ms = kernel_device_ms(torch, lambda: structured_cg_cuda(
+                *cg_flat, rtol=RTOL, atol=ATOL, max_niter=max_niter), part)
+        else:
+            k_ms = kernel_device_ms(torch, lambda: thomas_cuda(*th_flat), part)
+        if name == "structured_cg":
+            it = structured_cg_cuda(*cg_flat, rtol=RTOL, atol=ATOL, max_niter=max_niter)[1]
+            k_bound, k_by = bound((3 + 2 + RANK) * BATCH * N * 4,
+                                  float(it.sum()) * N * (1 + 4 + 4 * RANK + 12))
+            dense = Aop.fullmatrix()
+            lib_ms = timed_ms(torch, lambda: torch.cholesky_solve(
+                b, torch.linalg.cholesky(dense)), reps=3, inner=1)
+        else:
+            k_bound, k_by = bound(5 * N * BATCH * 4, 8.0 * N * BATCH)
+            dense = Aop.fullmatrix()
+            lib_ms = timed_ms(torch, lambda: torch.linalg.solve(dense, b), reps=3, inner=1)
+        del dense
+        print("  %s: served %.3f ms a call (%s), aot_compile's module %.3f ms (%s), eager "
+              "%.3f ms (%s); %.1f solves/s served, %.1f eager; the kernel %.4f ms device at "
+              "these inputs, plain %.3f ms, bound %.4f ms (%s), library %.3f ms [%s]"
+              % (name, served_ms, busy_text(served_busy, served_ms), aot_ms,
+                 busy_text(aot_busy, aot_ms), eager_ms, busy_text(eager_busy, eager_ms),
+                 BATCH / served_ms * 1e3, BATCH / eager_ms * 1e3, k_ms, plain_ms, k_bound,
+                 k_by, lib_ms, card))
+        rows[name] = {"blob_bytes": len(blob), "export_s": export_s, "import_s": import_s,
+                      "aot_compile_s": aot_s, "served_rel_to_eager": rel,
+                      "aot_rel_to_eager": rel_aot, "resid": resid,
+                      "served_ms": served_ms, "aot_ms": aot_ms, "eager_ms": eager_ms,
+                      "served_idle_share": idle_share(served_busy, served_ms),
+                      "aot_idle_share": idle_share(aot_busy, aot_ms),
+                      "eager_idle_share": idle_share(eager_busy, eager_ms),
+                      "launches_served_call": n_served, "launches_by_profiler": per_call}
+        records.append({"name": name, "path": "serving: config 3's %s, exported and served, "
+                        "%d x %d" % ("forward" if name == "structured_cg" else "V = None route",
+                                     BATCH, N),
+                        "route": "cuda", "source": "xitorch_tpu_torch/csrc/%s.cu"
+                        % ("structured_cg" if name == "structured_cg" else "tridiag"),
+                        "replaces": replaces, "launches": n_served, "max_abs_err": abs_err,
+                        "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
+                        "bound_by": k_by, "library_ms": lib_ms})
+    # the eager checks of this phase's solves were queued: none warns
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xt.linalg.flush_convergence_warnings()
+    check(not any(issubclass(w.category, ConvergenceWarning) for w in caught),
+          "serving: an eager structured_cg solve did not converge")
+
+    def cg_route(d, c, V, b):
+        return xt.linalg.solve(xt.TridiagLowRankOperator(d, c, V), b, method="cg",
+                               rtol=RTOL, atol=ATOL)
+
+    try:
+        serving.export_bytes(cg_route, (d, c, V, b))
+        msg = None
+    except RuntimeError as err:
+        msg = str(err)
+    print("serving cg: %s" % (msg.splitlines()[0] if msg else "exported (not expected)"))
+    check(msg is not None and msg.startswith("serving: cg (") and "stop flag" in msg,
+          "serving: a cg export did not raise the error that names cg")
+    print(json.dumps({"phase": "serving", "card": card, "rows": rows}))
+    return records
+
+
+def deflate_phase(torch, np, xt, device, card):
+    """``jacobi_eigh(deflate=True)`` on config 2's recipe
+    (``benchmarks/bench_symeig.py:39,243-259``: 64 SPD ``a a^T + 2 I``,
+    n = 256, float32): config 2's float32 gates against float64 numpy, no
+    warning, each matrix's finisher sweeps and the guard's fall-backs, the
+    launches of one call (the DC kernel once, the sweep kernel three times:
+    stage-1 windows, stage-2 windows, the finisher), and the call timed
+    beside the cold and the warm call with the device's idle share.  Then
+    each kernel at this path's shapes against its plain version: the sweep
+    kernel on the panels of that call (the stage-1 windows with their
+    pass-through rows held at their own slots, the stage-2 windows, the
+    finisher's panel), the DC kernel with ``return_t``, ``return_seg`` and
+    ``refine=1`` at two levels, level by level.  Returns the kernels' records
+    for the JSON line."""
+    import warnings
+
+    from xitorch_tpu_torch.ops import _finisher_lab as lab
+    from xitorch_tpu_torch.ops import jacobi_eigh as jmod
+    from xitorch_tpu_torch.ops.dc_kernel import (
+        _PRODUCTS_PER_LEVEL, dc_precondition_cuda, dc_precondition_plain,
+    )
+    from xitorch_tpu_torch.ops.jacobi_eigh import (
+        jacobi_eigh, jacobi_sweep_cuda, jacobi_sweep_plain,
+    )
+
+    _, mats, mats_np, _, _ = config2_batch(torch, np, device)
+    e_all = np.linalg.eigvalsh(mats_np)
+    scale = np.abs(e_all).max(-1, keepdims=True)
+    anorm = np.linalg.norm(mats_np, axis=(1, 2))[:, None]
+
+    def quality(lam, V):
+        lam, V = lam.double().cpu().numpy(), V.double().cpu().numpy()
+        err = float(np.max(np.abs(lam - e_all) / scale))
+        colres = float((np.linalg.norm(mats_np @ V - V * lam[:, None, :], axis=1)
+                        / anorm).max())
+        orth = float(np.abs(V.transpose(0, 2, 1) @ V - np.eye(V.shape[-1])).max())
+        return err, colres, orth
+
+    # ---- the main path: one call, its launches and the sweep panels it made ----
+    # the panels each sweep of the call is given, recorded at the sweep's
+    # dispatcher (the windows' in ops/_finisher_lab.py, the finisher's in
+    # ops/jacobi_eigh.py); the wrappers and their counters are untouched
+    panels = []
+    sweep = jmod.jacobi_sweep
+
+    def recording(panel, *a, **k):
+        panels.append(panel.contiguous().clone())
+        return sweep(panel, *a, **k)
+
+    dc_precondition_cuda.launches = jacobi_sweep_cuda.launches = 0
+    jmod.jacobi_sweep = lab.jacobi_sweep = recording
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            lam, V, info = jacobi_eigh(mats, deflate=True, return_info=True)
+            torch.cuda.synchronize()
+    finally:
+        jmod.jacobi_sweep = lab.jacobi_sweep = sweep
+    n_dc, n_sw = dc_precondition_cuda.launches, jacobi_sweep_cuda.launches
+    q = quality(lam, V)
+    sweeps, bad = info["sweeps"].cpu(), info["guard_bad"].cpu()
+    converged = bool((sweeps < 18).all())
+    shapes = [tuple(p.shape) for p in panels]
+    print("deflate, config 2 (%d x %d^2, float32) [%s]: evals rel err %.2e, residual/|A| "
+          "%.2e, |X^T X - I|_max %.2e; converged %d (every finisher left on its gauge); "
+          "launches: dc kernel %d, sweep kernel %d at %s; finisher sweeps per matrix %s "
+          "(mean %.2f); guard fall-backs %d of %d %s; warnings %s"
+          % (B2, N2, card, q[0], q[1], q[2], converged, n_dc, n_sw, shapes, sweeps.tolist(),
+             float(sweeps.float().mean()), int(bad.sum()), B2,
+             torch.nonzero(bad)[:, 0].tolist(), [w.category.__name__ for w in caught]))
+    check(q[0] <= 1e-5 and q[1] < 2e-5 and q[2] < 5e-5, "deflate: outside the gates: %s"
+          % (q,))
+    check(converged, "deflate: a finisher ran to max_sweeps")
+    check(not caught, "deflate warned: %s" % [str(w.message) for w in caught])
+    # the windows of ops/_finisher_lab.py::deflated_panel at two levels
+    w1 = min(N2, max(32, -(-3 * N2 // (2 * 4 * 16)) * 16))
+    want = [(4 * B2, w1, w1), (3 * B2, 32, 32), (B2, N2, N2)]
+    check(n_dc == 1 and n_sw == 3 and shapes == want,
+          "deflate: launches dc %d, sweep %d at %s; expected 1 and 3 at %s"
+          % (n_dc, n_sw, shapes, want))
+
+    # ---- timing: deflate against the cold and the warm call ----
+    calls = {"deflate": lambda: jacobi_eigh(mats, deflate=True),
+             "cold": lambda: jacobi_eigh(mats),
+             "warm": lambda: jacobi_eigh(mats, precondition=True)}
+    timing = {}
+    for name, fn in calls.items():
+        ms = timed_ms(torch, fn, reps=3, inner=3 if name == "cold" else 1)
+        busy = device_busy_ms(torch, fn, calls=3, expect=("jacobi_sweep",))
+        timing[name] = {"ms": ms, "decomps_per_s": B2 / ms * 1e3, "busy_ms": busy,
+                        "idle_share": idle_share(busy, ms)}
+        print("  jacobi_eigh %s: %.3f ms a call, %.1f decomps/s, %s [%s]"
+              % (name, ms, B2 / ms * 1e3, busy_text(busy, ms), card))
+
+    # ---- the sweep kernel at this path's shapes against its plain version ----
+    records = []
+    stages = ("stage-1 windows", "stage-2 windows", "the finisher")
+    for stage, P in zip(stages, panels):
+        BB, w, _ = P.shape
+        tol = float(torch.finfo(torch.float32).eps) * 4.0 * math.sqrt(w)
+        Gk, sk, gk, rk = jacobi_sweep_cuda(P, 18, tol, return_stats=True)
+        cluster = jacobi_sweep_cuda.last_cluster
+        Gp, sp = jacobi_sweep_plain(P, 18, tol)
+        # the row norms at convergence: P's singular values (the finisher's
+        # panel is R^T A_shift, not symmetric)
+        spectrum = torch.linalg.svdvals(P.double()).flip(-1)
+        err = sweep_checks(torch, "jacobi_sweep (%d, %d, %d), deflate's %s" % (BB, w, w, stage),
+                           P, Gk, Gp, sk, sp, gk, tol, spectrum, cluster=cluster)
+        # pass-through rows (no coupling): never rotated, so exactly the
+        # input's row at its own slot, in the kernel's order and in the plain
+        # version's after the restore of the tournament order
+        off = P - torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+        passing = (off == 0).all(-1)
+        table = torch.as_tensor(lab._restore_perm_table(w, 18), device=device)
+        Gp_in_order = torch.take_along_dim(Gp, table[sp.long()].long()[:, :, None], dim=1)
+        held = bool(torch.equal(Gk[passing], P[passing])) \
+            and bool(torch.equal(Gp_in_order[passing], P[passing]))
+        print("  %s: %d pass-through rows, at their own slots exactly: %s"
+              % (stage, int(passing.sum()), held))
+        check(held, "deflate %s: a pass-through row moved or changed" % stage)
+        if stage == "stage-1 windows":
+            check(int(passing.sum()) > 0, "deflate: the stage-1 windows held no "
+                  "pass-through row")
+        k_ms = timed_ms(torch, lambda: jacobi_sweep_cuda(P, 18, tol), reps=3, inner=3)
+        plain_ms = timed_ms(torch, lambda: jacobi_sweep_plain(P, 18, tol), reps=1, inner=1)
+        lib_ms = timed_ms(torch, lambda: torch.linalg.eigh(P), reps=3, inner=1)
+        k_bound, k_by = sweep_bound(BB, w, sk, rk)
+        print("  jacobi_sweep at deflate's %s (%d x %d^2): %.4f ms (events), plain %.3f ms, "
+              "bound %.4f ms (%s), torch.linalg.eigh %.3f ms [%s]"
+              % (stage, BB, w, k_ms, plain_ms, k_bound, k_by, lib_ms, card))
+        records.append({"name": "jacobi_sweep", "path": "deflate: %s, %d x %d^2"
+                        % (stage, BB, w), "route": "cuda",
+                        "source": "xitorch_tpu_torch/csrc/jacobi_sweep.cu",
+                        "replaces": "xitorch_tpu/ops/jacobi_eigh.py:308",
+                        "launches": shapes.count(tuple(P.shape)), "max_abs_err": err,
+                        "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
+                        "bound_by": k_by, "library_ms": lib_ms, "cluster": cluster})
+
+    # ---- the DC kernel with return_t, return_seg and refine=1, two levels ----
+    a_shift = jmod._shift_pad(mats, N2).contiguous()
+    dc_kw = dict(levels=2, min_seg=2, return_t=True, return_seg=True, refine=1)
+    (gk, tk, segk), dc_abs, level_rows = dc_level_by_level(torch, a_shift, 2, 2, refine=1)
+    print("deflate's dc kernel (%d x %d^2, 2 levels, return_t, return_seg, refine 1) level "
+          "by level against plain [%s]:" % (B2, N2, card))
+    for row in level_rows:
+        print(row)
+    flops = 0.0
+    for lv in range(2):
+        s_ = torch.zeros_like(a_shift[..., :1], dtype=torch.int32) if lv == 0 else \
+            dc_precondition_cuda(a_shift, **dict(dc_kw, levels=lv))[2]
+        m = (s_ == s_.mT).sum(-1).double()
+        # 71 block-diagonal products and 7 more a refinement pass (P Q and
+        # three cubic polar steps), 2 m^3 a segment of m rows; the tail's 3
+        flops += float(2.0 * (_PRODUCTS_PER_LEVEL - 3 + 7) * (m * m).sum()
+                       + 6.0 * N2 * m.sum())
+    k_bound, k_by = bound((3 * B2 * N2 * N2 + N2 * N2) * 4 + B2 * N2 * 4, flops)
+    # every kernel of the call is the DC kernel's sequence
+    k_ms = sum(device_ms_by_name(torch, lambda: dc_precondition_cuda(a_shift, **dc_kw),
+                                 calls=3).values())
+    plain_ms = timed_ms(torch, lambda: dc_precondition_plain(a_shift, **dc_kw), reps=3,
+                        inner=1)
+    print("  dc kernel %.3f ms device, plain %.3f ms, bound %.4f ms (%s, %.4f TFLOP on the "
+          "run's segments) [%s]" % (k_ms, plain_ms, k_bound, k_by, flops / 1e12, card))
+    records.append({"name": "dc_precondition", "path": "deflate: %d x %d^2, 2 levels, "
+                    "return_t, return_seg, refine 1" % (B2, N2), "route": "cuda",
+                    "source": "xitorch_tpu_torch/csrc/dc_kernel.cu",
+                    "replaces": "xitorch_tpu/ops/dc_kernel.py:72", "launches": n_dc,
+                    "max_abs_err": dc_abs, "ms": k_ms, "plain_ms": plain_ms,
+                    "bound_ms": k_bound, "bound_by": k_by, "library_ms": None})
+    print(json.dumps({"phase": "deflate", "card": card, "gates": list(q),
+                      "converged": converged, "launches": {"dc": n_dc, "sweep": n_sw},
+                      "sweep_shapes": shapes, "finisher_sweeps": sweeps.tolist(),
+                      "guard_fall_backs": int(bad.sum()), "timing": timing}))
+    return records
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3897,7 +4295,8 @@ def main(argv=None) -> int:
     parser.add_argument("--gate-sizes", default=None,
                         help="comma-separated n: only measure the sweep gate's table there")
     parser.add_argument("--only", choices=("solve", "dc", "dc_level", "sweep", "complex",
-                                           "models", "integrate", "interpolate"),
+                                           "models", "integrate", "interpolate", "serving",
+                                           "deflate"),
                         default=None,
                         help="solve: build, then run only config 3's phase (config3, "
                              "rows 1 and 2); dc: only config 2's warm start phase "
@@ -3909,7 +4308,10 @@ def main(argv=None) -> int:
                              "(config5, row 3 at the SCF's panel) and the DEQ model "
                              "(deq_phase); integrate: only config 4 (config4) and quad/"
                              "mcquad (quad_mcquad); interpolate: only Interp1D and SQuad "
-                             "(interp_squad, row 2 at the spline's system); development "
+                             "(interp_squad, row 2 at the spline's system); serving: only "
+                             "config 3 exported and served (serving_phase, rows 1 and 2); "
+                             "deflate: only jacobi_eigh(deflate=True) on config 2's batch "
+                             "(deflate_phase, rows 3 and 4 at its shapes); development "
                              "switches")
     args = parser.parse_args(argv)
 
@@ -3992,6 +4394,16 @@ def main(argv=None) -> int:
         return 0
     if args.only == "interpolate":
         print(json.dumps({"kernels": [interp_squad(torch, np, xt, device, card)]}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "serving":
+        print(json.dumps({"kernels": serving_phase(torch, np, xt, device, card)}))
+        print("total: %.1f s" % (time.perf_counter() - t_start))
+        print_device(torch)
+        return 0
+    if args.only == "deflate":
+        print(json.dumps({"kernels": deflate_phase(torch, np, xt, device, card)}))
         print("total: %.1f s" % (time.perf_counter() - t_start))
         print_device(torch)
         return 0
@@ -4088,10 +4500,18 @@ def main(argv=None) -> int:
     interp_record = interp_squad(torch, np, xt, device, card)
     lap("interpolate and SQuad")
 
+    # ---- 19. serving: config 3 exported, imported and served ----
+    serving_records = serving_phase(torch, np, xt, device, card)
+    lap("serving")
+
+    # ---- 20. jacobi_eigh(deflate=True): rows 3 and 4 at its shapes ----
+    deflate_records = deflate_phase(torch, np, xt, device, card)
+    lap("deflate")
+
     print(json.dumps({"kernels": [
         *config3_records,
         jacobi_record, dc_record, complex_record, fused_record, level_record, scf_record,
-        interp_record,
+        interp_record, *serving_records, *deflate_records,
     ]}))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print_device(torch)

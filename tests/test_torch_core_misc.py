@@ -370,3 +370,43 @@ def test_linop_capability_flags_and_scipy_bridge():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert isinstance(op.matvec(v), np.ndarray)
+
+
+# ------------------------- the small gaps -------------------------
+
+def test_dummy_context_manager_matches_jax():
+    from xitorch_tpu.utils.misc import dummy_context_manager as jdummy
+    from xitorch_tpu_torch.utils.misc import dummy_context_manager
+
+    for cm in (dummy_context_manager(), jdummy()):
+        with cm as got:
+            assert got is None
+        assert cm.__exit__(ValueError, ValueError("x"), None) is None  # does not swallow
+
+
+@pytest.mark.parametrize("name, ignore", [
+    ("solve", ("E", "M")), ("symeig", ("M",)), ("svd", ()),
+])
+def test_method_tables_of_the_linalg_docstrings(name, ignore):
+    """Every method of the JAX package's table in the docstring of
+    linalg.solve / symeig / svd is in the port's, and the keywords a table
+    leaves out stay out."""
+    import re
+
+    import xitorch_tpu.linalg as jl
+    import xitorch_tpu_torch.linalg as tl
+
+    def methods(doc):
+        return set(re.findall(r'^\s*method="([a-z_0-9]+)"$', doc, re.M))
+
+    want = methods(getattr(jl, name).__doc__)
+    got = methods(getattr(tl, name).__doc__)
+    assert want and want <= got, want - got
+    tables = getattr(tl, name).__doc__.split('method="', 1)[1]
+    for kw in ignore:
+        assert not re.search(r"\(\.\.\., [^)]*\b%s=" % kw, tables)
+
+
+def test_parallel_is_a_top_level_attribute():
+    assert xt.parallel.make_mesh is xt.parallel.sharding.make_mesh
+    assert hasattr(xj, "parallel")

@@ -1015,3 +1015,122 @@ def test_squad_on_card_within_its_gate(cuda):
     ref = CubicSpline(x, y[:16].T, bc_type="natural").integrate(x[0], x[-1])
     err = float(np.abs(out[:16].double().cpu().numpy() - ref).max())
     assert err <= 2e-4 * max(1.0, float(np.abs(ref).max()))
+
+
+def _op_cases_on(device):
+    """Small inputs of the seven kernel operators on ``device``."""
+    from xitorch_tpu_torch.ops import spectral_dc
+
+    g = torch.Generator().manual_seed(0)
+    K, n = 3, 64
+    dl, d, du, b = (torch.randn(K, n, generator=g) for _ in range(4))
+    d = d.abs() + 4.0
+    bl, bu = torch.randn(K, 1, n, generator=g), torch.randn(K, 1, n, generator=g)
+    bl[..., :1] = 0.0
+    bu[..., -1:] = 0.0
+    V = torch.randn(K, 2, n, generator=g) / 8
+    a = torch.randn(2, 64, 64, generator=g)
+    a = a @ a.mT / 64 + 2.0 * torch.eye(64)
+    om = spectral_dc.as_probe(None, 64, torch.float32, "cpu")
+    seg = torch.zeros(2, 64, 1, dtype=torch.int32)
+    cases = {
+        "thomas": (dl, d, du, b, 1e-30),
+        "structured_cg": (d, bl, bu, V, b, [1], 1e-6, 1e-8, 128, 1e-30),
+        "jacobi_sweep": (a, 18, 1e-5),
+        "jacobi_sweep_complex": (torch.cat([a, 0.1 * a], -1), 18, 1e-5),
+        "dc_precondition": (a, om, 2, 2, True, True, 1),
+        "dc_level": (seg, 0.5 * (a + a.mT), a, om, 2),
+        "fused_cg": (a, torch.tensor([1, 0, 1]), torch.randn(3, 64, 2, generator=g),
+                     1e-6, 1e-8, 96, 1e-12),
+    }
+    return {k: tuple(v.to(device) if torch.is_tensor(v) else v for v in args)
+            for k, args in cases.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["thomas", "structured_cg", "jacobi_sweep",
+                                  "jacobi_sweep_complex", "dc_precondition", "dc_level",
+                                  "fused_cg"])
+def test_kernel_operators_pass_opcheck_on_the_card(cuda, name):
+    """Each operator's CUDA implementation (the launcher) against its fake:
+    shapes, types, no aliasing, and a launch per call."""
+    op = getattr(torch.ops.xitorch_tpu_torch, name)
+    result = torch.library.opcheck(op, _op_cases_on(cuda)[name])
+    assert set(result.values()) == {"SUCCESS"}, result
+    out = op(*_op_cases_on(cuda)[name])
+    assert all(t.is_cuda for t in (out if isinstance(out, tuple) else (out,)))
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_at_the_deflated_paths_window_shapes(cuda):
+    """The real sweep kernel on the deflated path's windows at config 2
+    (stage 1: 256 x 96^2 with pass-through slots; stage 2: 192 x 32^2)
+    against its plain version: gauge, G-invariant, sorted row norms, sweeps
+    within one; pass-through rows exactly at their own slots, in the
+    kernel's order and in the plain version's after the restore."""
+    from xitorch_tpu_torch.ops import _finisher_lab as lab
+
+    rng = np.random.default_rng(3)
+    for BB, w, masked in ((256, 96, True), (192, 32, False)):
+        q, _ = np.linalg.qr(rng.standard_normal((BB, w, w)))
+        blocks = (q * rng.uniform(1.0, 4.0, (BB, 1, w))) @ q.transpose(0, 2, 1)
+        valid = np.ones((BB, w), bool)
+        if masked:
+            for i in range(BB):
+                lo = rng.integers(0, w // 2)
+                valid[i, :lo] = False
+                valid[i, lo + w // 2:] = False
+        vv = valid[:, :, None] & valid[:, None, :]
+        blocks = np.where(vv, blocks, 0.0) + np.einsum(
+            "bi,ij->bij", np.where(valid, 0.0, 1.0 + np.arange(w)), np.eye(w))
+        P = torch.tensor(blocks + 0.5 * np.eye(w), dtype=torch.float32, device=cuda)
+        tol = float(torch.finfo(torch.float32).eps) * 4.0 * np.sqrt(w)
+        Gk, sk = jacobi_sweep_cuda(P, 18, tol)
+        Gp, sp = jacobi_sweep_plain(P, 18, tol)
+        tol2 = tol * tol
+        assert float(_max_cos2(Gk).max()) <= tol2 and float(_max_cos2(Gp).max()) <= tol2
+        ref = P.double().mT @ P.double()
+        inv = torch.linalg.norm(Gk.double().mT @ Gk.double() - ref) / torch.linalg.norm(ref)
+        assert float(inv) <= 1e-5
+        nk, npl = (torch.sort(torch.linalg.norm(G.double(), dim=-1), -1).values
+                   for G in (Gk, Gp))
+        assert float((nk - npl).abs().max() / npl.max()) <= 1e-5
+        assert int((sk - sp).abs().max()) <= 1
+        passing = torch.tensor(~valid, device=cuda)
+        table = torch.as_tensor(lab._restore_perm_table(w, 18), device=cuda)
+        Gp_in_order = torch.take_along_dim(Gp, table[sp.long()].long()[:, :, None], dim=1)
+        assert torch.equal(Gk[passing], P[passing])
+        assert torch.equal(Gp_in_order[passing], P[passing])
+
+
+@pytest.mark.cuda
+def test_dc_kernel_with_the_deflated_paths_exports(cuda):
+    """The DC kernel at two levels with return_t, return_seg and refine=1
+    (the deflated path's arguments) at 64 x 256^2 against its plain version
+    one level at a time from the kernel's own state (the level-by-level
+    check of chip_smoke.py)."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((64, 256, 256)) / 16.0
+    mats = torch.tensor(a @ a.transpose(0, 2, 1) + 2.0 * np.eye(256), dtype=torch.float32,
+                        device=cuda)
+    panel = smoke.shifted_panel(torch, mats)
+    (g, t, seg), max_abs, _ = smoke.dc_level_by_level(torch, panel, 2, 2, refine=1)
+    assert g.shape == t.shape == panel.shape and seg.shape == (64, 256, 1)
+    assert np.isfinite(max_abs)
+
+
+@pytest.mark.cuda
+def test_deflated_jacobi_eigh_on_card_launches_dc_once_and_the_sweep_three_times(cuda):
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((8, 256, 256)) / 16.0
+    mats = torch.tensor(a @ a.transpose(0, 2, 1) + 2.0 * np.eye(256), dtype=torch.float32,
+                        device=cuda)
+    dc_precondition_cuda.launches = jacobi_sweep_cuda.launches = 0
+    lam, V = jacobi_eigh(mats, deflate=True)
+    torch.cuda.synchronize()
+    assert dc_precondition_cuda.launches == 1 and jacobi_sweep_cuda.launches == 3
+    lam0 = np.linalg.eigvalsh(mats.double().cpu().numpy())
+    assert np.abs(lam.double().cpu().numpy() - lam0).max() / np.abs(lam0).max() <= 1e-5
+    Vd = V.double()
+    assert float((Vd.mT @ Vd - torch.eye(256, dtype=Vd.dtype, device=cuda)).abs().max()) < 5e-5

@@ -160,7 +160,8 @@ def test_deq_matches_jax():
 
 def test_deq_train_step_with_torch_optim():
     """train_step takes a torch.optim optimizer: Adam lowers the loss step
-    by step on a fixed batch; shard=True raises (one card, no mesh)."""
+    by step on a fixed batch; shard=True gives shard=False's result (one
+    device: the layout constraint is the identity)."""
     _, x, y = _deq_case()
     params = init_deq(torch.Generator().manual_seed(0), 4, 16, 2, F64, device="cpu")
     assert all(p.is_leaf and p.requires_grad for p in params)
@@ -170,8 +171,9 @@ def test_deq_train_step_with_torch_optim():
         params, loss = train_step(params, opt, torch.tensor(x), torch.tensor(y))
         losses.append(float(loss))
     assert all(b < a for a, b in zip(losses, losses[1:])), losses
-    with pytest.raises(RuntimeError, match="mesh"):
-        deq_forward(params, torch.tensor(x), shard=True)
+    with torch.no_grad():
+        sharded = deq_forward(params, torch.tensor(x), shard=True)
+        assert torch.equal(sharded, deq_forward(params, torch.tensor(x)))
 
 
 def test_model_inits_go_to_the_card_unless_told():

@@ -135,7 +135,9 @@ def test_port_imports_no_jax():
             "xitorch_tpu_torch._core.pure, xitorch_tpu_torch.utils.types, "
             "xitorch_tpu_torch.utils.attr, xitorch_tpu_torch.utils.decorators, "
             "xitorch_tpu_torch.utils.tupleops, xitorch_tpu_torch.debug.profiling, "
-            "xitorch_tpu_torch.debug.__main__; "
+            "xitorch_tpu_torch.debug.__main__, xitorch_tpu_torch.serving, "
+            "xitorch_tpu_torch.parallel, xitorch_tpu_torch.parallel.sharding, "
+            "xitorch_tpu_torch.ops._finisher_lab; "
             "print(any(m.split('.')[0] in ('jax', 'jaxlib', 'xitorch_tpu') "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -6,7 +6,7 @@ JAX package's Pallas TPU kernels rewritten by hand in CUDA C++ for Hopper
 gradients flow through solver solutions by implicit differentiation, not
 through iterations.
 
-Ported so far (see ROADMAP.md for the rest):
+The surface:
 
 * ``LinearOperator``, ``MatrixLinearOperator``, ``checklinop``
 * ``TridiagLowRankOperator``, ``BandedLowRankOperator``, ``KronOperator``,
@@ -69,5 +69,5 @@ from xitorch_tpu_torch.version import __version__  # noqa: F401
 get_pure_function = make_pure
 
 from xitorch_tpu_torch import (  # noqa: F401,E402
-    linalg, ops, debug, utils, grad, optimize, integrate, interpolate, models,
+    linalg, ops, debug, utils, grad, optimize, integrate, interpolate, models, parallel,
 )

@@ -313,7 +313,8 @@ def solve(A: LinearOperator, B: torch.Tensor,
     :func:`solve` that finds the copy done, by
     :func:`flush_convergence_warnings`, or at the interpreter's exit.
     """
-    _report_pending(wait=False)
+    if not _tracing():
+        _report_pending(wait=False)
     if A.shape[-1] != A.shape[-2]:
         raise RuntimeError("The linear operator A must have a square shape")
     if A.shape[-1] != B.shape[-2]:
@@ -502,11 +503,20 @@ class _SolveFunction(torch.autograd.Function):
         return tuple(grads)
 
 
+def _tracing() -> bool:
+    """Whether a program is being traced (``torch.export``, ``torch.compile``):
+    its values are not known, so the eager checks are skipped, as the JAX
+    package skips them on tracers."""
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
 def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
     """Warn if the returned solution's measured residual is above 10x the
     tolerance (one extra matvec).  For structured_cg on CUDA tensors the
     verdict is queued (:func:`_report_pending`) instead of read, so the
-    call does not synchronise."""
+    call does not synchronise.  Skipped while a program is traced."""
+    if _tracing():
+        return
     rtol = fwd_options.get("rtol", 1e-6)
     atol = fwd_options.get("atol", 1e-8)
     with torch.no_grad():
@@ -572,7 +582,7 @@ atexit.register(flush_convergence_warnings)
 
 def _warn_nonconverged_eager(what: str, method, info) -> None:
     conv = info.get("converged", None)
-    if conv is None:
+    if conv is None or _tracing():
         return
     if float(conv) < 1.0:
         warnings.warn(ConvergenceWarning(
@@ -580,3 +590,9 @@ def _warn_nonconverged_eager(what: str, method, info) -> None:
             "(final residual %.3e, %.1fx the tolerance); the best iterate "
             "is returned" % (what, method, int(info["iterations"]),
                              float(info["resid"]), float(info["resid_rel"]))))
+
+
+# docstring completion: each method's options
+from xitorch_tpu_torch._docstr.api_docstr import get_methods_docstr  # noqa: E402
+
+solve.__doc__ = get_methods_docstr(solve, _SOLVE_METHODS, ignore_kwargs=["E", "M"])

@@ -466,3 +466,10 @@ def svd(A: LinearOperator, k: Optional[int] = None,
         v = eivecs
         u = A.mm(v) / sdiv
     return u, s, v.mH
+
+
+# docstring completion: each method's options
+from xitorch_tpu_torch._docstr.api_docstr import get_methods_docstr  # noqa: E402
+
+symeig.__doc__ = get_methods_docstr(symeig, _SYMEIG_METHODS, ignore_kwargs=["M"])
+svd.__doc__ = get_methods_docstr(svd, _SYMEIG_METHODS)

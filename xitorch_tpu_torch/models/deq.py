@@ -3,9 +3,11 @@
 A DEQ layer's forward pass IS ``xitorch_tpu_torch.optimize.equilibrium``:
 the hidden state solves z* = tanh(z W^T + x U^T + b), and training
 gradients flow through the *solution* by the implicit function theorem.
-The JAX package's ``shard=True`` lays the batch and hidden dims over a
-device mesh; one card has none, so here it raises.  Training takes a
-``torch.optim`` optimizer in place of optax.
+``shard=True`` constrains the state's layout with
+``parallel.with_batch_sharding``, as the JAX package constrains it over a
+device mesh; on one device that is the state itself, so the result is
+``shard=False``'s.  Training takes a ``torch.optim`` optimizer in place of
+optax.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from xitorch_tpu_torch.convert import _device
 from xitorch_tpu_torch.optimize import equilibrium
+from xitorch_tpu_torch.parallel import with_batch_sharding
 
 __all__ = ["DEQParams", "init_deq", "deq_forward", "deq_loss", "train_step"]
 
@@ -58,16 +61,19 @@ def deq_forward(params: DEQParams, x: torch.Tensor,
 
     x: (batch, d_in) -> (batch, d_out), on the device of ``x``.  Gradients
     w.r.t. params flow through the fixed point implicitly (the backward
-    keeps no solver iterations)."""
-    if shard:
-        raise RuntimeError("deq_forward(shard=True) lays the model over a device mesh; "
-                           "the port runs on one card and has none")
+    keeps no solver iterations).  ``shard`` constrains the state's layout
+    (``parallel.with_batch_sharding``; on one device, no change)."""
     cfg = {"method": "anderson_acc", "feat_ndims": 1, "msize": 6,
            "maxiter": 80, "f_tol": 1e-4, "x_tol": 1e-6}
     if solver_kwargs:
         cfg.update(solver_kwargs)
     z0 = torch.zeros((x.shape[0], params.W.shape[0]), dtype=x.dtype, device=x.device)
-    zstar = equilibrium(_cell, z0, params=(params.W, params.U, params.b, x), **cfg)
+
+    def f(z, W, U, b, x):
+        zn = _cell(z, W, U, b, x)
+        return with_batch_sharding(zn) if shard else zn
+
+    zstar = equilibrium(f, z0, params=(params.W, params.U, params.b, x), **cfg)
     return zstar @ params.Wout.T + params.bout
 
 

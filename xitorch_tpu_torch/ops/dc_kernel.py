@@ -40,7 +40,7 @@ import torch
 
 from xitorch_tpu_torch.ops import _build, dc_level
 from xitorch_tpu_torch.ops.spectral_dc import _QUINTIC, _RANK_SAFE_BETA, as_probe
-from xitorch_tpu_torch.ops.tridiag import use_kernel
+from xitorch_tpu_torch.ops.tridiag import check_device
 
 __all__ = ["dc_precondition", "dc_precondition_cuda", "dc_precondition_plain",
            "fits_dc_kernel"]
@@ -288,6 +288,43 @@ def dc_precondition_cuda(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
 dc_precondition_cuda.launches = 0
 
 
+def _three(a, out, return_t: bool, return_seg: bool):
+    """``(g, t, seg)`` from a call's outputs, an empty tensor in place of
+    each one not asked for."""
+    out = out if isinstance(out, tuple) else (out,)
+    t = out[1] if return_t else a.new_empty(0)
+    seg = out[-1] if return_seg else a.new_empty(0, dtype=torch.int32)
+    return out[0], t, seg
+
+
+@torch.library.custom_op("xitorch_tpu_torch::dc_precondition", mutates_args=(),
+                         device_types="cpu")
+def _dc_op(a: torch.Tensor, om: torch.Tensor, levels: int, min_seg: int, return_t: bool,
+           return_seg: bool, refine: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The single-shot warm start as an operator, ``(g, t, seg)``: the kernel
+    on CUDA tensors, the plain version on CPU tensors, so that
+    ``torch.export`` can trace through a launch.  An output not asked for
+    (``return_t``, ``return_seg``) is an empty tensor."""
+    kw = dict(levels=levels, min_seg=min_seg, return_t=return_t, return_seg=return_seg,
+              refine=refine, om=om)
+    return _three(a, dc_precondition_plain(a, **kw), return_t, return_seg)
+
+
+@_dc_op.register_kernel("cuda")
+def _(a, om, levels, min_seg, return_t, return_seg, refine):
+    kw = dict(levels=levels, min_seg=min_seg, return_t=return_t, return_seg=return_seg,
+              refine=refine, om=om)
+    return _three(a, dc_precondition_cuda(a, **kw), return_t, return_seg)
+
+
+@_dc_op.register_fake
+def _(a, om, levels, min_seg, return_t, return_seg, refine):
+    B, n, _ = a.shape
+    return (torch.empty_like(a), torch.empty_like(a) if return_t else a.new_empty(0),
+            a.new_empty((B, n, 1) if return_seg else (0,), dtype=torch.int32))
+
+
 def dc_precondition(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
                     per_level: Optional[bool] = None, return_t: bool = False,
                     return_seg: bool = False, refine: int = 0,
@@ -328,8 +365,8 @@ def dc_precondition(a: torch.Tensor, *, levels: int = 8, min_seg: int = 2,
                 % (dc_level._PER_LEVEL_MAX_N, n))
         return dc_level.dc_precondition_per_level(a, levels=levels, min_seg=min_seg,
                                                   om=om)
-    kw = dict(levels=levels, min_seg=min_seg, return_t=return_t,
-              return_seg=return_seg, refine=refine, om=om)
-    if use_kernel(a):
-        return dc_precondition_cuda(a.contiguous(), **kw)
-    return dc_precondition_plain(a, **kw)
+    check_device(a)
+    om = as_probe(om, n, a.dtype, a.device)
+    g, t, seg = _dc_op(a.contiguous(), om, int(levels), int(min_seg), bool(return_t),
+                       bool(return_seg), int(refine))
+    return _outputs(g, t, seg, return_t, return_seg)

@@ -52,7 +52,7 @@ import torch
 
 from xitorch_tpu_torch.ops import _build
 from xitorch_tpu_torch.ops.spectral_dc import _QUINTIC, as_probe
-from xitorch_tpu_torch.ops.tridiag import use_kernel
+from xitorch_tpu_torch.ops.tridiag import check_device
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["band_ranges", "dc_level_cuda", "dc_level_plain", "dc_precondition_per_level",
@@ -244,25 +244,6 @@ def dc_level_plain(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor,
     return seg.to(torch.int32)[..., None], Tn, Gn
 
 
-def _launch(seg_in, seg_out, om, t_in, t_out, g_in, g_out, work, ivec, fvec, min_seg):
-    B, n, _ = t_in.shape
-    lib = _build.load("dc_level", _SIGNATURES)
-    with torch.cuda.device(t_in.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dc_level_f32(seg_in.data_ptr(), seg_out.data_ptr(), om.data_ptr(),
-                              t_in.data_ptr(), t_out.data_ptr(), g_in.data_ptr(),
-                              g_out.data_ptr(), work.data_ptr(), ivec.data_ptr(),
-                              fvec.data_ptr(), B, n, int(min_seg), stream)
-    _build.check(rc, "dc_level_cuda")
-    dc_level_cuda.launches += 1
-
-
-def _workspace(B: int, n: int, device):
-    return (torch.empty((_WORK_PLANES, B, n, n), dtype=torch.float32, device=device),
-            torch.empty((B, _IVEC, n), dtype=torch.int32, device=device),
-            torch.empty((B, _FVEC, n), dtype=torch.float32, device=device))
-
-
 def _check_cuda(T: torch.Tensor, what: str, min_seg: int) -> None:
     if not T.is_cuda or T.dtype != torch.float32:
         raise RuntimeError("%s: expected float32 CUDA tensors" % what)
@@ -288,38 +269,60 @@ def dc_level_cuda(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor, om=None,
     t_in, g_in = T.contiguous(), G0.to(T.device).contiguous()
     seg_out = torch.empty_like(seg_in)
     t_out, g_out = torch.empty_like(t_in), torch.empty_like(g_in)
-    _launch(seg_in, seg_out, om, t_in, t_out, g_in, g_out, *_workspace(B, n, T.device),
-            min_seg)
+    work = torch.empty((_WORK_PLANES, B, n, n), dtype=torch.float32, device=T.device)
+    ivec = torch.empty((B, _IVEC, n), dtype=torch.int32, device=T.device)
+    fvec = torch.empty((B, _FVEC, n), dtype=torch.float32, device=T.device)
+    lib = _build.load("dc_level", _SIGNATURES)
+    with torch.cuda.device(T.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.dc_level_f32(seg_in.data_ptr(), seg_out.data_ptr(), om.data_ptr(),
+                              t_in.data_ptr(), t_out.data_ptr(), g_in.data_ptr(),
+                              g_out.data_ptr(), work.data_ptr(), ivec.data_ptr(),
+                              fvec.data_ptr(), B, n, int(min_seg), stream)
+    _build.check(rc, "dc_level_cuda")
+    dc_level_cuda.launches += 1
     return seg_out, t_out, g_out
 
 
 dc_level_cuda.launches = 0
 
 
+@torch.library.custom_op("xitorch_tpu_torch::dc_level", mutates_args=(),
+                         device_types="cpu")
+def _level_op(seg: torch.Tensor, T: torch.Tensor, G0: torch.Tensor, om: torch.Tensor,
+              min_seg: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One level as an operator, ``(seg, T, G0)`` to new ``(seg, T, G0)``:
+    :func:`dc_level_cuda` on CUDA tensors, :func:`dc_level_plain` on CPU
+    tensors, so that ``torch.export`` can trace through a launch."""
+    return dc_level_plain(seg, T, G0, om=om, min_seg=min_seg)
+
+
+@_level_op.register_kernel("cuda")
+def _(seg, T, G0, om, min_seg):
+    return dc_level_cuda(seg, T, G0, om=om, min_seg=min_seg)
+
+
+@_level_op.register_fake
+def _(seg, T, G0, om, min_seg):
+    B, n, _ = T.shape
+    return (T.new_empty((B, n, 1), dtype=torch.int32), torch.empty_like(T),
+            torch.empty_like(G0))
+
+
 def dc_precondition_per_level(a: torch.Tensor, *, levels: int, min_seg: int = 2,
                               om=None) -> torch.Tensor:
     """``G0 = Q^T a`` after ``levels`` levels from ``T = sym(a)``, ``G0 = a``,
-    ids 0, one level a launch: the kernel for a CUDA tensor (buffers
-    allocated once, one launch a level), the plain version for a CPU
-    tensor."""
+    ids 0, one level a call of the level operator: the kernel for a CUDA
+    tensor (one launch a level), the plain version for a CPU tensor."""
     if a.dim() != 3 or a.shape[-1] != a.shape[-2] or a.is_complex():
         raise RuntimeError("dc_precondition_per_level expects a real (B, n, n) batch, "
                            "got %s %s" % (a.dtype, tuple(a.shape)))
+    check_device(a)
     B, n, _ = a.shape
-    T = 0.5 * (a + a.mT)
+    om = as_probe(om, n, a.dtype, a.device)
+    T = (0.5 * (a + a.mT)).contiguous()
     seg = torch.zeros((B, n, 1), dtype=torch.int32, device=a.device)
-    if not use_kernel(a):
-        G = a
-        for _ in range(levels):
-            seg, T, G = dc_level_plain(seg, T, G, om=om, min_seg=min_seg)
-        return G
-    _check_cuda(a, "dc_precondition_per_level", min_seg)
-    om = as_probe(om, n, a.dtype, a.device).contiguous()
-    T = T.contiguous()
-    G, G_next = a.contiguous().clone(), torch.empty_like(T)
-    work = _workspace(B, n, a.device)
+    G = a.contiguous()
     for _ in range(levels):
-        # ids and T update in place; G0 alternates between two buffers
-        _launch(seg, seg, om, T, T, G, G_next, *work, min_seg)
-        G, G_next = G_next, G
+        seg, T, G = _level_op(seg, T, G, om, int(min_seg))
     return G

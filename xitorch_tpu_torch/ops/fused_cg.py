@@ -69,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from xitorch_tpu_torch.ops import _build
-from xitorch_tpu_torch.ops.tridiag import use_kernel
+from xitorch_tpu_torch.ops.tridiag import check_device
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["fused_cg_dense", "fused_cg_cuda", "fused_cg_plain", "fits_fused_cg",
@@ -346,6 +346,28 @@ def _active_clusters(lib, device, n: int, itemsize: int, d: CGDesign) -> int:
     return _ACTIVE_CLUSTERS[key]
 
 
+def _design(nb: int, n: int, nc: int, dtype, device, cluster: Optional[int] = None
+            ) -> Tuple[CGDesign, int]:
+    """The kernel's design on this CUDA device for nb systems of n with nc
+    columns (:func:`choose_design`, cached by shape) and the waves of
+    clusters the card runs it in (0 on the device-memory path)."""
+    lib = _build.load("fused_cg", _SIGNATURES)
+    itemsize = dtype.itemsize
+    with torch.cuda.device(device):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        key = (dev.index, nb, n, nc, dtype, cluster)
+        if key not in _DESIGNS:
+            sms, smem = _card_limits(dev)
+            d = choose_design(nb, n, nc, dtype, sms, smem,
+                              lambda dd: _active_clusters(lib, dev, n, itemsize, dd), cluster)
+            held = _active_clusters(lib, dev, n, itemsize, d) if d.cluster else 0
+            if d.cluster and held < 1:
+                raise RuntimeError("fused_cg_cuda: the card cannot schedule a cluster of %d "
+                                   "CTAs for %s" % (d.cluster, d))
+            _DESIGNS[key] = (d, -(-nb * d.groups(nc) // held) if d.cluster else 0)
+        return _DESIGNS[key]
+
+
 def fused_cg_cuda(A: torch.Tensor, a_idx: torch.Tensor, B: torch.Tensor, *,
                   rtol: float, atol: float, max_niter: int, eps: float = 1e-12,
                   cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -378,18 +400,7 @@ def fused_cg_cuda(A: torch.Tensor, a_idx: torch.Tensor, B: torch.Tensor, *,
     lib = _build.load("fused_cg", _SIGNATURES)
     x = torch.empty_like(B)
     with torch.cuda.device(B.device):
-        dev = torch.device("cuda", torch.cuda.current_device())
-        key = (dev.index, nb, n, nc, B.dtype, cluster)
-        if key not in _DESIGNS:
-            sms, smem = _card_limits(B.device)
-            d = choose_design(nb, n, nc, B.dtype, sms, smem,
-                              lambda dd: _active_clusters(lib, dev, n, itemsize, dd), cluster)
-            held = _active_clusters(lib, dev, n, itemsize, d) if d.cluster else 0
-            if d.cluster and held < 1:
-                raise RuntimeError("fused_cg_cuda: the card cannot schedule a cluster of %d "
-                                   "CTAs for %s" % (d.cluster, d))
-            _DESIGNS[key] = (d, -(-nb * d.groups(nc) // held) if d.cluster else 0)
-        d, waves = _DESIGNS[key]
+        d, waves = _design(nb, n, nc, B.dtype, B.device, cluster)
         fused_cg_cuda.last_design, fused_cg_cuda.last_waves = d, waves
         it = torch.empty((nb, d.groups(nc)), dtype=torch.int32, device=B.device)
         stream = torch.cuda.current_stream().cuda_stream
@@ -413,6 +424,35 @@ def fused_cg_cuda(A: torch.Tensor, a_idx: torch.Tensor, B: torch.Tensor, *,
 fused_cg_cuda.launches = 0
 fused_cg_cuda.last_design = None
 fused_cg_cuda.last_waves = None
+
+
+@torch.library.custom_op("xitorch_tpu_torch::fused_cg", mutates_args=(), device_types="cpu")
+def _fused_cg_op(A: torch.Tensor, a_idx: torch.Tensor, B: torch.Tensor, rtol: float,
+                 atol: float, max_niter: int, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense CG solve as an operator, ``(x, steps)``: :func:`fused_cg_cuda`
+    on CUDA tensors, :func:`fused_cg_plain` (one stop group a system) on CPU
+    tensors, so that ``torch.export`` can trace through a launch."""
+    return fused_cg_plain(A[a_idx], B, rtol=rtol, atol=atol, max_niter=max_niter, eps=eps)
+
+
+@_fused_cg_op.register_kernel("cuda")
+def _(A, a_idx, B, rtol, atol, max_niter, eps):
+    return fused_cg_cuda(A, a_idx, B, rtol=rtol, atol=atol, max_niter=max_niter, eps=eps)
+
+
+@_fused_cg_op.register_fake
+def _(A, a_idx, B, rtol, atol, max_niter, eps):
+    # the kernel's stop groups a system follow its design, chosen on the card
+    # for the shape (unknown while the shape is symbolic)
+    nb, n, nc = B.shape
+    if B.device.type == "cpu":
+        groups = 1
+    elif all(isinstance(v, int) for v in (nb, n, nc)):
+        groups = _design(nb, n, nc, B.dtype, B.device)[0].groups(nc)
+    else:
+        groups = torch.library.get_ctx().new_dynamic_size()
+    return torch.empty_like(B), B.new_empty((B.shape[0], groups), dtype=torch.int32)
 
 
 def fused_cg_dense(Amat: torch.Tensor, B: torch.Tensor, rtol: float = 1e-6,
@@ -441,10 +481,8 @@ def fused_cg_dense(Amat: torch.Tensor, B: torch.Tensor, rtol: float = 1e-6,
     # which matrix each system takes: A's batch dims broadcast against B's
     a_idx = torch.arange(nA, device=B.device).reshape(Amat.shape[:-2]) \
         .expand(batch).reshape(nb).contiguous()
-    kw = dict(rtol=rtol, atol=atol, max_niter=max_niter, eps=eps)
-    if use_kernel(B):
-        x, it = fused_cg_cuda(A3, a_idx, B3, **kw)
-    else:
-        x, it = fused_cg_plain(A3[a_idx], B3, **kw)
+    check_device(B)
+    x, it = _fused_cg_op(A3, a_idx, B3, float(rtol), float(atol), int(max_niter),
+                         float(eps))
     x = x.reshape(*batch, n, nc)
     return (x, it.reshape(*batch, -1)) if return_steps else x

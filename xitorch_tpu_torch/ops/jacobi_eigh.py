@@ -48,9 +48,10 @@ sort (``ops/dc_kernel.py``) hands the sweep ``G0 = Q^T A_shift`` instead of
 the cold start.  The warm start changes how many sweeps run, never the
 result.
 
-Not in this module yet: the deflated path (``deflate=True``), which builds
-on the lab module of the reference; it raises ``NotImplementedError``
-naming the slice of the port that brings it.
+The deflated path (``deflate=True``, opt-in): the sweep solves the blocks
+of a two-level divide-and-conquer sort at window size
+(``ops/_finisher_lab.py``) before the same correction, guard and finisher
+sweep.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from xitorch_tpu_torch.ops import _build, dc_level
-from xitorch_tpu_torch.ops.tridiag import use_kernel
+from xitorch_tpu_torch.ops.tridiag import check_device
 from xitorch_tpu_torch.utils.tensor import dot_hi
 
 __all__ = ["jacobi_eigh", "jacobi_svd", "use_jacobi_for", "use_jacobi_svd_for",
@@ -99,9 +100,6 @@ _CLUSTERS_COMPLEX = (1, 2, 3, 4, 8, 16)
 _CLUSTER_GROW_MAX = 8
 _SWEEP_TILE = 64
 _SWEEP_MISC = 64
-
-_NEXT_SLICE = ("the last slice of the port (the deflated path of the "
-               "reference's _finisher_lab; see ROADMAP.md, queue 1)")
 
 # Runtime guard on the warm start (see _guard_warm_start): relative
 # ||G0^T G0 - A_shift^2||_F above which a matrix falls back to the cold
@@ -466,31 +464,78 @@ jacobi_sweep_cuda.launches_complex = 0
 jacobi_sweep_cuda.last_cluster = None
 
 
+@torch.library.custom_op("xitorch_tpu_torch::jacobi_sweep", mutates_args=(),
+                         device_types="cpu")
+def _sweep_op(panel: torch.Tensor, max_sweeps: int, tol: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The real sweep as an operator, ``(G, sweeps, drift)``: the kernel on
+    CUDA tensors, the plain version on CPU tensors, so that ``torch.export``
+    can trace through a launch.  ``drift`` (B,) int32 is the number of
+    sweeps whose tournament permutation the rows of G still carry: each
+    matrix's sweep count for the plain version, 0 for the kernel (its rows
+    keep the input's order)."""
+    G, sweeps = jacobi_sweep_plain(panel, max_sweeps, tol)
+    return G, sweeps, sweeps.clone()
+
+
+@_sweep_op.register_kernel("cuda")
+def _(panel, max_sweeps, tol):
+    G, sweeps = jacobi_sweep_cuda(panel, max_sweeps, tol)
+    return G, sweeps, torch.zeros_like(sweeps)
+
+
+@torch.library.custom_op("xitorch_tpu_torch::jacobi_sweep_complex", mutates_args=(),
+                         device_types="cpu")
+def _sweep_complex_op(panel: torch.Tensor, max_sweeps: int, tol: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The complex sweep on packed planes ``[Re | Im]`` as an operator,
+    outputs as :func:`_sweep_op`'s."""
+    G, sweeps = jacobi_sweep_plain(panel, max_sweeps, tol, complexpair=True)
+    return G, sweeps, sweeps.clone()
+
+
+@_sweep_complex_op.register_kernel("cuda")
+def _(panel, max_sweeps, tol):
+    G, sweeps = jacobi_sweep_cuda(panel, max_sweeps, tol, complexpair=True)
+    return G, sweeps, torch.zeros_like(sweeps)
+
+
+@_sweep_op.register_fake
+@_sweep_complex_op.register_fake
+def _(panel, max_sweeps, tol):
+    counts = panel.new_empty(panel.shape[0], dtype=torch.int32)
+    return torch.empty_like(panel), counts, torch.empty_like(counts)
+
+
 def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float,
-                 complexpair: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                 complexpair: bool = False, return_drift: bool = False):
     """Sweep a (B, n, width) panel: the kernel for a CUDA tensor (or an
     error), the plain version for a CPU tensor.  Counterpart of
-    ``_pallas_g_panel``; returns ``(G, sweeps)``."""
-    if use_kernel(panel):
-        return jacobi_sweep_cuda(panel.contiguous(), max_sweeps, tol,
-                                 complexpair=complexpair)
-    return jacobi_sweep_plain(panel, max_sweeps, tol, complexpair)
+    ``_pallas_g_panel``; returns ``(G, sweeps)``, and with ``return_drift``
+    also the sweeps of tournament drift the rows carry (see
+    :func:`_sweep_op`)."""
+    check_device(panel)
+    op = _sweep_complex_op if complexpair else _sweep_op
+    G, sweeps, drift = op(panel.contiguous(), int(max_sweeps), float(tol))
+    return (G, sweeps, drift) if return_drift else (G, sweeps)
 
 
 # ------------------------------------------------------------------
 # host side
 # ------------------------------------------------------------------
 
-def _padded_n(n: int, precondition: bool = False) -> int:
+def _padded_n(n: int, precondition: bool = False, deflate: bool = False) -> int:
     """Working size for an (n, n) input: a multiple of 16, as the
-    reference's sweep kernel takes; on the preconditioned path past the
-    single-shot warm start's window (a 16-multiple above 448) a multiple of
-    128, as the reference pads for its per-level kernel, so that both run
-    the same size and the same number of levels (n = 700 works at 768, 10
-    levels).  Padding eigenvalues are placed above the spectrum and sliced
-    off after the sort."""
+    reference's sweep kernel takes, and at least 64 on the deflated path;
+    on the preconditioned path past the single-shot warm start's window (a
+    16-multiple above 448) a multiple of 128, as the reference pads for its
+    per-level kernel, so that both run the same size and the same number of
+    levels (n = 700 works at 768, 10 levels).  Padding eigenvalues are
+    placed above the spectrum and sliced off after the sort."""
     npad = max(16, -(-n // 16) * 16)
-    if precondition and npad > dc_level._PER_LEVEL_MIN_N:
+    if deflate:
+        npad = max(64, npad)
+    elif precondition and npad > dc_level._PER_LEVEL_MIN_N:
         npad = -(-n // _PER_LEVEL_ALIGN) * _PER_LEVEL_ALIGN
     return npad
 
@@ -637,21 +682,41 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     made faster, ``precondition=True`` pays that for fewer sweeps and no
     time.
 
-    ``return_info`` also returns a dictionary with each matrix's executed
-    sweep count (``sweeps``, (Bflat,) int32) and, on the warm path, the
-    guard's fall-back flags (``guard_bad``, (Bflat,) bool).
+    ``deflate=True`` (real input, padded n up to 448; ``None`` means
+    ``False``, as in the reference) runs the deflated path instead
+    (``ops/_finisher_lab.py``): a two-level divide-and-conquer sort, the
+    sweep on its blocks at window size, then the same correction, guard and
+    finisher sweep, and after the polish a Rayleigh-Ritz rotation on the
+    unshifted input.  It is slower than the cold call on the card and is not
+    a default: on an NVIDIA H100 80GB HBM3 (700 W), printed by
+    ``chip_smoke.py``, figures rounded, 31 ms against 7 ms cold at 64
+    matrices of 256 x 256, the DC kernel alone 12 ms.
 
-    ``deflate=True`` is not ported yet.
+    ``return_info`` also returns a dictionary with each matrix's executed
+    sweep count (``sweeps``, (Bflat,) int32; the finisher's on the deflated
+    path) and, on the warm and deflated paths, the guard's fall-back flags
+    (``guard_bad``, (Bflat,) bool).
     """
     if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError("jacobi_eigh expects (*B, n, n), got %s" % (tuple(A.shape),))
     iscomplex = A.is_complex()
     precondition = _resolve_precondition(precondition, A)
-    if deflate:
-        raise NotImplementedError(
-            "jacobi_eigh: deflate=True comes with " + _NEXT_SLICE)
-    batch = A.shape[:-2]
     n = A.shape[-1]
+    if deflate and iscomplex:
+        raise ValueError(
+            "jacobi_eigh: deflate=True is not supported for complex input (the DC "
+            "kernel operates on real symmetric matrices): leave deflate=None or False")
+    if deflate and _padded_n(n, deflate=True) > dc_level._PER_LEVEL_MIN_N:
+        # the deflated path needs the single-shot DC kernel's return_t,
+        # return_seg and refine, which the per-level path does not give
+        raise ValueError(
+            "jacobi_eigh: deflate=True is only supported for n <= %d (the single-shot "
+            "DC window); use precondition=True or the default cold sweep for larger n"
+            % dc_level._PER_LEVEL_MIN_N)
+    deflate = bool(deflate)
+    if deflate:
+        precondition = False  # the deflated path runs its own DC
+    batch = A.shape[:-2]
     dt = A.real.dtype if iscomplex else A.dtype
     if tol is None:
         # the reachable floor: after a rotation, rounding leaves pair
@@ -661,7 +726,7 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     Bflat = math.prod(batch) if batch else 1
     a0 = A.reshape(Bflat, n, n)
     # a multiple of 16; 128 on the per-level warm start (see _padded_n)
-    npad = _padded_n(n, precondition)
+    npad = _padded_n(n, precondition, deflate)
     a = _shift_pad(a0, npad)
 
     info = {}
@@ -671,6 +736,16 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
         planes = torch.cat([a.real, -a.imag], dim=-1)
         gt2, sweeps = jacobi_sweep(planes, max_sweeps, tol, complexpair=True)
         gt = torch.complex(gt2[..., :npad], gt2[..., npad:])
+    elif deflate:
+        from xitorch_tpu_torch.ops._finisher_lab import deflated_panel
+        # the DC sort's decoupled blocks solved at window size, then the
+        # warm path's correction and guard; the finisher sweep certifies
+        # convergence, so a soft split costs sweeps, never correctness (no
+        # sort of the fall-backs: every matrix has its own exit, see below)
+        g0 = _rot_correct(deflated_panel(a, max_sweeps=max_sweeps))
+        g_in, bad = _guard_warm_start(a, g0)
+        gt, sweeps = jacobi_sweep(g_in, max_sweeps, tol)
+        info["guard_bad"] = bad
     elif precondition:
         from xitorch_tpu_torch.ops.dc_kernel import dc_precondition
         # depth: split every segment down to pairs; a 2-block is solved
@@ -714,6 +789,11 @@ def jacobi_eigh(A: torch.Tensor, *, max_sweeps: int = 18,
     V = _newton_orthonormalize(V)
     AV = dot_hi(a0, V)
     lam = (V.conj() * AV).sum(-2).real
+    if deflate:
+        from xitorch_tpu_torch.ops._finisher_lab import deflate_refine
+        # the deflated panel enters the finisher just under tol instead of
+        # overshooting below it: one Rayleigh-Ritz pass on the unshifted input
+        lam, V = deflate_refine(a0, V, AV, lam)
     order = torch.argsort(lam, dim=-1)
     lam = torch.take_along_dim(lam, order, dim=-1)
     V = torch.take_along_dim(V, order[:, None, :], dim=-1)

@@ -30,13 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from xitorch_tpu_torch.ops import _build
-from xitorch_tpu_torch.ops.tridiag import use_kernel
+from xitorch_tpu_torch.ops.tridiag import check_device
 
 __all__ = ["structured_cg_solve", "structured_cg_cuda", "structured_cg_plain",
            "fits_structured_cg", "choose_path", "register_window", "register_attrs"]
@@ -225,6 +225,31 @@ structured_cg_cuda.launches = 0
 structured_cg_cuda.last_design = None
 
 
+@torch.library.custom_op("xitorch_tpu_torch::structured_cg", mutates_args=(),
+                         device_types="cpu")
+def _structured_cg_op(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor, V: torch.Tensor,
+                      b: torch.Tensor, offsets: List[int], rtol: float, atol: float,
+                      max_niter: int, eps: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CG solve as an operator on the flat layout: :func:`structured_cg_cuda`
+    on CUDA tensors, :func:`structured_cg_plain` on CPU tensors, so that
+    ``torch.export`` can trace through a launch."""
+    return structured_cg_plain(d, bl, bu, V, b, tuple(offsets), rtol=rtol, atol=atol,
+                               max_niter=max_niter, eps=eps)
+
+
+@_structured_cg_op.register_kernel("cuda")
+def _(d, bl, bu, V, b, offsets, rtol, atol, max_niter, eps):
+    return structured_cg_cuda(d, bl, bu, V, b, tuple(offsets), rtol=rtol, atol=atol,
+                              max_niter=max_niter, eps=eps)
+
+
+@_structured_cg_op.register_fake
+def _(d, bl, bu, V, b, offsets, rtol, atol, max_niter, eps):
+    K = b.shape[0]
+    return (torch.empty_like(b), b.new_empty(K, dtype=torch.float32), b.new_empty(K))
+
+
 def structured_cg_solve(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
                         V: torch.Tensor, b: torch.Tensor,
                         offsets: Tuple[int, ...] = (1,),
@@ -262,8 +287,8 @@ def structured_cg_solve(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
 
     # V as (K, r, n): each of the r columns contiguous along n
     Vf = V.expand(*batch, n, r).reshape(K, n, r).transpose(1, 2).contiguous()
-    impl = structured_cg_cuda if use_kernel(b) else structured_cg_plain
-    x, it, res = impl(flat2(d), flat3(bl), flat3(bu), Vf, flat2(b),
-                      tuple(offsets), rtol=rtol, atol=atol,
-                      max_niter=max_niter, eps=eps)
+    check_device(b)
+    x, it, res = _structured_cg_op(flat2(d), flat3(bl), flat3(bu), Vf, flat2(b),
+                                   [int(o) for o in offsets], float(rtol), float(atol),
+                                   int(max_niter), float(eps))
     return x.reshape(*batch, n), it.reshape(batch), res.reshape(batch)

@@ -35,15 +35,12 @@ _SIGNATURES = {
 _SYS = 32
 
 
-def use_kernel(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise RuntimeError("xitorch_tpu_torch kernels take CUDA or CPU tensors "
-                       "(got a tensor on %s)" % t.device)
+def check_device(t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a CUDA device (the kernel) or the CPU (the
+    plain version): the devices the kernels' operators run on."""
+    if not (t.is_cuda or t.device.type == "cpu"):
+        raise RuntimeError("xitorch_tpu_torch kernels take CUDA or CPU tensors "
+                           "(got a tensor on %s)" % t.device)
 
 
 def tridiag_matvec(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
@@ -113,6 +110,25 @@ def thomas_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
 thomas_cuda.launches = 0
 
 
+@torch.library.custom_op("xitorch_tpu_torch::thomas", mutates_args=(), device_types="cpu")
+def _thomas_op(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
+           eps: float) -> torch.Tensor:
+    """The Thomas solve as an operator: :func:`thomas_cuda` on CUDA tensors,
+    :func:`thomas_plain` on CPU tensors, so that ``torch.export`` can trace
+    through a launch."""
+    return thomas_plain(dl, d, du, b, eps)
+
+
+@_thomas_op.register_kernel("cuda")
+def _(dl, d, du, b, eps):
+    return thomas_cuda(dl, d, du, b, eps)
+
+
+@_thomas_op.register_fake
+def _(dl, d, du, b, eps):
+    return torch.empty_like(b)
+
+
 def tridiag_solve_kernel(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                          b: torch.Tensor, *, eps: float = 0.0) -> torch.Tensor:
     """Raw solve (no autograd) of K independent tridiagonal systems; the
@@ -135,8 +151,8 @@ def tridiag_solve_kernel(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
 
     if eps == 0.0:
         eps = float(torch.finfo(b.dtype).tiny)
-    impl = thomas_cuda if use_kernel(b) else thomas_plain
-    x = impl(*map(flat, (dl, d, du, b)), eps)
+    check_device(b)
+    x = _thomas_op(*map(flat, (dl, d, du, b)), eps)
     return x.reshape(*batch, n)
 
 

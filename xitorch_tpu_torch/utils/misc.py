@@ -10,7 +10,8 @@ from typing import Any, Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["get_method", "partition_params", "set_default_option", "get_and_pop_keys"]
+__all__ = ["get_method", "partition_params", "set_default_option", "get_and_pop_keys",
+           "dummy_context_manager"]
 
 
 def set_default_option(defopt: Mapping[str, Any], opt: Mapping[str, Any]) -> Dict[str, Any]:
@@ -64,3 +65,13 @@ def get_method(algname: str, methods: Mapping[str, Callable],
         "Invalid method type: %s for %s. Only str and callable are accepted."
         % (type(method), algname)
     )
+
+
+class dummy_context_manager:
+    """A context manager that does nothing."""
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *args):
+        return None
