@@ -30,7 +30,13 @@ The surface:
   more knots solve for their slopes through the Thomas kernel
 * ``EditableModule``, ``Packer``, ``make_pure`` / ``get_pure_function``,
   ``make_sibling``; ``debug.profile`` / ``annotate`` on ``torch.profiler``
-  and ``python -m xitorch_tpu_torch.debug script.py``; the ``utils``
+  and ``python -m xitorch_tpu_torch.debug script.py``; the port's own
+  spans (``xt.solve``, ``xt.solve.pending``, ``xt.solve.method``,
+  ``xt.solve.check``, ``xt.solve.backward``, ``xt.symeig``,
+  ``xt.symeig.method``) and kernel counts
+  (``debug.profiling.counts("structured_cg")``: CG iterations a system;
+  ``"jacobi_sweep"``: sweeps a matrix), live only while a profiler records
+  (``debug/profiling.py``); the ``utils``
   helpers of the JAX package (dtype maps, attribute paths, ``deprecated``,
   ``tuple_axpy1``, the random test matrices)
 * ``models``: the SCF loop (``HamiltonianOp``, ``scf_density``,

@@ -29,6 +29,7 @@ from xitorch_tpu_torch._impls.linalg.solve import (
     gmres, minres, scipy_gmres,
 )
 from xitorch_tpu_torch.debug.modes import is_debug_enabled
+from xitorch_tpu_torch.debug.profiling import span, tracing
 from xitorch_tpu_torch.ops.fused_cg import fits_fused_cg, fused_cg_dense
 from xitorch_tpu_torch.ops.structured_cg import fits_structured_cg, structured_cg_solve
 from xitorch_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve_kernel
@@ -313,8 +314,14 @@ def solve(A: LinearOperator, B: torch.Tensor,
     :func:`solve` that finds the copy done, by
     :func:`flush_convergence_warnings`, or at the interpreter's exit.
     """
-    if not _tracing():
-        _report_pending(wait=False)
+    with span("xt.solve"):
+        return _solve(A, B, E, M, bck_options, method, return_info, fwd_options)
+
+
+def _solve(A, B, E, M, bck_options, method, return_info, fwd_options):
+    if not tracing():
+        with span("xt.solve.pending"):
+            _report_pending(wait=False)
     if A.shape[-1] != A.shape[-2]:
         raise RuntimeError("The linear operator A must have a square shape")
     if A.shape[-1] != B.shape[-2]:
@@ -345,9 +352,8 @@ def solve(A: LinearOperator, B: torch.Tensor,
 
     if method == "exactsolve":
         # dense path: differentiable natively (incl. higher order)
-        if return_info:
-            return exactsolve(A, B, E, M, return_info=True)
-        return exactsolve(A, B, E, M)
+        with span("xt.solve.method"):
+            return exactsolve(A, B, E, M, return_info=return_info)
 
     method_fcn = get_method("solve", _SOLVE_METHODS, method)
     bck_cfg = dict(bck_options)
@@ -368,13 +374,13 @@ def solve(A: LinearOperator, B: torch.Tensor,
                     return_info)
     params = _params(A, M)
     out = _SolveFunction.apply(prob, B2, E, *params)
-    if return_info:
-        x, info = out[0], dict(zip(prob.info_keys, out[1:]))
-        _warn_nonconverged_eager("solve", method, info)
-        return x, info
-    x = out
-    _warn_eager(A, B2, E, M, x, method, fwd_options)
-    return x
+    with span("xt.solve.check"):
+        if return_info:
+            x, info = out[0], dict(zip(prob.info_keys, out[1:]))
+            _warn_nonconverged_eager("solve", method, info)
+            return x, info
+        _warn_eager(A, B2, E, M, out, method, fwd_options)
+    return out
 
 
 def _default_method(A, E, M) -> str:
@@ -444,14 +450,16 @@ class _SolveFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, prob, B2, E, *params):
         if prob.return_info:
-            x, info = prob.method_fcn(prob.A, B2, E, prob.M, return_info=True,
-                                      **prob.fwd_options)
+            with span("xt.solve.method"):
+                x, info = prob.method_fcn(prob.A, B2, E, prob.M, return_info=True,
+                                          **prob.fwd_options)
             prob.info_keys = tuple(info)
             vals = tuple(torch.as_tensor(v, dtype=torch.float32, device=x.device)
                          .clone() for v in info.values())
             ctx.mark_non_differentiable(*vals)
         else:
-            x = prob.method_fcn(prob.A, B2, E, prob.M, **prob.fwd_options)
+            with span("xt.solve.method"):
+                x = prob.method_fcn(prob.A, B2, E, prob.M, **prob.fwd_options)
             vals = ()
         ctx.prob = prob
         ctx.save_for_backward(x, E)
@@ -459,55 +467,49 @@ class _SolveFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx, *ginfo):
-        prob = ctx.prob
-        x, E = ctx.saved_tensors
-        A, M = prob.A, prob.M
-        need = ctx.needs_input_grad
-        if gx is None:
-            return (None,) * len(need)
-        # adjoint solve A^H lam - M^H lam E^* = g, through the public
-        # (differentiable) solve so that double backward works
-        Eb = E.conj() if E is not None else None
-        lam = solve(A.H, gx, Eb, M.H if M is not None else None,
-                    bck_options=prob.bck_cfg, method=prob.bck_method,
-                    **prob.bck_cfg)
+        with span("xt.solve.backward"):
+            prob = ctx.prob
+            x, E = ctx.saved_tensors
+            A, M = prob.A, prob.M
+            need = ctx.needs_input_grad
+            if gx is None:
+                return (None,) * len(need)
+            # adjoint solve A^H lam - M^H lam E^* = g, through the public
+            # (differentiable) solve so that double backward works
+            Eb = E.conj() if E is not None else None
+            lam = solve(A.H, gx, Eb, M.H if M is not None else None,
+                        bck_options=prob.bck_cfg, method=prob.bck_method,
+                        **prob.bck_cfg)
 
-        params = _params(A, M)
-        grads = [None] * len(need)
-        if need[1]:
-            grads[1] = lam
-        wrt = [i for i, p in enumerate(params) if need[3 + i]]
-        if need[2] or wrt:
-            # stand-ins of the parameters: the derivative of A X - M X E
-            # with X held fixed (X's own graph leads to the originals)
-            create = torch.is_grad_enabled()  # True only in double backward
-            with torch.enable_grad(), ExitStack() as stack:
-                alias = {id(params[i]): params[i].view_as(params[i]) for i in wrt}
-                stack.enter_context(A._replaced_params(alias))
-                if M is not None:
-                    stack.enter_context(M._replaced_params(alias))
-                inputs = [alias[id(params[i])] for i in wrt]
-                r = A.mm(x)
-                if E is not None:
-                    Ea = E.view_as(E)
-                    if need[2]:
-                        inputs.append(Ea)
-                    Mx = M.mm(x) if M is not None else x
-                    r = r - Mx * Ea[..., None, :]
-                gs = torch.autograd.grad(r, inputs, -lam, create_graph=create,
-                                         allow_unused=True)
-            for i, g in zip(wrt, gs):
-                grads[3 + i] = torch.zeros_like(params[i]) if g is None else g
-            if need[2]:
-                grads[2] = torch.zeros_like(E) if gs[-1] is None else gs[-1]
-        return tuple(grads)
-
-
-def _tracing() -> bool:
-    """Whether a program is being traced (``torch.export``, ``torch.compile``):
-    its values are not known, so the eager checks are skipped, as the JAX
-    package skips them on tracers."""
-    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+            params = _params(A, M)
+            grads = [None] * len(need)
+            if need[1]:
+                grads[1] = lam
+            wrt = [i for i, p in enumerate(params) if need[3 + i]]
+            if need[2] or wrt:
+                # stand-ins of the parameters: the derivative of A X - M X E
+                # with X held fixed (X's own graph leads to the originals)
+                create = torch.is_grad_enabled()  # True only in double backward
+                with torch.enable_grad(), ExitStack() as stack:
+                    alias = {id(params[i]): params[i].view_as(params[i]) for i in wrt}
+                    stack.enter_context(A._replaced_params(alias))
+                    if M is not None:
+                        stack.enter_context(M._replaced_params(alias))
+                    inputs = [alias[id(params[i])] for i in wrt]
+                    r = A.mm(x)
+                    if E is not None:
+                        Ea = E.view_as(E)
+                        if need[2]:
+                            inputs.append(Ea)
+                        Mx = M.mm(x) if M is not None else x
+                        r = r - Mx * Ea[..., None, :]
+                    gs = torch.autograd.grad(r, inputs, -lam, create_graph=create,
+                                             allow_unused=True)
+                for i, g in zip(wrt, gs):
+                    grads[3 + i] = torch.zeros_like(params[i]) if g is None else g
+                if need[2]:
+                    grads[2] = torch.zeros_like(E) if gs[-1] is None else gs[-1]
+            return tuple(grads)
 
 
 def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
@@ -515,7 +517,7 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
     tolerance (one extra matvec).  For structured_cg on CUDA tensors the
     verdict is queued (:func:`_report_pending`) instead of read, so the
     call does not synchronise.  Skipped while a program is traced."""
-    if _tracing():
+    if tracing():
         return
     rtol = fwd_options.get("rtol", 1e-6)
     atol = fwd_options.get("atol", 1e-8)
@@ -582,7 +584,7 @@ atexit.register(flush_convergence_warnings)
 
 def _warn_nonconverged_eager(what: str, method, info) -> None:
     conv = info.get("converged", None)
-    if conv is None or _tracing():
+    if conv is None or tracing():
         return
     if float(conv) < 1.0:
         warnings.warn(ConvergenceWarning(

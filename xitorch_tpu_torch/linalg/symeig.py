@@ -31,6 +31,7 @@ from xitorch_tpu_torch._impls.linalg.symeig import (
     chebfsi, davidson, degen_svd, exacteig, kron_exacteig,
 )
 from xitorch_tpu_torch.debug.modes import is_debug_enabled
+from xitorch_tpu_torch.debug.profiling import span
 from xitorch_tpu_torch.linalg.solve import _params, _warn_nonconverged_eager, solve
 from xitorch_tpu_torch.utils.exceptions import MathWarning
 from xitorch_tpu_torch.utils.misc import get_method
@@ -100,6 +101,11 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
        a looser eigenVECTOR grade.  ``_auto_symeig_method`` records the
        measurements behind both gates.
     """
+    with span("xt.symeig"):
+        return _symeig(A, neig, mode, M, bck_options, method, return_info, fwd_options)
+
+
+def _symeig(A, neig, mode, M, bck_options, method, return_info, fwd_options):
     if not A.is_hermitian:
         raise RuntimeError("The linear operator A must be Hermitian")
     if M is not None:
@@ -144,10 +150,12 @@ def symeig(A: LinearOperator, neig: Optional[int] = None,
             M.check()
 
     if method == "exacteig":
-        return exacteig(A, neig, mode, M, return_info=return_info)
+        with span("xt.symeig.method"):
+            return exacteig(A, neig, mode, M, return_info=return_info)
     if method == "kron_exact":
         # natively differentiable like exacteig (built on degen_eigh)
-        return kron_exacteig(A, neig, mode, M, return_info=return_info)
+        with span("xt.symeig.method"):
+            return kron_exacteig(A, neig, mode, M, return_info=return_info)
 
     method_fcn = get_method("symeig", _SYMEIG_METHODS, method)
     # auto-routed iterative path: always compute the convergence info, so a
@@ -298,9 +306,10 @@ class _SymeigFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prob, *params):
-        out = prob.method_fcn(prob.A, prob.neig, prob.mode, prob.M,
-                              **(dict(prob.fwd_options, return_info=True)
-                                 if prob.return_info else prob.fwd_options))
+        with span("xt.symeig.method"):
+            out = prob.method_fcn(prob.A, prob.neig, prob.mode, prob.M,
+                                  **(dict(prob.fwd_options, return_info=True)
+                                     if prob.return_info else prob.fwd_options))
         evals, evecs = out[0], out[1]
         vals = ()
         if prob.return_info:

@@ -62,6 +62,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from xitorch_tpu_torch.debug.profiling import count
 from xitorch_tpu_torch.ops import _build, dc_level
 from xitorch_tpu_torch.ops.tridiag import check_device
 from xitorch_tpu_torch.utils.tensor import dot_hi
@@ -517,6 +518,8 @@ def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float,
     check_device(panel)
     op = _sweep_complex_op if complexpair else _sweep_op
     G, sweeps, drift = op(panel.contiguous(), int(max_sweeps), float(tol))
+    if not complexpair:
+        count("jacobi_sweep", sweeps)
     return (G, sweeps, drift) if return_drift else (G, sweeps)
 
 

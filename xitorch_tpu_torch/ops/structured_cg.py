@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from xitorch_tpu_torch.debug.profiling import count
 from xitorch_tpu_torch.ops import _build
 from xitorch_tpu_torch.ops.tridiag import check_device
 
@@ -291,4 +292,5 @@ def structured_cg_solve(d: torch.Tensor, bl: torch.Tensor, bu: torch.Tensor,
     x, it, res = _structured_cg_op(flat2(d), flat3(bl), flat3(bu), Vf, flat2(b),
                                    [int(o) for o in offsets], float(rtol), float(atol),
                                    int(max_niter), float(eps))
+    count("structured_cg", it)
     return x.reshape(*batch, n), it.reshape(batch), res.reshape(batch)
