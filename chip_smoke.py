@@ -2781,14 +2781,16 @@ def config3(torch, np, xt, device, card, chain_probe):
     ``linalg.solve`` forward and gradient (V given: the CG kernel; V None:
     the Thomas kernel), the library calls, the CG designs in turns, the
     Thomas kernel against its chain floor and the recorded time of the
-    kernel it replaced, and timings.  Returns the two kernels' records for
-    the JSON line."""
+    kernel it replaced, the eager check's residual kernel against its plain
+    version on the solutions of both routes, and timings.  Returns the
+    three kernels' records for the JSON line."""
     import warnings
 
     from xitorch_tpu_torch.ops.structured_cg import (
         choose_path, fits_structured_cg, register_attrs, register_window, structured_cg_cuda,
         structured_cg_plain,
     )
+    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda, tlr_residual_plain
     from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 
@@ -2953,11 +2955,19 @@ def config3(torch, np, xt, device, card, chain_probe):
                          reps=3, inner=1)
     del T_dense, x_lib
 
-    launches = {"structured_cg": 0, "thomas": 0}
+    launches = {"structured_cg": 0, "thomas": 0, "tlr_residual": 0}
 
     def reset():
         structured_cg_cuda.launches = 0
         thomas_cuda.launches = 0
+        tlr_residual_cuda.launches = 0
+
+    def read_check(what, want):
+        # the eager convergence checks since reset(): one residual launch a
+        # solve without info (the forward's, and the adjoint's in a gradient)
+        got = read("tlr_residual", tlr_residual_cuda)
+        print("%s: residual kernel launches %d (expected %d)" % (what, got, want))
+        check(got == want, "%s: %d residual kernel launches, expected %d" % (what, got, want))
 
     def read(name, fn):
         torch.cuda.synchronize()
@@ -2983,10 +2993,13 @@ def config3(torch, np, xt, device, card, chain_probe):
     check(float(info["converged"]) == 1.0, "forward: not converged")
     check(resid < RESID_GATE, "forward: residual %.3e above the gate" % resid)
     check(n_fwd >= 1, "forward: the cg kernel was not launched")
+    # return_info: the verdict comes from info, not from a residual
+    read_check("forward with info", 0)
 
     reset()
     x_default = xt.linalg.solve(A, bT, rtol=RTOL, atol=ATOL)
     n_def = read("structured_cg", structured_cg_cuda)
+    read_check("default routing", 1)
     same = float((x_default - x).abs().max())
     print("default routing: cg launches %d, max |x - x_structured_cg| %.3e" % (n_def, same))
     check(n_def >= 1, "default routing did not take the cg kernel")
@@ -3002,6 +3015,14 @@ def config3(torch, np, xt, device, card, chain_probe):
     check(n_th >= 1, "V=None: the thomas kernel was not launched")
     check(float(info_tri["converged"]) == 1.0 and resid_tri < RESID_GATE,
           "V=None: bad solution")
+    read_check("V=None with info", 0)
+    reset()
+    xt.linalg.solve(A_tri, bT, method="structured_cg")
+    read("thomas", thomas_cuda)
+    read_check("V=None", 1)
+    res_record = residual_phase(torch, tlr_residual_cuda, tlr_residual_plain, {
+        "V rank %d" % RANK: (x.mT, bT.mT, dT, cT.expand(BATCH, N - 1), VT, None),
+        "V None": (x_tri.mT, bT.mT, dT, cT.expand(BATCH, N - 1), None, None)}, card)
     # forward + gradient to d, c, b: the adjoint is the transposed Thomas
     # solve, so the counter moves by 2; held against float64
     # torch.linalg.solve autograd on the materialised batch
@@ -3030,13 +3051,16 @@ def config3(torch, np, xt, device, card, chain_probe):
     print("V=None gradient: thomas launches %d (forward + adjoint); rel L2 err vs float64 "
           "torch.linalg.solve autograd: d %.3e, c %.3e, b %.3e" % (n_th_grad, *rels_tri))
     check(n_th_grad == 2, "V=None gradient: %d thomas launches, expected 2" % n_th_grad)
+    read_check("V=None gradient", 2)
     check(all(bool(torch.isfinite(g).all()) for g in g_tri) and max(rels_tri) <= 1e-3,
           "V=None gradient disagrees with float64: %s" % rels_tri)
     del g_ref
 
     # small input against a dense float64 solve
     As = xt.TridiagLowRankOperator(dT[:4, :64], cT, VT[:4, :64])
+    reset()
     xs = xt.linalg.solve(As, bT[:4, :64], method="structured_cg", rtol=RTOL, atol=ATOL)
+    read_check("small input", 1)
     xd = torch.linalg.solve(As.fullmatrix().double(), bT[:4, :64].double())
     small = float((xs.double() - xd).abs().max() / xd.abs().max())
     print("small input (4 x 64) vs dense float64 solve: max rel err %.3e" % small)
@@ -3071,6 +3095,7 @@ def config3(torch, np, xt, device, card, chain_probe):
     reset()
     g_k = grads("structured_cg")
     n_grad = read("structured_cg", structured_cg_cuda)
+    read_check("gradient", 2)
     g_p = grads(plain_structured_cg)
     torch.cuda.synchronize()
     rels = [float(torch.linalg.norm(a - p) / torch.linalg.norm(p)) for a, p in zip(g_k, g_p)]
@@ -3190,7 +3215,70 @@ def config3(torch, np, xt, device, card, chain_probe):
          "launches": launches["thomas"], "max_abs_err": th_abs,
          "ms": th_dev_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
          "bound_by": th_by, "library_ms": th_lib_ms, "chain_floor_ms": chain_dev_ms},
+        dict(res_record, launches=launches["tlr_residual"]),
     ]
+
+
+def residual_rounding(torch, x, b, d, c, V):
+    """Largest rounding error, over the rows, of a float32 residual of the
+    residual kernel's layout computed in any order: 8 eps times the norm
+    of the sum of the terms' magnitudes."""
+    mag = (d[:, None, :] * x).abs() + b.abs()
+    if c is not None:
+        mag[..., 1:] += (c[:, None, :] * x[..., :-1]).abs()
+        mag[..., :-1] += (c[:, None, :] * x[..., 1:]).abs()
+    if V is not None:
+        mag += torch.einsum("knq,kjq->kjn", V.abs(), torch.einsum("knq,kjn->kjq", V.abs(),
+                                                                   x.abs()))
+    return 8 * torch.finfo(torch.float32).eps * float(torch.linalg.norm(mag, dim=-1).max())
+
+
+def residual_phase(torch, kernel, plain, cases, card):
+    """The eager check's residual kernel (``csrc/tlr_residual.cu``) against
+    its plain version, which computes the generic check's operations, on
+    each case's rows ``(x, b, d, c, V, e)``: at the solve's tolerance (the
+    solutions converged: failed 0) and at rtol 1e-9 (failed 1), the same
+    verdict, max resid within the rounding bound and a quarter, max stop
+    within 1e-5; both timed, with the bound of the bytes the kernel reads.
+    Returns the record of the first case, with the others' times."""
+    record = {}
+    for i, (what, args) in enumerate(cases.items()):
+        slack = residual_rounding(torch, *args[:5])
+        err = 0.0
+        for rtol, failed in ((RTOL, 0.0), (1e-9, 1.0)):
+            got = kernel(*args, rtol, ATOL)
+            torch.cuda.synchronize()
+            got = got.tolist()
+            want = plain(*args, rtol, ATOL).tolist()
+            rel = abs(got[1] - want[1]) / want[1]
+            err = max(err, abs(got[1] - want[1]))
+            print("residual kernel vs plain (%s, K=%d, n=%d, rtol %.0e): failed %.0f / %.0f, "
+                  "max resid %.6e / %.6e (|diff| %.3e, rel %.3e, rounding bound %.3e), "
+                  "max stop %.6e / %.6e"
+                  % (what, args[0].shape[0], args[0].shape[-1], rtol, got[0], want[0], got[1],
+                     want[1], abs(got[1] - want[1]), rel, slack, got[2], want[2]))
+            check(got[0] == want[0] == failed and abs(got[1] - want[1]) <= slack
+                  and rel <= 0.25 and abs(got[2] - want[2]) <= 1e-5 * abs(want[2]),
+                  "residual kernel (%s, rtol %.0e) disagrees with plain" % (what, rtol))
+        k_ms = kernel_device_ms(torch, lambda: kernel(*args, RTOL, ATOL), "tlr_residual_kernel")
+        plain_ms = timed_ms(torch, lambda: plain(*args, RTOL, ATOL))
+        K, _, n = args[0].shape
+        r = 0 if args[4] is None else args[4].shape[-1]
+        # x, d, b and V read once; about 2 r + 10 operations an element
+        k_bound, k_by = bound((3 + r) * n * K * 4, (2 * r + 10) * n * K)
+        print("  residual kernel (%s): %.4f ms (device time by name), plain (the generic "
+              "check's operations) %.3f ms, bound %.4f ms (%s): %.1f %% of it [%s]"
+              % (what, k_ms, plain_ms, k_bound, k_by, 100 * k_bound / k_ms, card))
+        if i == 0:
+            record = {"name": "tlr_residual", "path": "config 3: the eager check, %s, %d x %d"
+                      % (what, K, n), "route": "cuda",
+                      "source": "xitorch_tpu_torch/csrc/tlr_residual.cu",
+                      "replaces": None, "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                      "bound_ms": k_bound, "bound_by": k_by, "library_ms": None}
+        else:
+            record[what.lower().replace(" ", "_")] = {
+                "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound}
+    return record
 
 
 def config5(torch, np, xt, device, card):
@@ -4340,7 +4428,7 @@ def main(argv=None) -> int:
     chain_probe = start_chain_probe() if args.only in (None, "solve") and not args.gate_sizes \
         else None
     libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
-                         "jacobi_sweep_complex", "fused_cg", "dc_level"])
+                         "jacobi_sweep_complex", "fused_cg", "dc_level", "tlr_residual"])
     print("build: %.1f s; %s" % (time.perf_counter() - t0,
                                  ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
     if args.gate_sizes:

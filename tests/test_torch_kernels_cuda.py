@@ -16,7 +16,8 @@ forced cluster sizes, the divide-and-conquer kernel with its exports, the per-le
 divide-and-conquer kernel one level at a time, the sweep gate by batch, and
 the fused dense CG kernel's cluster path and device-memory path over odd
 sizes (n % 4 != 0, n = 1, 33), forced cluster sizes, super-groups, float64
-and a broadcast A.)
+and a broadcast A, and the residual kernel of solve's eager check over
+its layouts and in solve.)
 """
 import importlib.util
 import os
@@ -1018,7 +1019,7 @@ def test_squad_on_card_within_its_gate(cuda):
 
 
 def _op_cases_on(device):
-    """Small inputs of the seven kernel operators on ``device``."""
+    """Small inputs of the eight kernel operators on ``device``."""
     from xitorch_tpu_torch.ops import spectral_dc
 
     g = torch.Generator().manual_seed(0)
@@ -1042,6 +1043,8 @@ def _op_cases_on(device):
         "dc_level": (seg, 0.5 * (a + a.mT), a, om, 2),
         "fused_cg": (a, torch.tensor([1, 0, 1]), torch.randn(3, 64, 2, generator=g),
                      1e-6, 1e-8, 96, 1e-12),
+        "tlr_residual": (b[:, None, :], dl[:, None, :], d, torch.tensor(0.5).expand(K, n - 1),
+                         V.mT.contiguous(), None, 1e-6, 1e-8),
     }
     return {k: tuple(v.to(device) if torch.is_tensor(v) else v for v in args)
             for k, args in cases.items()}
@@ -1050,7 +1053,7 @@ def _op_cases_on(device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["thomas", "structured_cg", "jacobi_sweep",
                                   "jacobi_sweep_complex", "dc_precondition", "dc_level",
-                                  "fused_cg"])
+                                  "fused_cg", "tlr_residual"])
 def test_kernel_operators_pass_opcheck_on_the_card(cuda, name):
     """Each operator's CUDA implementation (the launcher) against its fake:
     shapes, types, no aliasing, and a launch per call."""
@@ -1134,3 +1137,164 @@ def test_deflated_jacobi_eigh_on_card_launches_dc_once_and_the_sweep_three_times
     assert np.abs(lam.double().cpu().numpy() - lam0).max() / np.abs(lam0).max() <= 1e-5
     Vd = V.double()
     assert float((Vd.mT @ Vd - torch.eye(256, dtype=Vd.dtype, device=cuda)).abs().max()) < 5e-5
+
+
+def _tlr_rows(K, n, r, J, device, coupling="scalar", shift=False, bcast_d=False, seed=0):
+    """Config 3's operator recipe in the residual kernel's layout: rows
+    (K, J, n), d (K, n) (a broadcast (n,) with ``bcast_d``), a scalar
+    coupling expanded or a plane, V (K, n, r) or None, per-row shifts or
+    None; x from a few Jacobi steps on (d - e) x = b, so that the residual
+    is neither zero nor large."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=device)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    d = 4.0 + 2.0 * rand(1 if bcast_d else K, n)
+    d = d.expand(K, n) if bcast_d else d
+    c = {"scalar": torch.tensor(1.0, device=device).expand(K, n - 1),
+         "plane": 0.5 + rand(K, n - 1), "none": None}[coupling]
+    V = randn(K, n, r) / n ** 0.5 if r else None
+    e = 0.3 * rand(K, J) if shift else None
+    b = randn(K, J, n)
+    x = b / (d[:, None, :] - (0.0 if e is None else e[..., None]))
+    return x, b, d, c, V, e
+
+
+def _residual_rounding(x, b, d, c, V, e):
+    """Largest rounding error, over the rows, of a float32 residual
+    computed in any order: 8 eps times the norm of the sum of the terms'
+    magnitudes."""
+    mag = (d[:, None, :] * x).abs() + b.abs()
+    if c is not None:
+        mag[..., 1:] += (c[:, None, :] * x[..., :-1]).abs()
+        mag[..., :-1] += (c[:, None, :] * x[..., 1:]).abs()
+    if V is not None:
+        mag += torch.einsum("knq,kjq->kjn", V.abs(), torch.einsum("knq,kjn->kjq", V.abs(),
+                                                                   x.abs()))
+    if e is not None:
+        mag += (x * e[..., None]).abs()
+    return 8 * torch.finfo(torch.float32).eps * float(torch.linalg.norm(mag, dim=-1).max())
+
+
+def _tlr_verdicts(args, rtol):
+    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda, tlr_residual_plain
+
+    got = tlr_residual_cuda(*args, rtol, 1e-8)
+    torch.cuda.synchronize()
+    want = tlr_residual_plain(*args, rtol, 1e-8)
+    return got.tolist(), want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, n, r, J, coupling, shift, bcast_d", [
+    (4096, 1024, 4, 1, "scalar", False, False),   # config 3's operator
+    (5003, 1024, 4, 1, "scalar", False, False),   # K not a multiple of the grid
+    (37, 33, 1, 3, "plane", True, False),         # n % 4 != 0: element loads
+    (300, 64, 0, 2, "scalar", False, True),       # several rows a block, no V
+    (9, 4096, 8, 1, "plane", True, False),        # 1,024 threads a row, rank 8
+    (64, 1000, 3, 1, "none", False, True),
+    (5, 2, 2, 1, "plane", False, False),
+    (7, 1, 1, 2, "none", True, False),
+])
+def test_tlr_residual_kernel_matches_plain(cuda, K, n, r, J, coupling, shift, bcast_d):
+    """The residual kernel's verdict against its plain version on the same
+    rows, at a tolerance that passes (rtol 1: failed 0) and one that fails
+    (rtol 1e-9): the same verdict, each maximum within float32 rounding."""
+    args = _tlr_rows(K, n, r, J, cuda, coupling, shift, bcast_d)
+    slack = _residual_rounding(*args)
+    for rtol in (1.0, 1e-9):
+        got, want = _tlr_verdicts(args, rtol)
+        assert got[0] == want[0] == (0.0 if rtol == 1.0 else 1.0)
+        assert abs(got[1] - want[1]) <= slack
+        assert got[2] == pytest.approx(want[2], rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_tlr_residual_kernel_on_converged_and_failing_solves(cuda):
+    """Config 3's operator at K = 4,096: the verdict of structured_cg's
+    answer (converged) and of one CG step (failing), kernel against plain;
+    the launch synchronised after each.  Max resid within the rounding
+    bound and, since that bound exceeds a converged residual, within a
+    quarter of the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    K, n = 4096, 1024
+    d = 4.0 + 2.0 * torch.rand(K, n, generator=g, device=cuda)
+    V = torch.randn(K, n, 4, generator=g, device=cuda) / n ** 0.5
+    b = torch.randn(K, n, 1, generator=g, device=cuda)
+    A = xt.TridiagLowRankOperator(d, 1.0, V)
+    c = A.c.expand(K, n - 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for max_niter, failed in ((None, 0.0), (1, 1.0)):
+            x = xt.linalg.solve(A, b, method="structured_cg", max_niter=max_niter)
+            args = (x.mT, b.mT, d, c, V, None)
+            got, want = _tlr_verdicts(args, 1e-6)
+            assert got[0] == want[0] == failed
+            assert abs(got[1] - want[1]) <= _residual_rounding(*args)
+            assert got[1] == pytest.approx(want[1], rel=0.25)
+            assert got[2] == pytest.approx(want[2], rel=1e-5)
+        xt.linalg.flush_convergence_warnings()
+
+
+@pytest.mark.cuda
+def test_solve_check_launches_the_residual_kernel(cuda):
+    """The eager check of a structured_cg solve on config 3's operator is
+    one residual launch a forward solve and two a gradient call (the
+    forward's and the adjoint's); a dense operator's check launches none."""
+    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda
+
+    rng = np.random.default_rng(7)
+    d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(16, 1024)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    V = torch.tensor(rng.standard_normal((16, 1024, 4)) / 32.0, dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    b = torch.tensor(rng.standard_normal((16, 1024, 1)), dtype=torch.float32, device=cuda,
+                     requires_grad=True)
+    A = xt.TridiagLowRankOperator(d, 1.0, V)
+    before = tlr_residual_cuda.launches
+    x = xt.linalg.solve(A, b.detach(), method="structured_cg")
+    torch.cuda.synchronize()
+    assert tlr_residual_cuda.launches == before + 1
+    x = xt.linalg.solve(A, b, method="structured_cg")
+    torch.autograd.grad((x * x.detach()).sum(), [d, V, b])
+    torch.cuda.synchronize()
+    assert tlr_residual_cuda.launches == before + 3
+    M = torch.tensor(rng.standard_normal((4, 64, 64)), dtype=torch.float32, device=cuda)
+    dense = xt.LinearOperator.m(M @ M.mT + 64 * torch.eye(64, device=cuda), is_hermitian=True)
+    xt.linalg.solve(dense, torch.ones(4, 64, 1, device=cuda), method="cg")
+    torch.cuda.synchronize()
+    assert tlr_residual_cuda.launches == before + 3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xt.linalg.flush_convergence_warnings()
+    assert not caught
+
+
+@pytest.mark.cuda
+def test_failing_solve_warns_through_the_residual_kernel(cuda):
+    """A structured_cg solve stopped after one step: its verdict comes from
+    the residual kernel and arrives, with the reference's text, at
+    flush_convergence_warnings()."""
+    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda
+    from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
+
+    rng = np.random.default_rng(8)
+    d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(16, 1024)), dtype=torch.float32, device=cuda)
+    V = torch.tensor(rng.standard_normal((16, 1024, 4)) / 32.0, dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.standard_normal((16, 1024, 1)), dtype=torch.float32, device=cuda)
+    A = xt.TridiagLowRankOperator(d, 1.0, V)
+    xt.linalg.flush_convergence_warnings()
+    before = tlr_residual_cuda.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xt.linalg.solve(A, b, method="structured_cg", max_niter=1)
+        assert not caught
+        xt.linalg.flush_convergence_warnings()
+    assert tlr_residual_cuda.launches == before + 1
+    assert [w.category for w in caught] == [ConvergenceWarning]
+    assert str(caught[0].message).startswith(
+        "solve (method=structured_cg) did not converge: max residual ")

@@ -32,6 +32,7 @@ from xitorch_tpu_torch.debug.modes import is_debug_enabled
 from xitorch_tpu_torch.debug.profiling import span, tracing
 from xitorch_tpu_torch.ops.fused_cg import fits_fused_cg, fused_cg_dense
 from xitorch_tpu_torch.ops.structured_cg import fits_structured_cg, structured_cg_solve
+from xitorch_tpu_torch.ops.tlr_residual import residual_verdict, tlr_residual_check
 from xitorch_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve_kernel
 from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 from xitorch_tpu_torch.utils.misc import get_method
@@ -42,6 +43,8 @@ __all__ = ["solve", "flush_convergence_warnings"]
 # still on its way to the host: (event, pinned host copy of (failed, max
 # resid, max stop), method)
 _PENDING: list = []
+# methods whose eager check stops at the backward-error bound, not at rtol
+_DIRECT_METHODS = ("exactsolve", "custom_exactsolve", "kron_direct")
 
 
 def _fused_cg(A, B, E=None, M=None, rtol: float = 1e-6, atol: float = 1e-8,
@@ -312,7 +315,10 @@ def solve(A: LinearOperator, B: torch.Tensor,
     run without a synchronise: its verdict is copied to the host behind the
     solve, and the warning is emitted by the first later call of
     :func:`solve` that finds the copy done, by
-    :func:`flush_convergence_warnings`, or at the interpreter's exit.
+    :func:`flush_convergence_warnings`, or at the interpreter's exit.  For
+    a :class:`TridiagLowRankOperator` in float32 on CUDA tensors (without
+    M) the check is one kernel launch (ops/tlr_residual.py) instead of the
+    matvec and norms.
     """
     with span("xt.solve"):
         return _solve(A, B, E, M, bck_options, method, return_info, fwd_options)
@@ -514,32 +520,35 @@ class _SolveFunction(torch.autograd.Function):
 
 def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
     """Warn if the returned solution's measured residual is above 10x the
-    tolerance (one extra matvec).  For structured_cg on CUDA tensors the
-    verdict is queued (:func:`_report_pending`) instead of read, so the
-    call does not synchronise.  Skipped while a program is traced."""
+    tolerance (one extra matvec, or the fused residual kernel where
+    :func:`_fused_verdict` takes the problem).  For structured_cg on CUDA
+    tensors the verdict is queued (:func:`_report_pending`) instead of
+    read, so the call does not synchronise.  Skipped while a program is
+    traced."""
     if tracing():
         return
     rtol = fwd_options.get("rtol", 1e-6)
     atol = fwd_options.get("atol", 1e-8)
+    direct = isinstance(method, str) and method in _DIRECT_METHODS
     with torch.no_grad():
-        Ax = A.mm(x)
-        if E is not None:
-            Mx = M.mm(x) if M is not None else x
-            Ax = Ax - Mx * E[..., None, :]
-        resid = torch.linalg.norm(Ax - B2, dim=-2)
-        bnorm = torch.linalg.norm(B2, dim=-2)
-        stop = torch.clamp(rtol * bnorm, min=atol)
-        if isinstance(method, str) and method in ("exactsolve", "custom_exactsolve",
-                                                  "kron_direct"):
-            # direct methods have no iteration tolerance: their residual
-            # floor is the backward-error bound ~eps*(|Ax| + |B|)
-            eps_d = torch.finfo(x.dtype).eps
-            scale = torch.linalg.norm(Ax, dim=-2) + bnorm
-            stop = torch.maximum(stop, 100 * eps_d * scale)
-        if resid.numel() == 0:
-            return
-        verdict = torch.stack([(resid > 10 * stop).any().to(resid.dtype),
-                               resid.max(), stop.max()])
+        verdict = _fused_verdict(A, B2, E, M, x, method, rtol, atol) if x.is_cuda else None
+        if verdict is None:
+            Ax = A.mm(x)
+            if E is not None:
+                Mx = M.mm(x) if M is not None else x
+                Ax = Ax - Mx * E[..., None, :]
+            resid = torch.linalg.norm(Ax - B2, dim=-2)
+            bnorm = torch.linalg.norm(B2, dim=-2)
+            stop = torch.clamp(rtol * bnorm, min=atol)
+            if direct:
+                # direct methods have no iteration tolerance: their residual
+                # floor is the backward-error bound ~eps*(|Ax| + |B|)
+                eps_d = torch.finfo(x.dtype).eps
+                scale = torch.linalg.norm(Ax, dim=-2) + bnorm
+                stop = torch.maximum(stop, 100 * eps_d * scale)
+            if resid.numel() == 0:
+                return
+            verdict = residual_verdict(resid, stop)
         if verdict.is_cuda and method == "structured_cg":
             host = torch.empty(3, dtype=verdict.dtype, pin_memory=True)
             with torch.cuda.device(verdict.device):
@@ -549,6 +558,22 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
             _PENDING.append((done, host, method))
             return
     _warn_verdict(verdict, method)
+
+
+def _fused_verdict(A, B2, E, M, x, method, rtol, atol) -> Optional[torch.Tensor]:
+    """The check's verdict from the residual operator (ops/tlr_residual.py;
+    the fused kernel on CUDA tensors, its plain version on CPU tensors)
+    where it takes the problem: a :class:`TridiagLowRankOperator` without
+    M, float32, not a direct method (whose stop needs ``||Ax||``), n and
+    the rank inside the kernel, rows contiguous along n.  None otherwise:
+    the generic check runs.  :func:`_warn_eager` asks it for CUDA tensors
+    only."""
+    if not (isinstance(A, TridiagLowRankOperator) and M is None
+            and not (isinstance(method, str) and method in _DIRECT_METHODS)
+            and all(t.dtype == torch.float32
+                    for t in (A.d, A.c, A.V, x, B2, E) if t is not None)):
+        return None
+    return tlr_residual_check(A.d, A.c, A.V, x, B2, E, rtol, atol)
 
 
 def _warn_verdict(verdict: torch.Tensor, method) -> None:
