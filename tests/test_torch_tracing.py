@@ -122,12 +122,13 @@ def test_counts_kept_only_while_a_profiler_records(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         _, it, _ = structured_cg.structured_cg_solve(*flat)
         _, sweeps = jacobi_eigh.jacobi_sweep(panel, 18, 1e-6)
-        # the complex sweep kernel keeps nothing: no metric reads its sweeps
-        jacobi_eigh.jacobi_sweep(torch.cat([panel, torch.zeros_like(panel)], -1), 18, 1e-6,
-                                 complexpair=True)
+        # the complex sweep kernel keeps its own count (jacobi_sweeps_complex reads it)
+        _, csweeps = jacobi_eigh.jacobi_sweep(torch.cat([panel, torch.zeros_like(panel)], -1),
+                                              18, 1e-6, complexpair=True)
     kept_cg, kept_sw = profiling.counts("structured_cg"), profiling.counts("jacobi_sweep")
     assert len(kept_cg) == len(kept_sw) == 1
-    assert set(profiling._COUNTS) == {"structured_cg", "jacobi_sweep"}
+    assert set(profiling._COUNTS) == {"structured_cg", "jacobi_sweep", "jacobi_sweep_complex"}
+    assert [torch.equal(t, csweeps) for t in profiling.counts("jacobi_sweep_complex")] == [True]
     # the kept entries are the plain versions' own counts
     Vf = V.detach().transpose(1, 2).contiguous()
     _, it_plain, _ = structured_cg.structured_cg_plain(
@@ -138,6 +139,49 @@ def test_counts_kept_only_while_a_profiler_records(monkeypatch):
     assert torch.equal(kept_sw[-1], sweeps) and torch.equal(kept_sw[-1], sweeps_plain)
     assert counts.mean_per_system("jacobi_sweep") == pytest.approx(
         float(sum(t.double().sum() for t in kept_sw)) / sum(t.numel() for t in kept_sw))
+
+
+def test_complex_sweep_count_kept_only_while_a_profiler_records(monkeypatch):
+    """The complex kernel's per-matrix sweeps, the plain version's own, are
+    kept under ``jacobi_sweep_complex`` while a profiler records, and not
+    otherwise."""
+    monkeypatch.setattr(profiling, "_COUNTS", {})
+    h = _spd(B=3, n=32).to(torch.complex64)
+    h = h + 0.1j * (h.real.tril(-1) - h.real.triu(1))
+    a = jacobi_eigh._shift_pad(h, 32)
+    cpanel = torch.cat([a.real, -a.imag], -1)
+    jacobi_eigh.jacobi_sweep(cpanel, 18, 1e-6, complexpair=True)
+    assert profiling.counts("jacobi_sweep_complex") == [] and profiling._COUNTS == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, sweeps = jacobi_eigh.jacobi_sweep(cpanel, 18, 1e-6, complexpair=True)
+    _, plain = jacobi_eigh.jacobi_sweep_plain(cpanel, 18, 1e-6, complexpair=True)
+    kept = profiling.counts("jacobi_sweep_complex")
+    assert len(kept) == 1 and torch.equal(kept[0], sweeps) and torch.equal(kept[0], plain)
+    assert set(profiling._COUNTS) == {"jacobi_sweep_complex"}
+    assert counts.mean_per_system("jacobi_sweep_complex") == pytest.approx(
+        float(plain.double().mean()))
+
+
+def test_degen_eigh_backward_holds_its_span_only_under_a_profiler(monkeypatch):
+    """``xt.symeig.backward`` wraps ``degen_eigh``'s backward under a
+    profiler, outside the forward's spans; without one the span is the
+    shared no-op and no profiler range is entered."""
+    A = _spd().to(torch.complex64).requires_grad_(True)
+    op = xt.LinearOperator.m(A, is_hermitian=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        evals, _ = xt.linalg.symeig(op, 16, "lowest", method="exacteig")
+        torch.autograd.grad((evals[:, 7:9] ** 2).sum(), [A])
+    ev = [e for e in prof.events() if e.name.startswith("xt.")]
+    assert [(e.name, None if _xt_parent(e) is None else _xt_parent(e).name) for e in ev] == [
+        ("xt.symeig", None), ("xt.symeig.method", "xt.symeig"), ("xt.symeig.backward", None)]
+    back = [e for e in prof.events() if e.name == "xt.symeig.backward"][0]
+    assert any(_xt_parent(e) is back for e in prof.events() if "matmul" in e.name)
+    entered = []
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", lambda *a: entered.append(a))
+    evals, _ = xt.linalg.symeig(xt.LinearOperator.m(A, is_hermitian=True), 16, "lowest",
+                                method="exacteig")
+    (g,) = torch.autograd.grad((evals[:, 7:9] ** 2).sum(), [A])
+    assert entered == [] and torch.isfinite(torch.view_as_real(g)).all()
 
 
 def test_count_list_is_bounded_oldest_dropped(monkeypatch):

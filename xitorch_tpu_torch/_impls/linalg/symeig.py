@@ -32,6 +32,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from xitorch_tpu_torch._core.linop import LinearOperator, MatrixLinearOperator
+from xitorch_tpu_torch.debug.profiling import span
 from xitorch_tpu_torch.utils.bcast import get_bcasted_dims
 from xitorch_tpu_torch.utils.tensor import dot_hi, tallqr
 
@@ -144,8 +145,9 @@ class _DegenEigh(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gevals, gevecs):
         evals, evecs = ctx.saved_tensors
-        return _transpose_rule(lambda dA: _eigh_tangents(evals, evecs, dA),
-                               evecs, (gevals, gevecs), torch.is_grad_enabled())
+        with span("xt.symeig.backward"):
+            return _transpose_rule(lambda dA: _eigh_tangents(evals, evecs, dA),
+                                   evecs, (gevals, gevecs), torch.is_grad_enabled())
 
 
 class _DegenSvd(torch.autograd.Function):

@@ -20,13 +20,16 @@ on the autograd engine's thread, where nothing nests it under its forward):
   ``xt.solve``, and the gradient contractions);
 * ``xt.symeig``: ``linalg.symeig``, whole;
 * ``xt.symeig.method``: the eigen method (for exacteig the shift, the sweep
-  kernel's operator, extraction, polish and sort).
+  kernel's operator, extraction, polish and sort);
+* ``xt.symeig.backward``: the backward of ``degen_eigh`` (the transposed
+  tangent rule), which may run on the autograd engine's thread.
 
 Counts (:func:`count`, read by :func:`counts`): the per-system count tensor
 each kernel call returns, kept by reference (no launch, no copy) for the
 last ``COUNT_KEEP`` calls of each kernel, the oldest dropped:
-``"structured_cg"`` (CG iterations a system) and ``"jacobi_sweep"``
-(sweeps a matrix, the real sweep kernel).
+``"structured_cg"`` (CG iterations a system), ``"jacobi_sweep"`` (sweeps
+a matrix, the real sweep kernel) and ``"jacobi_sweep_complex"`` (sweeps a
+matrix, the complex one).
 """
 from __future__ import annotations
 

@@ -518,8 +518,7 @@ def jacobi_sweep(panel: torch.Tensor, max_sweeps: int, tol: float,
     check_device(panel)
     op = _sweep_complex_op if complexpair else _sweep_op
     G, sweeps, drift = op(panel.contiguous(), int(max_sweeps), float(tol))
-    if not complexpair:
-        count("jacobi_sweep", sweeps)
+    count("jacobi_sweep_complex" if complexpair else "jacobi_sweep", sweeps)
     return (G, sweeps, drift) if return_drift else (G, sweeps)
 
 
