@@ -14,6 +14,10 @@ paths give it, and drives these configurations through the public API:
   (the structured-CG kernel's register design, its shared-memory design
   held and timed beside it), and with ``V = None`` forward and gradient
   (the Thomas kernel, beside a probe of its recurrence's chain alone);
+  the eager check's residual kernel and the backward's gradient kernel
+  against their plain versions, their launches counted after every solve
+  and gradient, and the gradient kernel timed at 512 and 262,144 systems
+  beside its plain version and the generic route it replaces;
 * BASELINE config 2: 64 dense symmetric matrices of 256 x 256, float32,
   ``linalg.symeig(A, 8, "lowest")`` by exacteig, davidson, chebfsi and
   the default routing (which must be exacteig through the sweep kernel,
@@ -198,6 +202,10 @@ DC_LEVEL_F64 = 4.0
 # thread a system), at config 3 on an NVIDIA H100 80GB HBM3 at 700 W,
 # timed in turns with the present one while both were built (PERF.md)
 THOMAS_REPLACED_MS = 0.5844
+
+# the systems a call of the benchmark's gradient cell (portbench's
+# lines_262144_grad), where grad_phase times the backward's gradient kernel
+GRAD_BIG = 262144
 
 # path A: the upstream solve benchmark's grid (benchmarks/benchmarks_solve.py)
 # and one batched point at full width
@@ -2790,6 +2798,7 @@ def config3(torch, np, xt, device, card, chain_probe):
         choose_path, fits_structured_cg, register_attrs, register_window, structured_cg_cuda,
         structured_cg_plain,
     )
+    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_cuda, tlr_grad_plain
     from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda, tlr_residual_plain
     from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
@@ -2955,12 +2964,13 @@ def config3(torch, np, xt, device, card, chain_probe):
                          reps=3, inner=1)
     del T_dense, x_lib
 
-    launches = {"structured_cg": 0, "thomas": 0, "tlr_residual": 0}
+    launches = {"structured_cg": 0, "thomas": 0, "tlr_residual": 0, "tlr_grad": 0}
 
     def reset():
         structured_cg_cuda.launches = 0
         thomas_cuda.launches = 0
         tlr_residual_cuda.launches = 0
+        tlr_grad_cuda.launches = 0
 
     def read_check(what, want):
         # the eager convergence checks since reset(): one residual launch a
@@ -2968,6 +2978,12 @@ def config3(torch, np, xt, device, card, chain_probe):
         got = read("tlr_residual", tlr_residual_cuda)
         print("%s: residual kernel launches %d (expected %d)" % (what, got, want))
         check(got == want, "%s: %d residual kernel launches, expected %d" % (what, got, want))
+
+    def read_grad(what, want):
+        # the first-order backwards since reset(): one gradient launch each
+        got = read("tlr_grad", tlr_grad_cuda)
+        print("%s: gradient kernel launches %d (expected %d)" % (what, got, want))
+        check(got == want, "%s: %d gradient kernel launches, expected %d" % (what, got, want))
 
     def read(name, fn):
         torch.cuda.synchronize()
@@ -3052,6 +3068,7 @@ def config3(torch, np, xt, device, card, chain_probe):
           "torch.linalg.solve autograd: d %.3e, c %.3e, b %.3e" % (n_th_grad, *rels_tri))
     check(n_th_grad == 2, "V=None gradient: %d thomas launches, expected 2" % n_th_grad)
     read_check("V=None gradient", 2)
+    read_grad("V=None gradient", 1)
     check(all(bool(torch.isfinite(g).all()) for g in g_tri) and max(rels_tri) <= 1e-3,
           "V=None gradient disagrees with float64: %s" % rels_tri)
     del g_ref
@@ -3096,8 +3113,10 @@ def config3(torch, np, xt, device, card, chain_probe):
     g_k = grads("structured_cg")
     n_grad = read("structured_cg", structured_cg_cuda)
     read_check("gradient", 2)
+    read_grad("gradient", 1)
+    reset()
     g_p = grads(plain_structured_cg)
-    torch.cuda.synchronize()
+    read_grad("gradient, plain CG", 1)
     rels = [float(torch.linalg.norm(a - p) / torch.linalg.norm(p)) for a, p in zip(g_k, g_p)]
     print("gradient: cg launches %d (forward + adjoint); rel L2 err vs plain on the card: "
           "d %.3e, c %.3e, V %.3e, b %.3e" % (n_grad, *rels))
@@ -3106,6 +3125,12 @@ def config3(torch, np, xt, device, card, chain_probe):
     # both sides stop at half of rtol=1e-6 in f32; the gradients are
     # products of two such solves
     check(max(rels) <= 1e-3, "gradient disagrees with the plain path: %s" % rels)
+    # the backward's gradient kernel on this gradient's x and adjoint lam
+    # (A is symmetric: lam solves A lam = w), and at the benchmark's
+    # 262,144 systems
+    lam = xt.linalg.solve(A, w, method="structured_cg", rtol=RTOL, atol=ATOL)
+    grad_record = grad_phase(torch, xt, tlr_grad_cuda, tlr_grad_plain, A, x, lam, card)
+    del lam
 
     # ---- 6. timing ----
     # the two CG designs in turns (register, shared, shared, register)
@@ -3216,6 +3241,7 @@ def config3(torch, np, xt, device, card, chain_probe):
          "ms": th_dev_ms, "plain_ms": th_plain_ms, "bound_ms": th_bound,
          "bound_by": th_by, "library_ms": th_lib_ms, "chain_floor_ms": chain_dev_ms},
         dict(res_record, launches=launches["tlr_residual"]),
+        dict(grad_record, launches=launches["tlr_grad"]),
     ]
 
 
@@ -3278,6 +3304,126 @@ def residual_phase(torch, kernel, plain, cases, card):
         else:
             record[what.lower().replace(" ", "_")] = {
                 "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound}
+    return record
+
+
+def grad_rounding(torch, plain, lam, x, V, coupling):
+    """Bounds of the float32 rounding of the gradient kernel's outputs
+    ``(gd, gV, gc, gE)`` against their exact values: each element within
+    (16 + W) eps of the closed form on the terms' magnitudes (W warps a
+    system: the depth of the kernel's sums: 4 elements a thread, a warp's
+    5 shuffles, W warps, the products); a scalar coupling's sum of every
+    bond within 64 eps times the bonds' 2-norm, the size of the rounding of
+    a long sum taken in any order (no worst case: that exceeds the sum)."""
+    eps = torch.finfo(torch.float32).eps
+    n = x.shape[-1]
+    warps = 1
+    while 128 * warps < n:
+        warps *= 2
+    la, xa = lam.abs().double(), x.abs().double()
+    mags = plain(la, xa, None if V is None else V.abs().double(), True, 2, True)
+    out = [(16 + warps) * eps * m.abs().float() for m in mags]
+    if coupling == 1:
+        ld, xd = lam.double(), x.double()
+        bonds = ld[..., :-1] * xd[..., 1:] + ld[..., 1:] * xd[..., :-1]
+        out[2] = 64 * eps * float(torch.linalg.norm(bonds))
+    return out
+
+
+def grad_phase(torch, xt, kernel, plain, A, x, lam, card):
+    """The backward's gradient kernel (``csrc/tlr_grad.cu``) on config 3:
+    at this phase's 512 x 1,024 on a gradient's own x and lam, asked for d
+    and V (the benchmark's gradient), for d, c and V (this phase's), and
+    for d and c without V; then at the benchmark's 262,144 x 1,024 (d and
+    V) on random rows.  Each output against its exact value (the closed
+    form in float64 on the same float32 rows) within :func:`grad_rounding`,
+    and the generic route's (``autograd.grad`` of ``A.mm(x)``) error
+    beside it; the kernel timed by device time and events beside the plain
+    version and the generic route, with the bound of its bytes.  Returns
+    the record of the first case, with the others'."""
+    n = A.shape[-1]
+    r = A.V.shape[-1]
+
+    def generic(d, c, V, x, lam, want):
+        # the backward's generic route: autograd.grad of A.mm(x) at fixed x
+        with torch.enable_grad():
+            leaves = {"d": d.detach().requires_grad_("d" in want),
+                      "c": c.detach().requires_grad_("c" in want),
+                      "V": None if V is None else V.detach().requires_grad_("V" in want)}
+            Ag = xt.TridiagLowRankOperator(leaves["d"], leaves["c"], leaves["V"])
+            return torch.autograd.grad(Ag.mm(x), [leaves[nm] for nm in want], -lam)
+
+    g = torch.Generator(device=x.device).manual_seed(3)
+    big = GRAD_BIG
+    big_rows = (torch.randn(big, 1, n, generator=g, device=x.device),
+                torch.randn(big, 1, n, generator=g, device=x.device),
+                torch.randn(big, n, r, generator=g, device=x.device) / math.sqrt(n))
+    cases = {
+        "d, V": (A.d, A.c, A.V, x, lam, ("d", "V")),
+        "d, c, V": (A.d, A.c, A.V, x, lam, ("d", "c", "V")),
+        "d, c, V None": (A.d, A.c, None, x, lam, ("d", "c")),
+        "d, V, %d x %d" % (big, n): (torch.full((big, n), 5.0, device=x.device),
+                                     A.c, big_rows[2], big_rows[1].mT, big_rows[0].mT,
+                                     ("d", "V")),
+    }
+    record = {}
+    for i, (what, (d, cc, V, xs, ls, want)) in enumerate(cases.items()):
+        coupling = 1 if "c" in want else 0
+        args = (ls.mT, xs.mT, V if "V" in want else None, "d" in want, coupling, False)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        Kc = args[1].shape[0]
+        # exact values of the rows checked: all at 512, the first 16,384 at 262,144
+        rows = min(Kc, 16384)
+        sub = (args[0][:rows], args[1][:rows], None if args[2] is None else args[2][:rows])
+        exact = plain(sub[0].double(), sub[1].double(),
+                      None if sub[2] is None else sub[2].double(), *args[3:])
+        bounds = grad_rounding(torch, plain, *sub, coupling)
+        if coupling == 1 and rows < Kc:
+            bounds[2] = None   # a scalar's sum over every system: only at 512
+        ref_rows = generic(d[:rows], cc if cc.ndim == 0 else cc[:rows],
+                           None if V is None else V[:rows], xs[:rows], ls[:rows], want)
+        ref = dict(zip(want, ref_rows))
+        errs = []
+        for nm, k in (("d", 0), ("V", 1), ("c", 2)):
+            if nm not in want or bounds[k] is None:
+                continue
+            kg = got[k][:rows] if got[k].ndim else got[k]
+            e_k = (kg.double() - exact[k]).abs()
+            e_g = (ref[nm].double() - exact[k]).abs()
+            ok = bool((e_k <= torch.as_tensor(bounds[k], device=e_k.device)).all())
+            print("gradient kernel (%s) %s: max |kernel - exact| %.3e, max |generic - exact| "
+                  "%.3e, max bound %.3e, within: %s"
+                  % (what, nm, float(e_k.max()), float(e_g.max()),
+                     float(torch.as_tensor(bounds[k]).max()), ok))
+            check(ok and all(bool(torch.isfinite(t).all()) for t in got),
+                  "gradient kernel (%s) %s outside its rounding bound" % (what, nm))
+            errs.append(float(e_k.max()))
+        del exact, ref, ref_rows
+        k_ms = kernel_device_ms(torch, lambda: kernel(*args), "tlr_grad_kernel")
+        k_ev_ms = timed_ms(torch, lambda: kernel(*args))
+        plain_ms = timed_ms(torch, lambda: plain(*args), reps=3, inner=2)
+        gen_ms = timed_ms(torch, lambda: generic(d, cc, V, xs, ls, want), reps=3, inner=2)
+        rv = 0 if args[2] is None else r
+        # lam, x and V read once; gd, gV (and a coupling plane) written once
+        nbytes = ((2 + rv) + ("d" in want) + rv) * n * Kc * 4
+        k_bound, k_by = bound(nbytes, (6 * rv + 4) * n * Kc)
+        print("  gradient kernel (%s, K=%d, n=%d): %.4f ms (device time by name; events "
+              "%.4f ms), plain %.3f ms, the generic route (autograd through A.mm) %.3f ms, "
+              "bound %.4f ms (%s): %.1f %% of it%s [%s]"
+              % (what, Kc, n, k_ms, k_ev_ms, plain_ms, gen_ms, k_bound, k_by,
+                 100 * k_bound / k_ms, " (its %.0f MB stay in the 50 MB L2 between launches)"
+                 % (nbytes / 1e6) if nbytes < 50e6 else "", card))
+        entry = {"max_abs_err": max(errs), "ms": k_ms, "events_ms": k_ev_ms,
+                 "plain_ms": plain_ms, "generic_ms": gen_ms, "bound_ms": k_bound}
+        if i == 0:
+            record = dict({"name": "tlr_grad", "path": "config 3: the backward's gradients "
+                           "to %s, %d x %d" % (what, Kc, n), "route": "cuda",
+                           "source": "xitorch_tpu_torch/csrc/tlr_grad.cu", "replaces": None,
+                           "bound_by": k_by, "library_ms": None}, **entry)
+        else:
+            record[what.replace(",", "").replace(" ", "_")] = entry
+        del got
     return record
 
 
@@ -4428,7 +4574,8 @@ def main(argv=None) -> int:
     chain_probe = start_chain_probe() if args.only in (None, "solve") and not args.gate_sizes \
         else None
     libs = _build.build(["structured_cg", "tridiag", "jacobi_sweep", "dc_kernel",
-                         "jacobi_sweep_complex", "fused_cg", "dc_level", "tlr_residual"])
+                         "jacobi_sweep_complex", "fused_cg", "dc_level", "tlr_residual",
+                         "tlr_grad"])
     print("build: %.1f s; %s" % (time.perf_counter() - t0,
                                  ", ".join(os.path.relpath(p, HERE) for p in libs.values())))
     if args.gate_sizes:

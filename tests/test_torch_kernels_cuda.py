@@ -1019,7 +1019,7 @@ def test_squad_on_card_within_its_gate(cuda):
 
 
 def _op_cases_on(device):
-    """Small inputs of the eight kernel operators on ``device``."""
+    """Small inputs of the nine kernel operators on ``device``."""
     from xitorch_tpu_torch.ops import spectral_dc
 
     g = torch.Generator().manual_seed(0)
@@ -1045,6 +1045,7 @@ def _op_cases_on(device):
                      1e-6, 1e-8, 96, 1e-12),
         "tlr_residual": (b[:, None, :], dl[:, None, :], d, torch.tensor(0.5).expand(K, n - 1),
                          V.mT.contiguous(), None, 1e-6, 1e-8),
+        "tlr_grad": (b[:, None, :], dl[:, None, :], V.mT.contiguous(), True, 1, True),
     }
     return {k: tuple(v.to(device) if torch.is_tensor(v) else v for v in args)
             for k, args in cases.items()}
@@ -1053,7 +1054,7 @@ def _op_cases_on(device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["thomas", "structured_cg", "jacobi_sweep",
                                   "jacobi_sweep_complex", "dc_precondition", "dc_level",
-                                  "fused_cg", "tlr_residual"])
+                                  "fused_cg", "tlr_residual", "tlr_grad"])
 def test_kernel_operators_pass_opcheck_on_the_card(cuda, name):
     """Each operator's CUDA implementation (the launcher) against its fake:
     shapes, types, no aliasing, and a launch per call."""
@@ -1298,3 +1299,141 @@ def test_failing_solve_warns_through_the_residual_kernel(cuda):
     assert [w.category for w in caught] == [ConvergenceWarning]
     assert str(caught[0].message).startswith(
         "solve (method=structured_cg) did not converge: max residual ")
+
+
+def _grad_rows(K, n, r, J, device, seed=0):
+    """Rows (K, J, n) of lam and x and V (K, n, r) or None, at config 3's
+    scales (x and lam of unit size, V = N(0, 1) / sqrt(n))."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lam = torch.randn(K, J, n, generator=g, device=device)
+    x = torch.randn(K, J, n, generator=g, device=device)
+    V = torch.randn(K, n, r, generator=g, device=device) / n ** 0.5 if r else None
+    return lam, x, V
+
+
+def _hold_grad_kernel(lam, x, V, want_d, coupling, want_e):
+    """The kernel's outputs against the exact closed form (float64 on the
+    same float32 rows) within chip_smoke's rounding bounds, the plain
+    version's beside them; and a second launch gives the same bits."""
+    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_cuda, tlr_grad_plain
+
+    args = (lam, x, V, want_d, coupling, want_e)
+    got = tlr_grad_cuda(*args)
+    again = tlr_grad_cuda(*args)
+    torch.cuda.synchronize()
+    plain = tlr_grad_plain(*args)
+    exact = tlr_grad_plain(lam.double(), x.double(), None if V is None else V.double(),
+                           want_d, coupling, want_e)
+    bounds = _chip_smoke().grad_rounding(torch, tlr_grad_plain, lam, x, V, coupling)
+    for k, (kg, pg, ex, bd) in enumerate(zip(got, plain, exact, bounds)):
+        assert kg.shape == pg.shape == ex.shape and torch.equal(kg, again[k])
+        if not ex.numel():
+            continue
+        bd = torch.as_tensor(bd, device=kg.device)
+        assert bool(((kg.double() - ex).abs() <= bd).all()), k
+        assert bool(((pg.double() - ex).abs() <= bd).all()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, n, r, J, coupling", [
+    (512, 1024, 4, 1, 1),      # config 3 (chip_smoke's batch), a scalar coupling
+    (512, 1024, 4, 1, 2),      # a coupling plane
+    (512, 1024, 0, 1, 1),      # V = None
+    (512, 1024, 0, 1, 2),
+    (8192, 1024, 4, 1, 1),
+    (8192, 1024, 4, 1, 2),
+    (8192, 1024, 0, 1, 1),
+    (8192, 1024, 0, 1, 2),
+    (5003, 1024, 4, 1, 1),     # K not a multiple of the grid
+    (37, 33, 3, 3, 2),         # n % 4 != 0: element loads; several columns
+    (300, 64, 2, 2, 1),        # several systems a block
+    (9, 4096, 8, 1, 2),        # 1,024 threads a system, rank 8
+    (64, 1000, 1, 4, 0),
+    (5, 2, 2, 1, 2),
+    (7, 1, 1, 2, 1),           # n = 1: no bond
+])
+def test_tlr_grad_kernel_matches_plain(cuda, K, n, r, J, coupling):
+    """The gradient kernel against the exact closed form with every output
+    asked for, and with gV alone (or gd alone without V): each element
+    within the float32 rounding bound of the kernel's order of summation
+    ((16 + W) eps of the terms' magnitudes, W warps a system; a scalar
+    coupling's sum 64 eps of the bonds' 2-norm)."""
+    lam, x, V = _grad_rows(K, n, r, J, cuda)
+    _hold_grad_kernel(lam, x, V, True, coupling, True)
+    _hold_grad_kernel(lam, x, V, V is None, 0, False)
+
+
+def _config3_leaves(device, K=512, n=1024, seed=7, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(K, n)), dtype=dtype, device=device)
+    V = torch.tensor(rng.standard_normal((K, n, 4)) / n ** 0.5, dtype=dtype, device=device)
+    b = torch.tensor(rng.standard_normal((K, n, 1)), dtype=dtype, device=device)
+    w = torch.tensor(rng.standard_normal((K, n, 1)), dtype=dtype, device=device)
+    c = torch.tensor(1.0, dtype=dtype, device=device)
+    return d, c, V, b, w
+
+
+@pytest.mark.cuda
+def test_tlr_grad_route_matches_the_generic_one_on_the_card(cuda):
+    """On a config 3 gradient's own x and lam, solve's fused route
+    (``_fused_param_grads``, the kernel) against the generic route
+    (``autograd.grad`` of ``A.mm(x)`` with ``-lam``) on the card: d, c and
+    V within twice the rounding bound of the exact closed form."""
+    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_plain
+
+    solve_mod = importlib.import_module("xitorch_tpu_torch.linalg.solve")
+    d, c, V, b, w = _config3_leaves(cuda)
+    A = xt.TridiagLowRankOperator(d, c, V)
+    x = xt.linalg.solve(A, b, method="structured_cg")
+    lam = xt.linalg.solve(A, w, method="structured_cg")
+    with torch.no_grad():
+        fused = solve_mod._fused_param_grads(A, None, x, lam, None,
+                                             (False, True, False, True, True, True), False)
+    leaves = [t.detach().clone().requires_grad_() for t in (d, c, V)]
+    with torch.enable_grad():
+        generic = torch.autograd.grad(xt.TridiagLowRankOperator(*leaves).mm(x), leaves, -lam)
+    bounds = _chip_smoke().grad_rounding(torch, tlr_grad_plain, lam.mT, x.mT, V, 1)
+    for f, g, bd in zip(fused[1:], generic, (bounds[0], bounds[2], bounds[1])):
+        assert f.shape == g.shape
+        bd = torch.as_tensor(bd, device=f.device).view(f.shape)
+        assert bool(((f - g).abs() <= 2 * bd).all())
+    xt.linalg.flush_convergence_warnings()
+
+
+@pytest.mark.cuda
+def test_solve_gradient_launches_the_grad_kernel(cuda):
+    """One gradient launch a first-order gradient call of config 3
+    (``autograd.grad`` to d, V, b; and to c too), none for a call with
+    ``create_graph=True`` nor for float64; the second pass of a double
+    backward launches it (its backwards are first order), and the float32
+    double backward agrees with float64's (the generic route throughout)."""
+    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_cuda
+
+    def grads(dtype, wrt_c=False, create=False, second=False):
+        d, c, V, b, w = _config3_leaves(cuda, K=64, dtype=dtype)
+        leaves = [t.requires_grad_() for t in ((d, c, V, b) if wrt_c else (d, V, b))]
+        A = xt.TridiagLowRankOperator(d, c, V)
+        x = xt.linalg.solve(A, b, method="structured_cg", rtol=1e-7, atol=1e-9)
+        gs = torch.autograd.grad((x * w).sum(), leaves, create_graph=create or second)
+        if second:
+            return torch.autograd.grad(sum((g * g).sum() for g in gs), leaves)
+        return gs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for kw, want in (({}, 1), ({"wrt_c": True}, 1), ({"create": True}, 0)):
+            before = tlr_grad_cuda.launches
+            gs = grads(torch.float32, **kw)
+            torch.cuda.synchronize()
+            assert tlr_grad_cuda.launches == before + want, kw
+            assert all(g.requires_grad for g in gs) == bool(kw.get("create"))
+        before = tlr_grad_cuda.launches
+        grads(torch.float64)
+        assert tlr_grad_cuda.launches == before
+        gg32 = grads(torch.float32, second=True)
+        assert tlr_grad_cuda.launches > before
+        gg64 = grads(torch.float64, second=True)
+        xt.linalg.flush_convergence_warnings()
+    for a, r in zip(gg32, gg64):
+        rel = float(torch.linalg.norm(a.double() - r) / torch.linalg.norm(r))
+        assert rel <= 1e-3, rel

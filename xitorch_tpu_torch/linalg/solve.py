@@ -8,7 +8,10 @@ xitorch_tpu/linalg/solve.py).
   backward is differentiable again), and the gradients to E and to the
   parameters of A and M are ``torch.autograd.grad`` of
   ``-<lam, A X - M X E>`` at fixed X, created with a graph whenever
-  gradients are enabled: first and second order both work.
+  gradients are enabled: first and second order both work.  A first-order
+  backward of a float32 :class:`TridiagLowRankOperator` on CUDA tensors
+  takes these gradients in closed form from one kernel launch instead
+  (ops/tlr_grad.py, :func:`_fused_param_grads`).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from xitorch_tpu_torch.debug.modes import is_debug_enabled
 from xitorch_tpu_torch.debug.profiling import span, tracing
 from xitorch_tpu_torch.ops.fused_cg import fits_fused_cg, fused_cg_dense
 from xitorch_tpu_torch.ops.structured_cg import fits_structured_cg, structured_cg_solve
+from xitorch_tpu_torch.ops.tlr_grad import tlr_param_grads
 from xitorch_tpu_torch.ops.tlr_residual import residual_verdict, tlr_residual_check
 from xitorch_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve_kernel
 from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
@@ -493,9 +497,14 @@ class _SolveFunction(torch.autograd.Function):
                 grads[1] = lam
             wrt = [i for i, p in enumerate(params) if need[3 + i]]
             if need[2] or wrt:
+                create = torch.is_grad_enabled()  # True only in double backward
+                fused = _fused_param_grads(A, M, x, lam, E, need, create) \
+                    if x.is_cuda else None
+                if fused is not None:
+                    grads[2:] = fused
+                    return tuple(grads)
                 # stand-ins of the parameters: the derivative of A X - M X E
                 # with X held fixed (X's own graph leads to the originals)
-                create = torch.is_grad_enabled()  # True only in double backward
                 with torch.enable_grad(), ExitStack() as stack:
                     alias = {id(params[i]): params[i].view_as(params[i]) for i in wrt}
                     stack.enter_context(A._replaced_params(alias))
@@ -516,6 +525,30 @@ class _SolveFunction(torch.autograd.Function):
                 if need[2]:
                     grads[2] = torch.zeros_like(E) if gs[-1] is None else gs[-1]
             return tuple(grads)
+
+
+def _fused_param_grads(A, M, x, lam, E, need, create) -> Optional[list]:
+    """The gradients to E and to A's parameters, ``[gE, *per parameter]``
+    in the order of ``_SolveFunction``'s inputs (None where not needed),
+    from the gradient operator (ops/tlr_grad.py; the kernel on CUDA
+    tensors, its plain version on CPU tensors) where it takes the problem:
+    a first-order backward (``create`` False) of a
+    :class:`TridiagLowRankOperator` without M, in float32, whose tensors
+    that need a gradient are not broadcast along the system axis, n and
+    the rank inside the kernel, the columns of x and lam contiguous along
+    n.  None otherwise: the generic ``autograd.grad`` through ``A.mm(x)``
+    runs.  :meth:`_SolveFunction.backward` asks it for CUDA tensors only."""
+    if create or M is not None or not isinstance(A, TridiagLowRankOperator):
+        return None
+    params = _params(A, M)
+    own = [A.d, A.c] + ([A.V] if A.V is not None else [])
+    if [id(p) for p in params] != [id(t) for t in own] or not all(
+            t.dtype == torch.float32 for t in (*own, x, lam, E) if t is not None):
+        return None
+    need_d, need_c = need[3], need[4]
+    need_V = A.V is not None and need[5]
+    got = tlr_param_grads(A.d, A.c, A.V, x, lam, E, need_d, need_c, need_V, need[2])
+    return None if got is None else list(got[:1 + len(own)])
 
 
 def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:

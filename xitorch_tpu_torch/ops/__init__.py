@@ -10,6 +10,9 @@ from xitorch_tpu_torch.ops.tridiag import (  # noqa: F401
 from xitorch_tpu_torch.ops.tlr_residual import (  # noqa: F401
     fits_tlr_residual, tlr_residual_cuda, tlr_residual_plain,
 )
+from xitorch_tpu_torch.ops.tlr_grad import (  # noqa: F401
+    fits_tlr_grad, tlr_grad_cuda, tlr_grad_plain,
+)
 # (jacobi_eigh is not re-exported under its own name: it would shadow the
 # submodule of the same name and its ENABLED switch)
 from xitorch_tpu_torch.ops.jacobi_eigh import (  # noqa: F401
