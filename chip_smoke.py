@@ -2798,8 +2798,9 @@ def config3(torch, np, xt, device, card, chain_probe):
         choose_path, fits_structured_cg, register_attrs, register_window, structured_cg_cuda,
         structured_cg_plain,
     )
-    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_cuda, tlr_grad_plain
-    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda, tlr_residual_plain
+    from xitorch_tpu_torch.ops.tlr import (
+        tlr_grad_cuda, tlr_grad_plain, tlr_residual_cuda, tlr_residual_plain,
+    )
     from xitorch_tpu_torch.ops.tridiag import thomas_cuda, thomas_plain
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 

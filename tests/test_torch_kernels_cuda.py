@@ -16,8 +16,9 @@ forced cluster sizes, the divide-and-conquer kernel with its exports, the per-le
 divide-and-conquer kernel one level at a time, the sweep gate by batch, and
 the fused dense CG kernel's cluster path and device-memory path over odd
 sizes (n % 4 != 0, n = 1, 33), forced cluster sizes, super-groups, float64
-and a broadcast A, and the residual kernel of solve's eager check over
-its layouts and in solve.)
+and a broadcast A, the residual kernel of solve's eager check and the
+backward's gradient kernel over their layouts, in solve and in turns on
+their shared scratch.)
 """
 import importlib.util
 import os
@@ -1182,7 +1183,7 @@ def _residual_rounding(x, b, d, c, V, e):
 
 
 def _tlr_verdicts(args, rtol):
-    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda, tlr_residual_plain
+    from xitorch_tpu_torch.ops.tlr import tlr_residual_cuda, tlr_residual_plain
 
     got = tlr_residual_cuda(*args, rtol, 1e-8)
     torch.cuda.synchronize()
@@ -1246,7 +1247,7 @@ def test_solve_check_launches_the_residual_kernel(cuda):
     """The eager check of a structured_cg solve on config 3's operator is
     one residual launch a forward solve and two a gradient call (the
     forward's and the adjoint's); a dense operator's check launches none."""
-    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda
+    from xitorch_tpu_torch.ops.tlr import tlr_residual_cuda
 
     rng = np.random.default_rng(7)
     d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(16, 1024)), dtype=torch.float32,
@@ -1280,7 +1281,7 @@ def test_failing_solve_warns_through_the_residual_kernel(cuda):
     """A structured_cg solve stopped after one step: its verdict comes from
     the residual kernel and arrives, with the reference's text, at
     flush_convergence_warnings()."""
-    from xitorch_tpu_torch.ops.tlr_residual import tlr_residual_cuda
+    from xitorch_tpu_torch.ops.tlr import tlr_residual_cuda
     from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 
     rng = np.random.default_rng(8)
@@ -1315,7 +1316,7 @@ def _hold_grad_kernel(lam, x, V, want_d, coupling, want_e):
     """The kernel's outputs against the exact closed form (float64 on the
     same float32 rows) within chip_smoke's rounding bounds, the plain
     version's beside them; and a second launch gives the same bits."""
-    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_cuda, tlr_grad_plain
+    from xitorch_tpu_torch.ops.tlr import tlr_grad_cuda, tlr_grad_plain
 
     args = (lam, x, V, want_d, coupling, want_e)
     got = tlr_grad_cuda(*args)
@@ -1363,6 +1364,43 @@ def test_tlr_grad_kernel_matches_plain(cuda, K, n, r, J, coupling):
     _hold_grad_kernel(lam, x, V, V is None, 0, False)
 
 
+@pytest.mark.cuda
+def test_tlr_kernels_share_one_scratch_in_turns(cuda):
+    """The residual and gradient kernels share one scratch a (device,
+    stream) (ops/tlr.py): launched in turns on one stream, then on a second
+    stream, each gives the bits it gives alone, and the ticket word reads 0
+    after each launch.  The gradients take a scalar coupling, so both
+    kernels take a ticket."""
+    from xitorch_tpu_torch.ops import tlr
+
+    K, n, r, J = 5003, 1024, 4, 1
+    args = _tlr_rows(K, n, r, J, cuda)
+    lam, x, V = _grad_rows(K, n, r, J, cuda)
+
+    def residual():
+        return (tlr.tlr_residual_cuda(*args, 1e-9, 1e-8),)
+
+    def grads():
+        return tlr.tlr_grad_cuda(lam, x, V, True, 1, True)
+
+    alone = {}
+    for f in (residual, grads):
+        alone[f] = f()
+        torch.cuda.synchronize()
+    for stream in (torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)):
+        with torch.cuda.stream(stream):
+            outs = [(f, f()) for _ in range(3) for f in (residual, grads)]
+            stream.synchronize()
+            ticket = tlr._SCRATCH[(x.device.index, stream.cuda_stream)][0]
+            assert int(ticket.item()) == 0
+            for f, out in outs:
+                assert all(torch.equal(a, b) for a, b in zip(out, alone[f])), f.__name__
+            for f in (residual, grads, residual):
+                f()
+                stream.synchronize()
+                assert int(ticket.item()) == 0, f.__name__
+
+
 def _config3_leaves(device, K=512, n=1024, seed=7, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     d = torch.tensor(4.0 + 2.0 * rng.uniform(size=(K, n)), dtype=dtype, device=device)
@@ -1379,7 +1417,7 @@ def test_tlr_grad_route_matches_the_generic_one_on_the_card(cuda):
     (``_fused_param_grads``, the kernel) against the generic route
     (``autograd.grad`` of ``A.mm(x)`` with ``-lam``) on the card: d, c and
     V within twice the rounding bound of the exact closed form."""
-    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_plain
+    from xitorch_tpu_torch.ops.tlr import tlr_grad_plain
 
     solve_mod = importlib.import_module("xitorch_tpu_torch.linalg.solve")
     d, c, V, b, w = _config3_leaves(cuda)
@@ -1407,7 +1445,7 @@ def test_solve_gradient_launches_the_grad_kernel(cuda):
     ``create_graph=True`` nor for float64; the second pass of a double
     backward launches it (its backwards are first order), and the float32
     double backward agrees with float64's (the generic route throughout)."""
-    from xitorch_tpu_torch.ops.tlr_grad import tlr_grad_cuda
+    from xitorch_tpu_torch.ops.tlr import tlr_grad_cuda
 
     def grads(dtype, wrt_c=False, create=False, second=False):
         d, c, V, b, w = _config3_leaves(cuda, K=64, dtype=dtype)

@@ -1,5 +1,5 @@
 """The fused route of solve's first-order parameter gradients for
-TridiagLowRankOperator problems (ops/tlr_grad.py), on the CPU.
+TridiagLowRankOperator problems (ops/tlr.py), on the CPU.
 
 ``_SolveFunction.backward`` takes the gradients to d, c, V and E from the
 operator ``xitorch_tpu_torch::tlr_grad`` (``linalg/solve.py::
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import xitorch_tpu_torch as xt
-from xitorch_tpu_torch.ops import tlr_grad as tg
+from xitorch_tpu_torch.ops import tlr as tg
 
 torch.set_num_threads(1)
 

@@ -1,5 +1,5 @@
 """The eager convergence check's fused route for TridiagLowRankOperator
-solves (ops/tlr_residual.py), on the CPU.
+solves (ops/tlr.py), on the CPU.
 
 ``solve``'s check takes the residual operator ``xitorch_tpu_torch::
 tlr_residual`` (``linalg/solve.py::_fused_verdict``) only for a
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import xitorch_tpu_torch as xt
-from xitorch_tpu_torch.ops import tlr_residual as tlr
+from xitorch_tpu_torch.ops import tlr
 
 torch.set_num_threads(1)
 
@@ -116,6 +116,27 @@ def test_fused_check_gives_the_generic_verdict(monkeypatch, rank, coupling, shif
     else:
         assert fused[1] == pytest.approx(generic[1], rel=1e-5)
     assert fused[2] == pytest.approx(generic[2], rel=1e-5)
+
+
+@pytest.mark.parametrize("rank, coupling, shift, ncols, bcast_d", CASES)
+def test_rows_are_views_of_the_solves_tensors(rank, coupling, shift, ncols, bcast_d):
+    """``ops/tlr.py::tlr_rows``, the one layout of both kernels, puts each
+    of solve's tensors into its (K, ...) view without a copy: the same
+    storage, a broadcast as stride 0, each row contiguous along n."""
+    A, B, E = _problem(rank, coupling, shift, ncols, bcast_d)
+    rows = tlr.tlr_rows(B, B, A.d, A.c, A.V, E)
+    assert rows is not None
+    given = (B, B, A.d, A.c, A.V, E)
+    shapes = ((K, ncols, N), (K, ncols, N), (K, N), (K, N - 1), (K, N, rank), (K, ncols))
+    for name, r, t, shape in zip(("x", "y", "d", "c", "V", "e"), rows, given, shapes):
+        if t is None:
+            assert r is None, name
+            continue
+        assert tuple(r.shape) == shape, name
+        assert r.untyped_storage().data_ptr() == t.untyped_storage().data_ptr(), name
+    assert rows[0].stride(-1) == rows[2].stride(-1) == 1
+    assert rows[2].stride(0) == (0 if bcast_d else N)
+    assert rows[3].stride() == ((0, 0) if coupling == "scalar" else (N - 1, 1))
 
 
 def test_plain_op_matches_the_generic_check_on_config3s_operator():

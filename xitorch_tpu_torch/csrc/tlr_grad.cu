@@ -54,13 +54,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "tlr_common.cuh"
 
-constexpr int kE = 4;                     // elements a thread
-constexpr int kMaxThreads = 1024;         // threads a system at most: n <= 4,096
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kBlockMin = 256;            // threads a block at least
-constexpr int kMaxDevices = 64;
+namespace {
 
 struct Args {
   const float* lam;
@@ -77,12 +73,6 @@ struct Args {
   int n;
   int c_mode;              // 0: no coupling gradient, 1: a scalar's, 2: a plane's
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // this thread's kE elements t, t + P, ... of a row (zeros past n)
 __device__ __forceinline__ void load4(const float* row, int t, int P, int n, bool live,
@@ -329,39 +319,9 @@ __global__ void __launch_bounds__(kMaxThreads) tlr_grad_kernel(const Args a, con
   }
 }
 
-// the device's SM count and the resident blocks an SM can hold
-int device_limit(cudaDeviceAttr what) {
-  static int cache[2][kMaxDevices] = {};
-  const int which = what == cudaDevAttrMultiProcessorCount ? 0 : 1;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
-  int& v = cache[which][dev];
-  if (v == 0 && cudaDeviceGetAttribute(&v, what, dev) != cudaSuccess) v = 0;
-  return v;
-}
-
-// the most blocks a launch holds on the current device: the size of `partial`
-int max_blocks() {
-  return device_limit(cudaDevAttrMultiProcessorCount) *
-         device_limit(cudaDevAttrMaxBlocksPerMultiprocessor);
-}
-
 template <int R, bool kVec>
 int launch(const Args& a, int P, cudaStream_t stream) {
-  const int block = P < kBlockMin ? kBlockMin : P;
-  const int G = block / P;
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tlr_grad_kernel<R, kVec>, block, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int sms = device_limit(cudaDevAttrMultiProcessorCount);
-  if (per_sm < 1 || sms < 1 || max_blocks() < 1) return (int)cudaErrorInvalidConfiguration;
-  // as many blocks as stay resident, and never more than `partial` holds
-  long long grid = (a.K + G - 1) / G;
-  if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
-  if (grid > max_blocks()) grid = max_blocks();
-  tlr_grad_kernel<R, kVec><<<(unsigned)grid, block, 0, stream>>>(a, P);
-  return (int)cudaGetLastError();
+  return launch_persistent<Args>(tlr_grad_kernel<R, kVec>, a, a.K, P, stream);
 }
 
 // kVec: V and gV by float4, only where R % 4 == 0
@@ -381,8 +341,6 @@ int launch_rank(const Args& a, int r, int P, cudaStream_t stream) {
   }
 }
 
-bool aligned(const void* p) { return ((unsigned long long)p & 15ull) == 0; }
-
 }  // namespace
 
 // Plain C entry for ctypes.  lam and x: rows (k, j) of n floats at
@@ -390,7 +348,7 @@ bool aligned(const void* p) { return ((unsigned long long)p & 15ull) == 0; }
 // V + k vk, row-major, or null with r = 0 (then no gV).  Outputs, each
 // contiguous or null where not asked for: gd (K, n), gV (K, n, r), gE (K,
 // J); gc one float (c_mode 1), (K, n - 1) (c_mode 2) or null (c_mode 0).
-// partial holds tlr_grad_slots() floats; counter is one word, 0 before the
+// partial holds tlr_slots() floats; counter is one word, 0 before the
 // launch and after it.  n in [1, 4096], r in [0, 8].  Returns a cudaError_t
 // (0 on success).
 extern "C" int tlr_grad_f32(const float* lam, const float* x, const float* V, float* gd,
@@ -403,14 +361,9 @@ extern "C" int tlr_grad_f32(const float* lam, const float* x, const float* V, fl
       (c_mode != 0 && gc == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{lam, x, V, gd, gV, gc, gE, partial, counter, K, J, lk, lj, xk, xj, vk, n, c_mode};
-  int P = 32;
-  while (P * kE < n) P <<= 1;
+  const int P = row_threads(n);
   // V and gV by float4 where every row of each starts 16-byte aligned
   const bool vec = r % 4 == 0 && r > 0 && aligned(V) && aligned(gV) && vk % 4 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
   return vec ? launch_rank<true>(a, r, P, s) : launch_rank<false>(a, r, P, s);
 }
-
-// The slots of 1 float that `partial` needs on the current device (the most
-// blocks a launch holds there), 0 if the device cannot be read.
-extern "C" int tlr_grad_slots() { return max_blocks(); }

@@ -38,13 +38,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "tlr_common.cuh"
 
-constexpr int kE = 4;                     // elements a thread
-constexpr int kMaxThreads = 1024;         // threads a row at most: n <= 4,096
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kBlockMin = 256;            // threads a block at least
-constexpr int kMaxDevices = 64;
+namespace {
 
 struct Args {
   const float* x;
@@ -65,12 +61,6 @@ struct Args {
 
 // torch.max's rule: a NaN wins
 __device__ __forceinline__ float nanmax(float a, float b) { return (b > a || b != b) ? b : a; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float warp_nanmax(float v) {
 #pragma unroll
@@ -300,40 +290,9 @@ __global__ void __launch_bounds__(kMaxThreads) tlr_residual_kernel(const Args a,
   }
 }
 
-// the device's SM count and the resident blocks an SM can hold
-int device_limit(cudaDeviceAttr what) {
-  static int cache[2][kMaxDevices] = {};
-  const int which = what == cudaDevAttrMultiProcessorCount ? 0 : 1;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
-  int& v = cache[which][dev];
-  if (v == 0 && cudaDeviceGetAttribute(&v, what, dev) != cudaSuccess) v = 0;
-  return v;
-}
-
-// the most blocks a launch holds on the current device: the size of
-// `partial`, in slots of 3 floats
-int max_blocks() {
-  return device_limit(cudaDevAttrMultiProcessorCount) *
-         device_limit(cudaDevAttrMaxBlocksPerMultiprocessor);
-}
-
 template <int R, bool kVec>
 int launch(const Args& a, int P, cudaStream_t stream) {
-  const int block = P < kBlockMin ? kBlockMin : P;
-  const int G = block / P;
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tlr_residual_kernel<R, kVec>, block, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int sms = device_limit(cudaDevAttrMultiProcessorCount);
-  if (per_sm < 1 || sms < 1 || max_blocks() < 1) return (int)cudaErrorInvalidConfiguration;
-  // as many blocks as stay resident, and never more than `partial` holds
-  long long grid = (a.rows + G - 1) / G;
-  if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
-  if (grid > max_blocks()) grid = max_blocks();
-  tlr_residual_kernel<R, kVec><<<(unsigned)grid, block, 0, stream>>>(a, P);
-  return (int)cudaGetLastError();
+  return launch_persistent<Args>(tlr_residual_kernel<R, kVec>, a, a.rows, P, stream);
 }
 
 template <bool kVec>
@@ -352,8 +311,6 @@ int launch_rank(const Args& a, int r, int P, cudaStream_t stream) {
   }
 }
 
-bool aligned(const void* p) { return ((unsigned long long)p & 15ull) == 0; }
-
 }  // namespace
 
 // Plain C entry for ctypes.  x and b: rows (k, j) of n floats at
@@ -361,7 +318,7 @@ bool aligned(const void* p) { return ((unsigned long long)p & 15ull) == 0; }
 // c: none (c_mode 0), one value at c + k ck (1) or n - 1 at c + k ck (2);
 // V: an (n, r) block at V + k vk, row-major, or null with r = 0; e: one
 // value at e + k ek + j ej, or null.  A stride may be 0 (a broadcast).
-// partial holds 3 * tlr_residual_slots() floats; counter is one word, 0
+// partial holds 3 * tlr_slots() floats; counter is one word, 0
 // before the launch and after it.  n in [1, 4096], r in [0, 8].  Returns a
 // cudaError_t (0 on success).
 extern "C" int tlr_residual_f32(const float* x, const float* b, const float* d, const float* c,
@@ -376,8 +333,7 @@ extern "C" int tlr_residual_f32(const float* x, const float* b, const float* d, 
     return (int)cudaErrorInvalidValue;
   Args a{x, b, d, c, V, e, partial, counter, out, K * J, J,
          xk, xj, bk, bj, dk, ck, vk, ek, ej, n, c_mode, rtol, atol};
-  int P = 32;
-  while (P * kE < n) P <<= 1;
+  const int P = row_threads(n);
   // 16-byte loads where every row of x, d, b and V starts 16-byte aligned
   const bool vec = n % kE == 0 && aligned(x) && aligned(b) && aligned(d) &&
                    (r == 0 || aligned(V)) && xk % kE == 0 && xj % kE == 0 && bk % kE == 0 &&
@@ -385,7 +341,3 @@ extern "C" int tlr_residual_f32(const float* x, const float* b, const float* d, 
   const cudaStream_t s = (cudaStream_t)stream;
   return vec ? launch_rank<true>(a, r, P, s) : launch_rank<false>(a, r, P, s);
 }
-
-// The slots of 3 floats that `partial` needs on the current device (the
-// most blocks a launch holds there), 0 if the device cannot be read.
-extern "C" int tlr_residual_slots() { return max_blocks(); }

@@ -11,7 +11,7 @@ xitorch_tpu/linalg/solve.py).
   gradients are enabled: first and second order both work.  A first-order
   backward of a float32 :class:`TridiagLowRankOperator` on CUDA tensors
   takes these gradients in closed form from one kernel launch instead
-  (ops/tlr_grad.py, :func:`_fused_param_grads`).
+  (ops/tlr.py, :func:`_fused_param_grads`).
 """
 from __future__ import annotations
 
@@ -35,8 +35,7 @@ from xitorch_tpu_torch.debug.modes import is_debug_enabled
 from xitorch_tpu_torch.debug.profiling import span, tracing
 from xitorch_tpu_torch.ops.fused_cg import fits_fused_cg, fused_cg_dense
 from xitorch_tpu_torch.ops.structured_cg import fits_structured_cg, structured_cg_solve
-from xitorch_tpu_torch.ops.tlr_grad import tlr_param_grads
-from xitorch_tpu_torch.ops.tlr_residual import residual_verdict, tlr_residual_check
+from xitorch_tpu_torch.ops.tlr import residual_verdict, tlr_param_grads, tlr_residual_check
 from xitorch_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve_kernel
 from xitorch_tpu_torch.utils.exceptions import ConvergenceWarning
 from xitorch_tpu_torch.utils.misc import get_method
@@ -133,12 +132,7 @@ def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
             # semantics (residual vs ||B||, floored only at
             # 100*eps*(||Ax||+||B||)), as in the JAX package
             ax = tridiag_matvec(dl, dcol, du, xT)
-            r = torch.linalg.norm(ax - bT, dim=-1)
-            bn = torch.linalg.norm(bT, dim=-1)
-            eps_d = torch.finfo(x.dtype).eps
-            scale = torch.linalg.norm(ax, dim=-1) + bn
-            stop = torch.maximum(torch.clamp(rtol * bn, min=atol),
-                                 100 * eps_d * scale)
+            r, stop = _residual_rule(ax, bT, rtol, atol, -1, torch.finfo(x.dtype).eps)
             rel = (r / stop).max()
             return x, _make_info(rel < 1.0, 1.0, r.max(), rel)
         return x
@@ -160,13 +154,24 @@ def _structured_cg(A, B, E=None, M=None, rtol: float = 1e-6,
         ax = A.mm(x)
         if E is not None:
             ax = ax - x * E[..., None, :]
-        rT = ax.transpose(-1, -2) - bT
-        rc = torch.linalg.norm(rT, dim=-1)
-        bnorm = torch.linalg.norm(bT, dim=-1)
-        stop = torch.clamp(rtol * bnorm, min=atol)
+        rc, stop = _residual_rule(ax.transpose(-1, -2), bT, rtol, atol, -1)
         rel = (rc / stop).max()
         return x, _make_info(rel < 1.0, it.max(), rc.max(), rel)
     return x
+
+
+def _residual_rule(ax, b, rtol, atol, dim, eps=None):
+    """Each column's measured residual ``||ax - b||`` and its stop
+    ``max(rtol ||b||, atol)``, norms along ``dim``; with ``eps`` (a direct
+    method's, which has no iteration tolerance) the stop is raised to the
+    backward-error floor ``100 eps (||ax|| + ||b||)``."""
+    resid = torch.linalg.norm(ax - b, dim=dim)
+    bnorm = torch.linalg.norm(b, dim=dim)
+    stop = torch.clamp(rtol * bnorm, min=atol)
+    if eps is not None:
+        scale = torch.linalg.norm(ax, dim=dim) + bnorm
+        stop = torch.maximum(stop, 100 * eps * scale)
+    return resid, stop
 
 
 def _kron_direct(A, B, E=None, M=None, return_info: bool = False,
@@ -321,7 +326,7 @@ def solve(A: LinearOperator, B: torch.Tensor,
     :func:`solve` that finds the copy done, by
     :func:`flush_convergence_warnings`, or at the interpreter's exit.  For
     a :class:`TridiagLowRankOperator` in float32 on CUDA tensors (without
-    M) the check is one kernel launch (ops/tlr_residual.py) instead of the
+    M) the check is one kernel launch (ops/tlr.py) instead of the
     matvec and norms.
     """
     with span("xt.solve"):
@@ -527,23 +532,30 @@ class _SolveFunction(torch.autograd.Function):
             return tuple(grads)
 
 
+def _tlr_route(A, M, *tensors) -> bool:
+    """Whether the problem is one for ops/tlr.py's kernels: a
+    :class:`TridiagLowRankOperator` without M, its parameters and every
+    tensor given (None skipped) in float32.  The kernels' window and layout
+    are ops/tlr.py's to decide."""
+    return (M is None and isinstance(A, TridiagLowRankOperator)
+            and all(t.dtype == torch.float32
+                    for t in (A.d, A.c, A.V, *tensors) if t is not None))
+
+
 def _fused_param_grads(A, M, x, lam, E, need, create) -> Optional[list]:
     """The gradients to E and to A's parameters, ``[gE, *per parameter]``
     in the order of ``_SolveFunction``'s inputs (None where not needed),
-    from the gradient operator (ops/tlr_grad.py; the kernel on CUDA
-    tensors, its plain version on CPU tensors) where it takes the problem:
-    a first-order backward (``create`` False) of a
-    :class:`TridiagLowRankOperator` without M, in float32, whose tensors
-    that need a gradient are not broadcast along the system axis, n and
-    the rank inside the kernel, the columns of x and lam contiguous along
-    n.  None otherwise: the generic ``autograd.grad`` through ``A.mm(x)``
-    runs.  :meth:`_SolveFunction.backward` asks it for CUDA tensors only."""
-    if create or M is not None or not isinstance(A, TridiagLowRankOperator):
+    from the gradient operator (ops/tlr.py; the kernel on CUDA tensors, its
+    plain version on CPU tensors) where it takes the problem: a first-order
+    backward (``create`` False) on :func:`_tlr_route`, whose parameters are
+    the operator's own d, c and V, and whose tensors that need a gradient
+    are not broadcast along the system axis, in the kernel's layout.  None
+    otherwise: the generic ``autograd.grad`` through ``A.mm(x)`` runs.
+    :meth:`_SolveFunction.backward` asks it for CUDA tensors only."""
+    if create or not _tlr_route(A, M, x, lam, E):
         return None
-    params = _params(A, M)
     own = [A.d, A.c] + ([A.V] if A.V is not None else [])
-    if [id(p) for p in params] != [id(t) for t in own] or not all(
-            t.dtype == torch.float32 for t in (*own, x, lam, E) if t is not None):
+    if [id(p) for p in _params(A, M)] != [id(t) for t in own]:
         return None
     need_d, need_c = need[3], need[4]
     need_V = A.V is not None and need[5]
@@ -570,15 +582,8 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
             if E is not None:
                 Mx = M.mm(x) if M is not None else x
                 Ax = Ax - Mx * E[..., None, :]
-            resid = torch.linalg.norm(Ax - B2, dim=-2)
-            bnorm = torch.linalg.norm(B2, dim=-2)
-            stop = torch.clamp(rtol * bnorm, min=atol)
-            if direct:
-                # direct methods have no iteration tolerance: their residual
-                # floor is the backward-error bound ~eps*(|Ax| + |B|)
-                eps_d = torch.finfo(x.dtype).eps
-                scale = torch.linalg.norm(Ax, dim=-2) + bnorm
-                stop = torch.maximum(stop, 100 * eps_d * scale)
+            resid, stop = _residual_rule(Ax, B2, rtol, atol, -2,
+                                         torch.finfo(x.dtype).eps if direct else None)
             if resid.numel() == 0:
                 return
             verdict = residual_verdict(resid, stop)
@@ -594,17 +599,14 @@ def _warn_eager(A, B2, E, M, x, method, fwd_options) -> None:
 
 
 def _fused_verdict(A, B2, E, M, x, method, rtol, atol) -> Optional[torch.Tensor]:
-    """The check's verdict from the residual operator (ops/tlr_residual.py;
-    the fused kernel on CUDA tensors, its plain version on CPU tensors)
-    where it takes the problem: a :class:`TridiagLowRankOperator` without
-    M, float32, not a direct method (whose stop needs ``||Ax||``), n and
-    the rank inside the kernel, rows contiguous along n.  None otherwise:
-    the generic check runs.  :func:`_warn_eager` asks it for CUDA tensors
+    """The check's verdict from the residual operator (ops/tlr.py; the
+    fused kernel on CUDA tensors, its plain version on CPU tensors) where
+    it takes the problem: on :func:`_tlr_route`, not a direct method (whose
+    stop needs ``||Ax||``), in the kernel's layout.  None otherwise: the
+    generic check runs.  :func:`_warn_eager` asks it for CUDA tensors
     only."""
-    if not (isinstance(A, TridiagLowRankOperator) and M is None
-            and not (isinstance(method, str) and method in _DIRECT_METHODS)
-            and all(t.dtype == torch.float32
-                    for t in (A.d, A.c, A.V, x, B2, E) if t is not None)):
+    if (isinstance(method, str) and method in _DIRECT_METHODS) \
+            or not _tlr_route(A, M, x, B2, E):
         return None
     return tlr_residual_check(A.d, A.c, A.V, x, B2, E, rtol, atol)
 

@@ -7,11 +7,8 @@ from xitorch_tpu_torch.ops.fused_cg import (  # noqa: F401
 from xitorch_tpu_torch.ops.tridiag import (  # noqa: F401
     thomas_cuda, thomas_plain, tridiag_matvec, tridiag_solve, tridiag_solve_kernel,
 )
-from xitorch_tpu_torch.ops.tlr_residual import (  # noqa: F401
-    fits_tlr_residual, tlr_residual_cuda, tlr_residual_plain,
-)
-from xitorch_tpu_torch.ops.tlr_grad import (  # noqa: F401
-    fits_tlr_grad, tlr_grad_cuda, tlr_grad_plain,
+from xitorch_tpu_torch.ops.tlr import (  # noqa: F401
+    fits_tlr, tlr_grad_cuda, tlr_grad_plain, tlr_residual_cuda, tlr_residual_plain,
 )
 # (jacobi_eigh is not re-exported under its own name: it would shadow the
 # submodule of the same name and its ENABLED switch)
